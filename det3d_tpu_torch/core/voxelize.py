@@ -1,0 +1,169 @@
+"""Fixed-shape batched voxelization in torch, hashed voxel order.
+
+Port of det3d_tpu/core/voxelize.py (``VoxelGenerator`` with
+``order="hashed"``): quantize points to linear voxel ids, stable-sort them by
+(mix32(id), id) so each voxel's points are contiguous and keep their
+original order, find segment heads, and scatter points into a
+(max_voxels, max_points, C) buffer, dropping overflow. The reference vmaps
+one cloud at a time; here the batch dimension is written out.
+
+Only the hashed order is ported; "appearance" and "yxz" raise
+NotImplementedError, as does the fused-mean path.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+SENTINEL = int(np.iinfo(np.int32).max)
+_U32 = 0xFFFFFFFF
+
+
+def quantize(points, num_points, voxel_size, pc_range, grid_size):
+    """(B, P, C) points -> (B, P) int64 xyz-major linear voxel ids; padding
+    and out-of-range points get SENTINEL. Port of voxelize.py::_quantize."""
+    b, p = points.shape[:2]
+    gx, gy, gz = grid_size
+    vsize = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
+    vmin = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)
+    valid = (torch.arange(p, device=points.device)[None, :]
+             < num_points.to(points.device)[:, None])
+    coords = torch.floor((points[..., :3] - vmin) / vsize).to(torch.int32)
+    coords = coords.to(torch.int64)
+    in_range = (
+        valid
+        & (coords[..., 0] >= 0) & (coords[..., 0] < gx)
+        & (coords[..., 1] >= 0) & (coords[..., 1] < gy)
+        & (coords[..., 2] >= 0) & (coords[..., 2] < gz))
+    lin = coords[..., 0] + coords[..., 1] * gx + coords[..., 2] * (gx * gy)
+    return torch.where(in_range, lin, SENTINEL)
+
+
+def mix32(x):
+    """Murmur3 finalizer, a bijection on uint32, computed in int64 with the
+    product masked back to 32 bits. Port of voxelize.py::_mix32."""
+    x = x & _U32
+    x = x ^ (x >> 16)
+    x = (x * 0x85EBCA6B) & _U32
+    x = x ^ (x >> 13)
+    x = (x * 0xC2B2AE35) & _U32
+    x = x ^ (x >> 16)
+    return x
+
+
+def scatter_rows(values, index, keep, n_rows: int):
+    """Scatter (..., D) rows of ``values`` to rows ``index`` of a zeroed
+    (n_rows, D) table, dropping rows where ``keep`` is False (the
+    reference's out-of-bounds sentinel with ``mode="drop"``). Dropped rows
+    go to one spare row past the end, which is cut off, so no index is out
+    of bounds and the host never waits for a mask count. Kept indices must
+    be unique."""
+    d = values.shape[-1]
+    out = torch.zeros((n_rows + 1, d), dtype=values.dtype,
+                      device=values.device)
+    idx = torch.where(keep, index, n_rows).reshape(-1)
+    out[idx] = values.reshape(-1, d)
+    return out[:n_rows]
+
+
+def voxelize_hashed(points, num_points, *, voxel_size, pc_range, grid_size,
+                    max_voxels: int, max_points: int):
+    """Voxelize a batch of padded clouds in hashed voxel order.
+
+    points: (B, P, C) float; num_points: (B,) int.
+    Returns dict with voxels (B, V, T, C), coords (B, V, 3) int32 zyx (-1
+    padded), num_points_per_voxel (B, V) int32, num_voxels (B,) int32.
+    """
+    b, p, c = points.shape
+    gx, gy, _ = grid_size
+    dev = points.device
+    v_cap, t_cap = int(max_voxels), int(max_points)
+    lin = quantize(points, num_points, voxel_size, pc_range, grid_size)
+
+    # sort by (key, lin): one int64 key with the 32-bit hash above the
+    # 31-bit id; the stable sort keeps each voxel's points in input order
+    key = torch.where(lin == SENTINEL, _U32, mix32(lin))
+    sorted_key, perm = torch.sort((key << 31) | lin, dim=1, stable=True)
+    sorted_lin = sorted_key & SENTINEL
+    pos = torch.arange(p, device=dev).expand(b, p)
+
+    svalid = sorted_lin != SENTINEL
+    head = svalid.clone()
+    head[:, 1:] &= sorted_lin[:, 1:] != sorted_lin[:, :-1]
+    seg_id = torch.clamp(torch.cumsum(head.to(torch.int64), dim=1) - 1, min=0)
+    start = torch.cummax(torch.where(head, pos, 0), dim=1).values
+    slot_p = pos - start
+
+    write = svalid & (seg_id < v_cap) & (slot_p < t_cap)
+    row = torch.arange(b, device=dev)[:, None] * v_cap + seg_id   # (B, P)
+    sorted_pts = torch.gather(points, 1, perm[..., None].expand(b, p, c))
+    voxels = scatter_rows(sorted_pts, row * t_cap + slot_p, write,
+                          b * v_cap * t_cap).view(b, v_cap, t_cap, c)
+
+    # head rows carry (z, y, x, start_pos); coords by delinearizing the id
+    safe = torch.where(svalid, sorted_lin, 0)
+    payload = torch.stack([safe // (gx * gy), (safe // gx) % gy, safe % gx,
+                           pos], dim=-1)
+    table = scatter_rows(payload, row, head & (seg_id < v_cap),
+                         b * v_cap).view(b, v_cap, 4)
+
+    num_voxels = torch.clamp(head.sum(dim=1), max=v_cap)
+    vvalid = torch.arange(v_cap, device=dev)[None, :] < num_voxels[:, None]
+    coords = torch.where(vvalid[..., None], table[..., :3], -1)
+
+    # rows of kept segments form a sorted prefix of length n_kept; counts
+    # are differences of consecutive starts
+    n_kept = (svalid & (seg_id < v_cap)).sum(dim=1, keepdim=True)
+    starts = torch.where(vvalid, table[..., 3], n_kept)
+    ends = torch.cat([starts[:, 1:], n_kept], dim=1)
+    counts = torch.where(vvalid, torch.clamp(ends - starts, 0, t_cap), 0)
+
+    return {
+        "voxels": voxels,
+        "coords": coords.to(torch.int32),
+        "num_points_per_voxel": counts.to(torch.int32),
+        "num_voxels": num_voxels.to(torch.int32),
+    }
+
+
+@dataclass(frozen=True)
+class VoxelGenerator:
+    """Config-level voxelizer. Port of voxelize.py::VoxelGenerator.
+
+    grid_size = round((range_max - range_min) / voxel_size), like the
+    reference."""
+    voxel_size: Sequence[float]
+    point_cloud_range: Sequence[float]
+    max_num_points: int
+    max_voxels: int = 20000
+    order: str = "hashed"
+    fuse_mean: bool = False
+
+    def __post_init__(self):
+        if self.order != "hashed":
+            raise NotImplementedError(
+                f"voxel order {self.order!r} is not ported yet; use 'hashed'")
+        if self.fuse_mean:
+            raise NotImplementedError("the fused-mean voxelizer is not "
+                                      "ported yet")
+
+    @property
+    def grid_size(self) -> Tuple[int, int, int]:
+        vs = np.asarray(self.voxel_size, np.float64)
+        rng = np.asarray(self.point_cloud_range, np.float64)
+        g = np.round((rng[3:] - rng[:3]) / vs).astype(np.int64)
+        return tuple(int(v) for v in g)
+
+    def generate_batch(self, points, num_points):
+        """(B, P, C) padded clouds and (B,) counts -> voxelize_hashed's dict."""
+        return voxelize_hashed(
+            points, num_points,
+            voxel_size=tuple(float(v) for v in self.voxel_size),
+            pc_range=tuple(float(v) for v in self.point_cloud_range),
+            grid_size=self.grid_size,
+            max_voxels=int(self.max_voxels),
+            max_points=int(self.max_num_points))

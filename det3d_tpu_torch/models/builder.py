@@ -1,0 +1,83 @@
+"""Build models from reference-schema config dicts; random weights.
+
+Port of det3d_tpu/models/builder.py::build_detector over the port's own
+registries.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from det3d_tpu.utils.registry import build_from_cfg
+from det3d_tpu_torch.core.anchors import build_box_coder
+from det3d_tpu_torch.models import backbones as _backbones  # noqa: F401
+from det3d_tpu_torch.models import detectors as _detectors  # noqa: F401
+from det3d_tpu_torch.models import heads as _heads  # noqa: F401
+from det3d_tpu_torch.models import necks as _necks  # noqa: F401
+from det3d_tpu_torch.models import readers as _readers  # noqa: F401
+from det3d_tpu_torch.models.norm import MaskedBatchNorm
+from det3d_tpu_torch.models.registry import (BACKBONES, DETECTORS, HEADS,
+                                             NECKS, READERS)
+
+
+def _clean(cfg: dict) -> dict:
+    """Drop config keys with no meaning here and rename ``name``."""
+    cfg = dict(cfg)
+    cfg.pop("logger", None)
+    if "name" in cfg:
+        cfg["name_str"] = cfg.pop("name")
+    return cfg
+
+
+def build_detector(cfg, train_cfg: Optional[dict] = None,
+                   test_cfg: Optional[dict] = None, grid_size=None):
+    """Build a detector from a reference-schema model config. grid_size is
+    the voxel grid (nx, ny, nz) the canvas is sized by."""
+    cfg = dict(cfg)
+    det_type = cfg.pop("type")
+    cfg.pop("pretrained", None)
+    reader = build_from_cfg(_clean(cfg.pop("reader")), READERS)
+    backbone = build_from_cfg(_clean(cfg.pop("backbone")), BACKBONES)
+    neck = (build_from_cfg(_clean(cfg.pop("neck")), NECKS)
+            if "neck" in cfg else None)
+    head_cfg = _clean(cfg.pop("bbox_head"))
+    if isinstance(head_cfg.get("box_coder"), dict):
+        head_cfg["box_coder"] = build_box_coder(head_cfg["box_coder"])
+    head = build_from_cfg(head_cfg, HEADS)
+
+    det_cls = DETECTORS.get(det_type)
+    if det_cls is None:
+        raise NotImplementedError(f"detector {det_type!r} is not ported yet")
+    if grid_size is not None:
+        grid_size = tuple(int(g) for g in grid_size)
+    return det_cls(reader=reader, backbone=backbone, neck=neck,
+                   bbox_head=head, train_cfg=train_cfg, test_cfg=test_cfg,
+                   grid_size=grid_size)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights drawn from ``generator`` (a CPU generator; the model
+    must be on the CPU): convolution and linear weights from a normal with
+    std 1/sqrt(fan_in), as flax's default LeCun init, biases zero,
+    BatchNorm at identity statistics."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            w = m.weight
+            fan_in = w.shape[1] * w[0, 0].numel()
+            if isinstance(m, nn.ConvTranspose2d):       # (in, out, kh, kw)
+                fan_in = w.shape[0] * w[0, 0].numel()
+            w.copy_(torch.randn(w.shape, generator=generator)
+                    / math.sqrt(fan_in))
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, MaskedBatchNorm):
+            m.scale.fill_(1.0)
+            m.bias.zero_()
+            m.mean.zero_()
+            m.var.fill_(1.0)
+    return model

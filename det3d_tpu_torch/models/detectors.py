@@ -1,0 +1,41 @@
+"""Detector composition: reader -> backbone -> neck -> bbox_head.
+
+Port of det3d_tpu/models/detectors.py::PointPillars. ``forward`` returns
+the head's raw predictions; ``predict`` decodes them, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from torch import nn
+
+from det3d_tpu_torch.models.registry import DETECTORS
+
+
+@DETECTORS.register_module
+class PointPillars(nn.Module):
+
+    def __init__(self, reader, backbone, neck, bbox_head,
+                 train_cfg: Optional[dict] = None,
+                 test_cfg: Optional[dict] = None,
+                 grid_size: Optional[Tuple[int, int, int]] = None):
+        super().__init__()
+        self.reader = reader
+        self.backbone = backbone
+        self.neck = neck
+        self.bbox_head = bbox_head
+        self.train_cfg = train_cfg
+        self.test_cfg = test_cfg
+        self.grid_size = grid_size          # (nx, ny, nz)
+
+    def forward(self, voxels, num_points, coors):
+        feats = self.reader(voxels, num_points, coors)         # (B, V, U)
+        x = self.backbone(feats, coors, self.grid_size)        # (B, ny, nx, U)
+        if self.neck is not None:
+            x = self.neck(x)
+        return self.bbox_head(x)
+
+    def predict(self, example, preds, test_cfg=None):
+        return self.bbox_head.predict(example, preds,
+                                      test_cfg or self.test_cfg)

@@ -1,0 +1,256 @@
+"""Multi-group anchor head: forward and fixed-shape prediction.
+
+Port of det3d_tpu/models/heads.py: ``TaskHead``, the ``MultiGroupHead``
+forward, ``_task_candidates`` (decode, sigmoid scores, score threshold),
+``_nms_select`` (rotated NMS, direction fix, post-center range filter),
+``predict`` and ``_merge_tasks`` (the ``max_per_img`` cap). The loss and
+double-flip TTA wait for later ports.
+
+Head outputs keep the reference's NHWC layout (B, H, W, A_loc * code), so
+they flatten to (B, H*W*A_loc, code) in the anchors' (fz, fy, fx, loc)
+order. Predictions are per-sample padded arrays with a validity mask.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Sequence
+
+import torch
+from torch import nn
+
+from det3d_tpu_torch.models.registry import HEADS
+from det3d_tpu_torch.ops import nms as nms_ops
+from det3d_tpu_torch.core import box_ops
+
+
+class TaskHead(nn.Module):
+    """Per-task 1x1 convs for box, class and direction predictions."""
+
+    def __init__(self, in_channels: int, num_pred: int, num_cls: int,
+                 num_dir: int = 0):
+        super().__init__()
+        self.conv_box = nn.Conv2d(in_channels, num_pred, 1)
+        self.conv_cls = nn.Conv2d(in_channels, num_cls, 1)
+        self.conv_dir = nn.Conv2d(in_channels, num_dir, 1) if num_dir else None
+
+    def forward(self, x):
+        """x: NCHW view -> dict of NHWC predictions."""
+        ret = {"box_preds": self.conv_box(x).permute(0, 2, 3, 1),
+               "cls_preds": self.conv_cls(x).permute(0, 2, 3, 1)}
+        if self.conv_dir is not None:
+            ret["dir_cls_preds"] = self.conv_dir(x).permute(0, 2, 3, 1)
+        return ret
+
+
+@HEADS.register_module
+class MultiGroupHead(nn.Module):
+    """One TaskHead per task over a shared BEV feature map. Takes the
+    reference config's keys; the loss settings among them are accepted and
+    unused until the loss is ported."""
+
+    def __init__(self, mode: str = "3d", in_channels: int = 128,
+                 norm_cfg: Optional[dict] = None, tasks: Sequence[dict] = (),
+                 weights: Sequence[float] = (), box_coder: Any = None,
+                 with_cls: bool = True, with_reg: bool = True,
+                 encode_background_as_zeros: bool = True,
+                 loss_norm: Optional[dict] = None,
+                 loss_cls: Optional[dict] = None,
+                 use_sigmoid_score: bool = True,
+                 loss_bbox: Optional[dict] = None,
+                 encode_rad_error_by_sin: bool = True,
+                 loss_aux: Optional[dict] = None,
+                 direction_offset: float = 0.0, name_str: str = "rpn"):
+        super().__init__()
+        self.tasks = list(tasks)
+        self.box_coder = box_coder
+        self.encode_background_as_zeros = encode_background_as_zeros
+        self.use_direction_classifier = loss_aux is not None
+        self.direction_offset = float(direction_offset)
+        code_size = box_coder.code_size
+        for t, (num_c, num_a) in enumerate(zip(self.num_classes,
+                                               self.num_anchor_per_locs)):
+            num_cls = num_a * (num_c if encode_background_as_zeros
+                               else num_c + 1)
+            num_dir = num_a * 2 if self.use_direction_classifier else 0
+            self.add_module(f"task_{t}", TaskHead(
+                in_channels, num_a * code_size, num_cls, num_dir))
+
+    @property
+    def num_classes(self) -> List[int]:
+        return [len(t["class_names"]) for t in self.tasks]
+
+    @property
+    def num_anchor_per_locs(self) -> List[int]:
+        return [2 * n for n in self.num_classes]
+
+    @property
+    def box_n_dim(self) -> int:
+        return self.box_coder.code_size
+
+    @property
+    def anchor_dim(self) -> int:
+        return self.box_coder.n_dim
+
+    def forward(self, x):
+        """x: (B, H, W, C) -> one dict of NHWC predictions per task."""
+        x = x.permute(0, 3, 1, 2)
+        return [getattr(self, f"task_{t}")(x) for t in range(len(self.tasks))]
+
+    # ------------------------------------------------------------------
+    # prediction (fixed shape)
+    # ------------------------------------------------------------------
+    def _task_candidates(self, example, preds, task_id, test_cfg):
+        """Decode one task's head output into NMS candidates: (reg,
+        nms_scores, top_labels, dir_labels, offsets), each (B, A', ...)."""
+        use_multi_class = test_cfg["nms"].get("use_multi_class_nms", False)
+        score_threshold = float(test_cfg["score_threshold"])
+
+        batch = preds["box_preds"].shape[0]
+        anchors = example["anchors"][task_id].reshape(batch, -1,
+                                                      self.anchor_dim)
+        num_class = self.num_classes[task_id]
+        box_preds = preds["box_preds"].reshape(batch, -1, self.box_n_dim)
+        cls_preds = preds["cls_preds"].reshape(batch, -1, num_class)
+        reg = self.box_coder.decode(box_preds, anchors)
+        if self.use_direction_classifier:
+            dir_preds = preds["dir_cls_preds"].reshape(batch, -1, 2)
+            dir_labels = torch.argmax(dir_preds, dim=-1)
+        else:
+            dir_labels = torch.zeros(cls_preds.shape[:2], dtype=torch.int64,
+                                     device=cls_preds.device)
+
+        total_scores = torch.sigmoid(cls_preds)
+        if use_multi_class and num_class > 1:
+            # per-class NMS in one pass: each class is shifted to its own
+            # far-away region so NMS cannot suppress across classes
+            per_cls = torch.where(total_scores >= score_threshold,
+                                  total_scores, -1.0)
+            nms_scores = torch.cat([per_cls[..., c] for c in range(num_class)],
+                                   dim=1)
+            top_labels = torch.cat(
+                [torch.full(per_cls.shape[:2], c, dtype=torch.int64,
+                            device=per_cls.device) for c in range(num_class)],
+                dim=1)
+            reg = reg.repeat(1, num_class, 1)
+            dir_labels = dir_labels.repeat(1, num_class)
+            offsets = (top_labels.to(torch.float32) * 1e4)[..., None]
+        else:
+            if num_class == 1:
+                top_scores = total_scores[..., 0]
+                top_labels = torch.zeros_like(top_scores, dtype=torch.int64)
+            else:
+                top_scores, top_labels = torch.max(total_scores, dim=-1)
+            nms_scores = torch.where(top_scores >= score_threshold,
+                                     top_scores, -1.0)
+            offsets = torch.zeros(reg.shape[:2] + (1,), dtype=reg.dtype,
+                                  device=reg.device)
+        return reg, nms_scores, top_labels, dir_labels, offsets
+
+    def _nms_select(self, reg, nms_scores, top_labels, dir_labels, offsets,
+                    test_cfg, apply_dir: bool):
+        """Fixed-shape NMS over each sample's candidates (N leading)."""
+        nms_cfg = test_cfg["nms"]
+        use_rotate = nms_cfg["use_rotate_nms"]
+        pre_max = int(nms_cfg["nms_pre_max_size"])
+        post_max = int(nms_cfg["nms_post_max_size"])
+        iou_th = float(nms_cfg["nms_iou_threshold"])
+        post_center_range = test_cfg.get("post_center_limit_range")
+
+        reg_nms = torch.cat([reg[..., :1] + offsets[..., :1], reg[..., 1:]],
+                            dim=-1)
+        if use_rotate:
+            boxes_for_nms = reg_nms[..., [0, 1, 3, 4, reg.shape[-1] - 1]]
+        else:
+            n, a = reg.shape[:2]
+            corners = box_ops.center_to_corner_box2d(
+                reg_nms[..., :2].reshape(-1, 2),
+                reg_nms[..., 3:5].reshape(-1, 2), reg_nms[..., -1].reshape(-1))
+            boxes_for_nms = box_ops.corner_to_standup_nd(corners).reshape(
+                n, a, 4)
+        idx, valid = nms_ops.nms(boxes_for_nms, nms_scores,
+                                 pre_max_size=pre_max, post_max_size=post_max,
+                                 iou_threshold=iou_th, rotated=bool(use_rotate))
+
+        sel_boxes = torch.gather(
+            reg, 1, idx[..., None].expand(-1, -1, reg.shape[-1]))
+        sel_scores = torch.gather(nms_scores, 1, idx)
+        sel_labels = torch.gather(top_labels, 1, idx)
+        if apply_dir and self.use_direction_classifier:
+            sel_dir = torch.gather(dir_labels, 1, idx)
+            yaw = sel_boxes[..., -1]
+            opp = ((yaw - self.direction_offset) > 0) ^ sel_dir.bool()
+            yaw = yaw + torch.where(opp, math.pi, 0.0)
+            sel_boxes = torch.cat([sel_boxes[..., :-1], yaw[..., None]], -1)
+        if post_center_range is not None and len(post_center_range) > 0:
+            pcr = torch.tensor(post_center_range, dtype=sel_boxes.dtype,
+                               device=sel_boxes.device)
+            inside = ((sel_boxes[..., :3] >= pcr[:3]).all(dim=-1)
+                      & (sel_boxes[..., :3] <= pcr[3:]).all(dim=-1))
+            valid = valid & inside
+        return sel_boxes, sel_scores, sel_labels, valid
+
+    def predict(self, example: Dict[str, Any], preds_dicts: List[dict],
+                test_cfg) -> Dict[str, torch.Tensor]:
+        """Decode + NMS all tasks; padded per-sample detections:
+        box3d_lidar (B, D, anchor_dim), scores (B, D), label_preds (B, D)
+        global label ids, valid (B, D) bool."""
+        cands = [self._task_candidates(example, preds, t, test_cfg)
+                 for t, preds in enumerate(preds_dicts)]
+        n_tasks = len(cands)
+        if n_tasks == 1:
+            sel = [self._nms_select(*cands[0], test_cfg, apply_dir=True)]
+        else:
+            # tasks are independent NMS problems: fold them into the sample
+            # dimension, padding candidate counts with invalid entries
+            amax = max(c[0].shape[1] for c in cands)
+
+            def padto(x, fill):
+                pad = [0, 0] * (x.dim() - 2) + [0, amax - x.shape[1]]
+                return nn.functional.pad(x, pad, value=fill)
+
+            fused = []
+            for i, fill in enumerate((0.0, -1.0, 0, 0, 0.0)):
+                st = torch.stack([padto(c[i], fill) for c in cands], dim=1)
+                fused.append(st.reshape((-1,) + st.shape[2:]))
+            outs = self._nms_select(*fused, test_cfg, apply_dir=True)
+            bsz = cands[0][0].shape[0]
+            sel = [tuple(x.reshape((bsz, n_tasks) + x.shape[1:])[:, t]
+                         for x in outs) for t in range(n_tasks)]
+
+        boxes_all, scores_all, labels_all, valid_all = [], [], [], []
+        label_offset = 0
+        for t, (b, s, l, v) in enumerate(sel):
+            boxes_all.append(b)
+            scores_all.append(s)
+            labels_all.append(torch.where(v, l + label_offset, 0))
+            valid_all.append(v)
+            label_offset += self.num_classes[t]
+        return self._merge_tasks(boxes_all, scores_all, labels_all,
+                                 valid_all, test_cfg)
+
+    def _merge_tasks(self, boxes_all, scores_all, labels_all, valid_all,
+                     test_cfg):
+        """Concatenate per-task detections and keep the ``max_per_img``
+        best valid ones (ties: lower index first, as jax.lax.top_k)."""
+        out = {
+            "box3d_lidar": torch.cat(boxes_all, dim=1),
+            "scores": torch.cat(scores_all, dim=1),
+            "label_preds": torch.cat(labels_all, dim=1),
+            "valid": torch.cat(valid_all, dim=1),
+        }
+        mpi = int(test_cfg.get("max_per_img", 0) or 0)
+        d = out["scores"].shape[1]
+        if 0 < mpi < d:
+            masked = torch.where(out["valid"], out["scores"], -math.inf)
+            idx = nms_ops.sort_desc(masked, dim=1).indices[:, :mpi]
+            out = {
+                "box3d_lidar": torch.gather(
+                    out["box3d_lidar"], 1,
+                    idx[..., None].expand(-1, -1,
+                                          out["box3d_lidar"].shape[-1])),
+                "scores": torch.gather(out["scores"], 1, idx),
+                "label_preds": torch.gather(out["label_preds"], 1, idx),
+                "valid": torch.gather(out["valid"], 1, idx),
+            }
+        return out

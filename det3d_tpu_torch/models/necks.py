@@ -1,0 +1,91 @@
+"""RPN neck: strided conv stages with upsampling branches.
+
+Port of det3d_tpu/models/necks.py::RPN. Per stage, a stride-s 3x3 conv,
+then ``layer_num`` 3x3 convs, each conv + BN + ReLU; each stage from
+``upsample_start_idx`` feeds a transposed-conv (stride > 1) or conv
+(stride <= 1) branch, and the branch outputs concatenate on channels.
+
+Input and output keep the reference's NHWC layout. Inside, the tensors are
+NCHW views of channels-last memory (a permute, no copy), which is the
+layout the convolutions take natively.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from det3d_tpu_torch.models.norm import build_norm, check_precision
+from det3d_tpu_torch.models.registry import NECKS
+
+
+@NECKS.register_module
+class RPN(nn.Module):
+
+    def __init__(self, layer_nums: Sequence[int] = (3, 5, 5),
+                 ds_layer_strides: Sequence[int] = (2, 2, 2),
+                 ds_num_filters: Sequence[int] = (64, 128, 256),
+                 us_layer_strides: Sequence[int] = (1, 2, 4),
+                 us_num_filters: Sequence[int] = (128, 128, 128),
+                 num_input_features: int = 64,
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32",
+                 name_str: str = "rpn"):
+        super().__init__()
+        check_precision(precision)
+        us_start = len(layer_nums) - len(us_layer_strides)
+        # (conv, bn) name pairs in call order, per stage, then the branch
+        self.stages = []
+        self.branches = []
+        in_ch = num_input_features
+        for i, num_blocks in enumerate(layer_nums):
+            out_ch = ds_num_filters[i]
+            names = [f"block{i}_down"] + [f"block{i}_conv{j}"
+                                          for j in range(num_blocks)]
+            for j, name in enumerate(names):
+                stride = ds_layer_strides[i] if j == 0 else 1
+                self.add_module(f"{name}_conv", nn.Conv2d(
+                    in_ch if j == 0 else out_ch, out_ch, 3, stride=stride,
+                    padding=1, bias=False))
+                self.add_module(f"{name}_bn", build_norm(norm_cfg, out_ch))
+            self.stages.append(names)
+            in_ch = out_ch
+            k = i - us_start
+            if k < 0:
+                self.branches.append(None)
+                continue
+            stride = us_layer_strides[k]
+            if stride > 1:
+                name = f"deblock{k}_deconv"
+                conv = nn.ConvTranspose2d(out_ch, us_num_filters[k], stride,
+                                          stride=stride, bias=False)
+            else:
+                s = int(np.round(1 / stride))
+                name = f"deblock{k}_conv"
+                conv = nn.Conv2d(out_ch, us_num_filters[k], s, stride=s,
+                                 bias=False)
+            self.add_module(name, conv)
+            self.add_module(f"deblock{k}_bn",
+                            build_norm(norm_cfg, us_num_filters[k]))
+            self.branches.append((name, f"deblock{k}_bn"))
+
+    def _bn_relu(self, bn_name, x):
+        # BN normalizes the last axis: run it on the NHWC view
+        y = getattr(self, bn_name)(x.permute(0, 2, 3, 1))
+        return torch.relu(y).permute(0, 3, 1, 2)
+
+    def forward(self, x):
+        """x: (B, H, W, C) -> (B, H', W', sum(us_num_filters))."""
+        x = x.permute(0, 3, 1, 2)
+        ups = []
+        for names, branch in zip(self.stages, self.branches):
+            for name in names:
+                x = self._bn_relu(f"{name}_bn", getattr(self, f"{name}_conv")(x))
+            if branch is not None:
+                conv_name, bn_name = branch
+                ups.append(self._bn_relu(bn_name, getattr(self, conv_name)(x)))
+        if ups:
+            x = torch.cat(ups, dim=1)
+        return x.permute(0, 2, 3, 1)

@@ -1,0 +1,49 @@
+"""BatchNorm with the reference's parameter names, evaluation path.
+
+Port of det3d_tpu/models/norm.py::MaskedBatchNorm for serving: it
+normalizes the last axis with the running statistics,
+``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, in the reference's
+order of operations. In eval the mask plays no part. Batch statistics, the
+mask and the synced variant wait for the training port.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+
+class MaskedBatchNorm(nn.Module):
+    """Normalizes (..., C) over C with running ``mean`` and ``var``."""
+
+    def __init__(self, num_features: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = float(eps)
+        self.scale = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("mean", torch.zeros(num_features))
+        self.register_buffer("var", torch.ones(num_features))
+
+    def forward(self, x):
+        if self.training:
+            raise NotImplementedError(
+                "MaskedBatchNorm batch statistics are not ported yet; call "
+                "model.eval()")
+        inv = torch.rsqrt(self.var + self.eps) * self.scale
+        return (x - self.mean) * inv + self.bias
+
+
+def build_norm(norm_cfg: Optional[dict], num_features: int) -> MaskedBatchNorm:
+    """BN / BN1d / SyncBN configs all map to MaskedBatchNorm (eval is the
+    same for all of them)."""
+    cfg = dict(norm_cfg or {})
+    return MaskedBatchNorm(num_features, eps=float(cfg.get("eps", 1e-3)))
+
+
+def check_precision(precision: str) -> None:
+    """Only fp32 is ported; bf16 raises rather than quietly running fp32."""
+    if str(precision).lower() not in ("fp32", "float32"):
+        raise NotImplementedError(
+            f"precision={precision!r} is not ported yet (fp32 only)")

@@ -1,0 +1,101 @@
+"""Pillar feature reader: decorated points, linear + BN + ReLU, pillar max.
+
+Port of det3d_tpu/models/readers.py (``paddings_indicator``, ``PFNLayer``,
+``PillarFeatureNet``). Inputs keep the reference's batched, padded layout:
+voxels (B, V, T, C), per-voxel point counts (B, V), zyx coords (B, V, 3).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from det3d_tpu_torch.models.norm import build_norm, check_precision
+from det3d_tpu_torch.models.registry import READERS
+
+
+def paddings_indicator(num_points, max_points: int):
+    """(B, V) counts -> (B, V, T) bool mask of the real point slots."""
+    ids = torch.arange(max_points, device=num_points.device)
+    return ids[None, None, :] < num_points[..., None]
+
+
+class PFNLayer(nn.Module):
+    """Linear (no bias) + BN + ReLU, then the max over the pillar's points;
+    all but the last layer concatenate that max back onto every point."""
+
+    def __init__(self, in_channels: int, units: int, last_layer: bool = False,
+                 norm_cfg: Optional[dict] = None):
+        super().__init__()
+        self.last_layer = last_layer
+        out = units if last_layer else units // 2
+        self.linear = nn.Linear(in_channels, out, bias=False)
+        self.norm = build_norm(norm_cfg, out)
+
+    def forward(self, x):
+        x = torch.relu(self.norm(self.linear(x)))           # (B, V, T, U)
+        x_max = x.amax(dim=2, keepdim=True)                  # (B, V, 1, U)
+        if self.last_layer:
+            return x_max
+        return torch.cat([x, x_max.expand_as(x)], dim=-1)
+
+
+@READERS.register_module
+class PillarFeatureNet(nn.Module):
+    """Decorate points with cluster and pillar-center offsets, run the PFN
+    layers, and return one feature row per pillar (B, V, U)."""
+
+    def __init__(self, num_input_features: int = 4,
+                 num_filters: Sequence[int] = (64,),
+                 with_distance: bool = False,
+                 voxel_size: Tuple[float, ...] = (0.2, 0.2, 4.0),
+                 pc_range: Tuple[float, ...] = (0.0, -40.0, -3.0, 70.4, 40.0,
+                                                1.0),
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32",
+                 name_str: str = "PillarFeatureNet"):
+        super().__init__()
+        check_precision(precision)
+        self.with_distance = with_distance
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.pc_range = tuple(float(v) for v in pc_range)
+        in_ch = num_input_features + 5 + (1 if with_distance else 0)
+        filters = list(num_filters)
+        self.num_layers = len(filters)
+        for i, units in enumerate(filters):
+            last = i == len(filters) - 1
+            self.add_module(f"pfn_{i}", PFNLayer(in_ch, units, last, norm_cfg))
+            in_ch = units
+
+    def forward(self, voxels, num_points, coors):
+        dtype = voxels.dtype
+        t = voxels.shape[2]
+        mask = paddings_indicator(num_points, t)            # (B, V, T)
+        maskf = mask[..., None].to(dtype)
+        denom = torch.clamp(num_points, min=1).to(dtype)[..., None, None]
+
+        # f_cluster: offsets from the mean of the pillar's real points
+        xyz = voxels[..., :3]
+        points_mean = (xyz * maskf).sum(dim=2, keepdim=True) / denom
+        f_cluster = xyz - points_mean
+
+        # f_center: offsets from the pillar's grid-cell center
+        vx, vy = self.voxel_size[0], self.voxel_size[1]
+        x_offset = vx / 2 + self.pc_range[0]
+        y_offset = vy / 2 + self.pc_range[1]
+        cx = coors[..., 2].to(dtype)[..., None] * vx + x_offset  # (B, V, 1)
+        cy = coors[..., 1].to(dtype)[..., None] * vy + y_offset
+        f_center = torch.stack([voxels[..., 0] - cx, voxels[..., 1] - cy],
+                               dim=-1)
+
+        feats = [voxels, f_cluster, f_center]
+        if self.with_distance:
+            feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
+        features = torch.cat(feats, dim=-1) * maskf
+
+        for i in range(self.num_layers):
+            features = getattr(self, f"pfn_{i}")(features)
+        out = features.squeeze(2)                            # (B, V, U)
+        # empty pillar rows stay zero for the scatter
+        return out * (num_points > 0)[..., None].to(out.dtype)
