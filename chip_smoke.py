@@ -2,15 +2,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the flagship PointPillars serving step at
-KITTI-car scale, through the entry points a user calls, and prints one line
-per phase:
+Drives the port's two serving paths through the entry points a user calls
+(the flagship PointPillars step, then SECOND from host plans, both at
+KITTI-car scale and full widths) and prints one line per phase:
 
   1. device: the card, as nvidia-smi names it, and its power limit;
-  2. build: nvcc builds csrc/rotated_nms.cu (sm_90a) from the checkout;
-  3. kernel against plain: the rotated-NMS keep masks of the CUDA kernel
-     and of its plain PyTorch twin, on the card, must be equal at the
-     flagship shape (N=8 samples, K=1000 boxes), at K=333, all invalid,
+  2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
+     (sm_90a) from the checkout, one process each, in parallel;
+  3. NMS kernel against plain: the rotated-NMS keep masks of the CUDA
+     kernel and of its plain PyTorch twin, on the card, must be equal at
+     the flagship shape (N=8 samples, K=1000 boxes), at K=333, all invalid,
      duplicated boxes and zero-size boxes;
   4. flagship predict: build_stack from the flagship config (full widths,
      fp32, 12000 pillars of 32 points), random weights from
@@ -20,8 +21,29 @@ per phase:
   5. the same weights on the CPU at B=1: head outputs agree with the card's
      within the stated tolerance, and the CPU post-processing (plain NMS)
      fed the card's head outputs gives exactly the card's detections;
-  6. timing with CUDA events (5 warm-up runs, median of 20): predict ms per
-     scan at B=8, its stages, and the NMS kernel against its plain twin.
+  6. flagship timing with CUDA events (5 warm-up runs, median of 20):
+     predict ms per scan at B=8, its stages, and the NMS kernel against its
+     plain twin;
+  7. SECOND host plan: configs/kitti_car_second.py as shipped (0.05 m
+     voxels, 20000 voxels of 5 points, bf16 middle; random weights from
+     torch.Generator().manual_seed(0), BatchNorm statistics calibrated on
+     one scan), host_plan_fn builds the rulebooks and voxels of B=2
+     structured scans of 16384 points;
+  8. window-conv kernel against plain: on those plans, at every
+     (Cin, Cout, center_shift) the middle launches, with random features
+     and weights, in fp32 (rtol = atol = 1e-4) and bf16 (against the plain
+     version in fp32 on the same bf16-rounded operands, rtol = atol =
+     1e-3), and an all-absent plan (exact zeros);
+  9. SECOND predict at B=2: boxes (2, 100, 7), finite, some valid, exactly
+     10 window-conv launches and at least one NMS launch;
+ 10. SECOND card vs CPU at B=1 with the middle in fp32: host plans and
+     voxels equal, head outputs within the stated tolerance, the CPU
+     post-processing of the card's heads gives the card's detections;
+ 11. SECOND timing: predict ms per scan at B=2 (device step; the host plan
+     build printed apart), its stages, each conv shape's kernel time
+     against its plain version, peak memory;
+ 12. SECOND profile: torch.profiler over 5 predict steps, device time by
+     kernel and the device's busy share.
 
 TF32 is off throughout (cuDNN and matmul), so the card computes in full
 fp32 like the CPU. Any failed check raises and the script exits non-zero;
@@ -31,11 +53,15 @@ lines are a JSON object of the kernels and the JSON result line.
 
 from __future__ import annotations
 
+import copy
+import functools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -46,6 +72,19 @@ IOU_MARGIN = 1e-4
 HEAD_TOL = dict(rtol=1e-3, atol=1e-3)   # card vs CPU fp32: sum order only
 DET_TOL = 1e-5                          # CPU vs card decode: last-bit exp/sin
 WARMUP, REPEAT = 5, 20
+
+SECOND_CFG = Path(__file__).resolve().parent / "configs" / "kitti_car_second.py"
+SECOND_B = 2
+SECOND_LAUNCHES = 10                    # window-conv launches a forward
+CONV_TOL = {"fp32": dict(rtol=1e-4, atol=1e-4),
+            "bf16": dict(rtol=1e-3, atol=1e-3)}
+SECOND_HEAD_TOL = dict(rtol=1e-3, atol=1e-3)
+BOX_GAIN = 0.1          # random box-regression weights, scaled (second_state)
+
+# H100 SXM published peaks: HBM bytes/s, fp32
+# CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+NMS_FLOPS_PER_PAIR = 250        # ~ fp32 operations of one pair IoU
 
 
 def log(msg):
@@ -182,10 +221,11 @@ def phase_device():
 def phase_build():
     from det3d_tpu_torch import csrc
     t0 = time.perf_counter()
-    path = csrc.build("rotated_nms")
-    csrc.load("rotated_nms")
-    log(f"phase 2 build: {path.name} in "
-        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+    with ThreadPoolExecutor(max_workers=len(csrc.SOURCES)) as pool:
+        list(pool.map(csrc.load, csrc.SOURCES))          # one nvcc each
+    names = ", ".join(csrc.library_path(n).name for n in csrc.SOURCES)
+    log(f"phase 2 build: {names} in "
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms (parallel nvcc)")
 
 
 def phase_kernel(dev):
@@ -214,7 +254,8 @@ def flagship_stack(device, state=None):
     from det3d_tpu_torch.apis.flagship import flagship_config
     from det3d_tpu_torch.apis.train import build_stack
     from det3d_tpu_torch.models.builder import init_weights
-    model, vg, asg, cids, test_cfg = build_stack(flagship_config())
+    model, vg, asg, cids, test_cfg = build_stack(flagship_config(),
+                                                 device="cpu")
     if state is None:
         init_weights(model, torch.Generator().manual_seed(0))
     else:
@@ -230,19 +271,21 @@ def out_pillars(vg, batch, dev):
 
 def phase_predict(dev, batch):
     from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
     from det3d_tpu_torch.parallel.predict import make_predict_step
     model, vg, asg, cids, test_cfg = flagship_stack("cpu")
     state = {k: v.clone() for k, v in model.state_dict().items()}
     model = model.to(dev)
     step = make_predict_step(model, vg, asg, cids, test_cfg)
-    rotated_nms_keep.launches = 0
+    rotated_nms_keep.launches = window_conv.launches = 0
     out = step(batch)
     torch.cuda.synchronize()
-    launches = rotated_nms_keep.launches
+    launches = {"rotated_nms_keep": rotated_nms_keep.launches,
+                "window_conv": window_conv.launches}
     shape = tuple(out["box3d_lidar"].shape)
     n_valid = out["valid"].sum(dim=1).tolist()
     log(f"phase 4 flagship predict B={B} P={POINTS}: boxes {shape}, valid "
-        f"per scan {n_valid}, NMS kernel launches {launches}, pillars per "
+        f"per scan {n_valid}, kernel launches {launches}, pillars per "
         f"scan {out_pillars(vg, batch, dev)}")
     if shape != (B, 100, 7):
         raise AssertionError(f"box3d_lidar shape {shape}")
@@ -251,7 +294,7 @@ def phase_predict(dev, batch):
             raise AssertionError(f"{k} not finite")
     if sum(n_valid) < 1:
         raise AssertionError("no valid detection")
-    if launches < 1:
+    if launches["rotated_nms_keep"] < 1:
         raise AssertionError("the NMS kernel was not launched")
     return (model, vg, asg, test_cfg, step), state, launches
 
@@ -342,25 +385,468 @@ def phase_timing(dev, stack, batch, smi):
     return nms_ms
 
 
+# ---------------------------------------------------------------------------
+# bounds: the least time the card could take for the same work
+# ---------------------------------------------------------------------------
+
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
+    operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nms_bound(corners, area, valid):
+    """Rotated NMS keep: every pair of valid boxes needs one IoU; inputs
+    read once, the keep mask written once."""
+    v = valid.sum(dim=1).double()
+    pairs = float((v * (v - 1) / 2).sum())
+    nbytes = (corners.numel() * 4 + area.numel() * 4 + 2 * valid.numel())
+    return bound(nbytes, pairs * NMS_FLOPS_PER_PAIR, FP32_FLOPS)
+
+
+def conv_taps(packed, v, center_shift):
+    """(taps, rows) of one window conv on this plan: the present taps that
+    read an input row (rows past V or before 0 read zero), and the distinct
+    input rows they read, over the batch. The rules are window_conv_ref's."""
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    r0, pres = unpack_windows(packed, 3)
+    b, o, kbev, kz = pres.shape
+    off = pres.long().cumsum(-1) - pres.long()       # popcount(pres[:j])
+    rows = r0.clamp(max=v - 1)[..., None] + off
+    if center_shift:
+        rows[:, :, kbev // 2] = (torch.arange(o, device=rows.device)[:, None]
+                                 - 1 + torch.arange(kz, device=rows.device))
+    sel = pres & (rows >= 0) & (rows < v)
+    batch = torch.arange(b, device=rows.device).view(b, 1, 1, 1)
+    hit = torch.zeros(b, v, dtype=torch.bool, device=rows.device)
+    hit[batch.expand_as(rows)[sel], rows[sel]] = True
+    return int(sel.sum()), int(hit.sum())
+
+
+def conv_work(features, packed, weights, center_shift):
+    """(bytes, flops, peak) of one window conv: the input rows that present
+    taps read, each once, the packed plan and the weights read once, the
+    fp32 output written once; 2 Cin Cout flops per tap that reads a row.
+    fp32 operands at the CUDA-core rate, bf16 at the tensor-core rate."""
+    b, o, _ = packed.shape
+    cin, cout = weights.shape[1:]
+    taps, rows = conv_taps(packed, features.shape[1], center_shift)
+    elt = features.element_size()
+    nbytes = (rows * cin * elt + packed.numel() * 4
+              + weights.numel() * elt + b * o * cout * 4)
+    peak = BF16_FLOPS if features.dtype == torch.bfloat16 else FP32_FLOPS
+    return nbytes, 2.0 * cin * cout * taps, peak
+
+
+# ---------------------------------------------------------------------------
+# SECOND
+# ---------------------------------------------------------------------------
+
+def second_config(precision=None):
+    """configs/kitti_car_second.py as a dict; ``precision`` overrides the
+    middle's serve_precision."""
+    from det3d_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(SECOND_CFG)
+    c = {k: copy.deepcopy(cfg[k]) for k in cfg.keys()}
+    if precision is not None:
+        c["model"]["backbone"]["serve_precision"] = precision
+    return c
+
+
+def calibrate_norms(model, run):
+    """Set every BatchNorm's running statistics to those of its input in
+    one forward ``run()``, layer after layer, so that each layer sees its
+    predecessors' normalized outputs. Random weights through SECOND's 14
+    sparse and dense layers otherwise shrink the head outputs to ~1e-10,
+    every score ties at 0.5, and the detections are an artefact of how a
+    sort breaks ties. All-zero rows (padding) are left out."""
+    from det3d_tpu_torch.models.norm import MaskedBatchNorm
+
+    def hook(m, args):
+        x = args[0].float().reshape(-1, args[0].shape[-1])
+        live = x[x.abs().sum(dim=1) > 0]
+        x = live if live.shape[0] > 1 else x
+        m.mean.copy_(x.mean(dim=0))
+        m.var.copy_(x.var(dim=0, unbiased=False))
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, MaskedBatchNorm)]
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        for h in handles:
+            h.remove()
+
+
+@functools.lru_cache(maxsize=None)
+def second_state():
+    """SECOND's weights: random from torch.Generator().manual_seed(0)
+    (models/builder.py::init_weights), BatchNorm statistics calibrated in
+    fp32 on the CPU on the first structured scan, and the box-regression
+    convs scaled by BOX_GAIN. At unit scale the size deltas go through
+    exp() to boxes of 1e8 m and more, whose IoUs are rounding noise; scaled,
+    the boxes stay within a car's size of their anchors, as a trained
+    head's do. Every SECOND model of this script loads these weights,
+    whatever its device and precision."""
+    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    from det3d_tpu_torch.models.builder import init_weights
+    from det3d_tpu_torch.utils.synth import structured_batch
+    model, vg = build_stack(second_config("fp32"), device="cpu")[:2]
+    init_weights(model, torch.Generator().manual_seed(0))
+    scan = structured_batch(1, POINTS, vg.point_cloud_range, seed=SEED)
+    ex = host_plan_fn(model, vg, voxelize=True)(scan["points"],
+                                                scan["num_points"])
+    plan = {k[5:]: torch.as_tensor(v) for k, v in ex.items()
+            if k.startswith("plan_")}
+    calibrate_norms(model, lambda: model(
+        torch.as_tensor(ex["voxels"]),
+        torch.as_tensor(ex["num_points_per_voxel"]),
+        torch.as_tensor(ex["coordinates"]), plan=plan))
+    with torch.no_grad():
+        for name, w in model.named_parameters():
+            if name.endswith("conv_box.weight"):
+                w.mul_(BOX_GAIN)
+    return model.state_dict()
+
+
+def second_stack(device, precision=None):
+    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    model, vg, asg, cids, test_cfg = build_stack(second_config(precision),
+                                                 device=device)
+    model.load_state_dict(second_state())
+    plan_fn = host_plan_fn(model, vg, train=False, voxelize=True)
+    return model, vg, asg, cids, test_cfg, plan_fn
+
+
+def conv_cases(plan, dev, dtype):
+    """The window convs of SECOND's middle on a host plan, in forward
+    order: (name, features, packed, weights, center_shift) on ``dev``,
+    random features and weights (std 1/sqrt(27 Cin)) in ``dtype``. The
+    cases of one (Cin, Cout, center_shift) repeat with the forward."""
+    g = torch.Generator().manual_seed(0)
+    b, v = plan["plan_s0"].shape[:2]
+
+    def feats(cin, rows):
+        return torch.randn(b, rows, cin, generator=g).to(dev, dtype)
+
+    def weights(cin, cout):
+        return (torch.randn(27, cin, cout, generator=g)
+                / (27 * cin) ** 0.5).to(dev, dtype)
+
+    def packed(key):
+        return torch.as_tensor(plan[key], device=dev).contiguous()
+
+    layers = [("s0", 4, 16, True), ("s0", 16, 16, True),
+              ("down1", 16, 32, False), ("subm1", 32, 32, True),
+              ("subm1", 32, 32, True), ("down2", 32, 64, False),
+              ("subm2", 64, 64, True), ("subm2", 64, 64, True),
+              ("subm2", 64, 64, True), ("down3", 64, 64, False)]
+    out, rows = [], v
+    for key, cin, cout, subm in layers:
+        pk = packed(f"plan_{key}")
+        name = f"{'subm' if subm else 'strided'} ({cin},{cout}) {key}"
+        out.append((name, feats(cin, rows), pk, weights(cin, cout), subm))
+        rows = pk.shape[1]
+    return out
+
+
+def phase_second_plan(batch):
+    """The host plan and voxels of B=2 scans, and its build time."""
+    plan_fn = second_stack("cpu")[-1]
+    plan_fn(batch["points"], batch["num_points"])             # warm
+    t0 = time.perf_counter()
+    plan = plan_fn(batch["points"], batch["num_points"])
+    plan_ms = (time.perf_counter() - t0) * 1e3 / SECOND_B
+    log(f"phase 7 SECOND host plan B={SECOND_B} P={POINTS}: "
+        f"{plan_ms:.1f} ms/scan on the host (numpy, one process); voxels "
+        f"per scan {plan['num_voxels'].tolist()}, stage rows "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in plan.items()
+                    if k.startswith("plan_")))
+    return plan, plan_ms
+
+
+def phase_conv_kernel(dev, plan):
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    worst = 0.0
+    for prec, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        seen = set()
+        for name, x, pk, w, subm in conv_cases(plan, dev, dtype):
+            shape = name.split(" ")[1] + str(subm)
+            if shape in seen:
+                continue
+            seen.add(shape)
+            out = window_conv(x, pk, w, subm)
+            r0, pres = unpack_windows(pk, 3)
+            ref = window_conv_ref(x.float(), r0, pres, w.float(), subm)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            worst = max(worst, err)
+            ok = torch.allclose(out, ref, **CONV_TOL[prec])
+            log(f"phase 8 window conv vs plain [{prec} {name}] B={x.shape[0]}"
+                f" V={x.shape[1]} O={pk.shape[1]}: max abs err {err:.3e}, "
+                f"|ref| max {float(ref.abs().max()):.3f} (tolerance "
+                f"{CONV_TOL[prec]})")
+            if not ok:
+                raise AssertionError(f"window conv {prec} {name} differs")
+        if len(seen) != 7:
+            raise AssertionError(f"expected 7 conv shapes, got {seen}")
+    x = torch.randn(SECOND_B, 20000, 16, device=dev)
+    w = torch.randn(27, 16, 32, device=dev)
+    for subm in (True, False):
+        out = window_conv(x, torch.zeros(SECOND_B, 20000, 9,
+                                         dtype=torch.int32, device=dev),
+                          w, subm)
+        if not bool((out == 0).all()):
+            raise AssertionError("all-absent plan gave a nonzero output")
+    log("phase 8 window conv all-absent plan: exact zeros (both modes)")
+    return worst
+
+
+def phase_second_predict(dev, batch, plan):
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    from det3d_tpu_torch.parallel.predict import make_predict_step
+    model, vg, asg, cids, test_cfg, _ = second_stack(dev)
+    step = make_predict_step(model, vg, asg, cids, test_cfg)
+    data = dict(batch, **plan)
+    window_conv.launches = rotated_nms_keep.launches = 0
+    out = step(data)
+    torch.cuda.synchronize()
+    launches = {"window_conv": window_conv.launches,
+                "rotated_nms_keep": rotated_nms_keep.launches}
+    shape = tuple(out["box3d_lidar"].shape)
+    n_valid = out["valid"].sum(dim=1).tolist()
+    log(f"phase 9 SECOND predict B={SECOND_B} P={POINTS} (bf16 middle): "
+        f"boxes {shape}, valid per scan {n_valid}, kernel launches "
+        f"{launches}")
+    if shape != (SECOND_B, 100, 7):
+        raise AssertionError(f"box3d_lidar shape {shape}")
+    for k in ("box3d_lidar", "scores"):
+        if not bool(torch.isfinite(out[k]).all()):
+            raise AssertionError(f"{k} not finite")
+    if sum(n_valid) < 1:
+        raise AssertionError("no valid detection")
+    if launches["window_conv"] != SECOND_LAUNCHES:
+        raise AssertionError(f"{launches['window_conv']} window-conv "
+                             f"launches, expected {SECOND_LAUNCHES}")
+    if launches["rotated_nms_keep"] < 1:
+        raise AssertionError("the NMS kernel was not launched")
+    return (model, vg, asg, test_cfg, step, data), launches
+
+
+def phase_second_cpu(dev, batch):
+    from det3d_tpu_torch.parallel.predict import build_example
+    one = {k: v[:1] for k, v in batch.items()}
+    card, vg, asg, _, test_cfg, plan_fn = second_stack(dev, "fp32")
+    cpu, *_, plan_fn_c = second_stack("cpu", "fp32")
+    plan_d = plan_fn(one["points"], one["num_points"])
+    plan_c = plan_fn_c(one["points"], one["num_points"])
+    for k in plan_c:
+        if not np.array_equal(plan_d[k], plan_c[k]):
+            raise AssertionError(f"host plan {k} differs")
+    with torch.no_grad():
+        ex_d = build_example({k: torch.as_tensor(v, device=dev) for k, v in
+                              dict(one, **plan_d).items()}, vg, asg)
+        ex_c = build_example({k: torch.as_tensor(v) for k, v in
+                              dict(one, **plan_c).items()}, vg, asg)
+
+        def heads(model, ex, plan, device):
+            p = {k[5:]: torch.as_tensor(v, device=device)
+                 for k, v in plan.items() if k.startswith("plan_")}
+            return model(ex["voxels"], ex["num_points_per_voxel"],
+                         ex["coordinates"], plan=p)
+
+        heads_d = heads(card, ex_d, plan_d, dev)
+        heads_c = heads(cpu, ex_c, plan_c, "cpu")
+        worst = 0.0
+        for k in heads_c[0]:
+            d, c = heads_d[0][k].cpu(), heads_c[0][k]
+            err = float((d - c).abs().max())
+            worst = max(worst, err)
+            if not torch.allclose(d, c, **SECOND_HEAD_TOL):
+                raise AssertionError(f"SECOND head {k}: card vs CPU max err "
+                                     f"{err}")
+        spread = float(heads_c[0]["cls_preds"].std())
+        log(f"phase 10 SECOND card vs CPU B=1 (fp32 middle): host plans and "
+            f"voxels equal; head outputs max abs err {worst:.3e} (tolerance "
+            f"rtol={SECOND_HEAD_TOL['rtol']} atol={SECOND_HEAD_TOL['atol']}),"
+            f" class logits std {spread:.3f}")
+        if spread < 0.1:
+            raise AssertionError(f"degenerate head outputs (class logits std "
+                                 f"{spread})")
+        det_d = card.predict(ex_d, heads_d, test_cfg)
+        det_c = cpu.predict(
+            ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
+            test_cfg)
+    for k in ("valid", "label_preds"):
+        if not torch.equal(det_d[k].cpu(), det_c[k]):
+            raise AssertionError(f"SECOND post-processing {k} differs")
+    errs = {k: float((det_d[k].cpu() - det_c[k]).abs().max())
+            for k in ("box3d_lidar", "scores")}
+    if max(errs.values()) > DET_TOL:
+        raise AssertionError(f"SECOND post-processing differs: {errs}")
+    log(f"phase 10 SECOND CPU post-processing of the card's heads: valid "
+        f"mask and labels equal ({int(det_c['valid'].sum())} valid), boxes "
+        f"max err {errs['box3d_lidar']:.2e}, scores max err "
+        f"{errs['scores']:.2e} (tolerance {DET_TOL})")
+
+
+def phase_second_timing(dev, stack, plan_ms, smi):
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    from det3d_tpu_torch.parallel.predict import build_example
+    model, vg, asg, test_cfg, step, data = stack
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    torch.cuda.reset_peak_memory_stats()
+    predict_ms = cuda_ms(lambda: step(data_d))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    log(f"phase 11 SECOND predict B={SECOND_B}: {predict_ms:.3f} ms/batch, "
+        f"{predict_ms / SECOND_B:.3f} ms/scan device step, "
+        f"{SECOND_B * 1e3 / predict_ms:.1f} scans/s, peak memory "
+        f"{peak:.0f} MiB; host plan build {plan_ms:.1f} ms/scan apart "
+        f"[{smi}]")
+
+    plan = {k[5:]: v for k, v in data_d.items() if k.startswith("plan_")}
+    with torch.no_grad():
+        ex = build_example(data_d, vg, asg)
+        feats = model.reader(ex["voxels"], ex["num_points_per_voxel"])
+        mid = model.backbone(feats, ex["coordinates"], model.grid_size,
+                             plan=plan)
+        heads = model.bbox_head(model.neck(mid))
+        stages = {
+            "middle": lambda: model.backbone(feats, ex["coordinates"],
+                                             model.grid_size, plan=plan),
+            "rpn+head": lambda: model.bbox_head(model.neck(mid)),
+            "decode+nms": lambda: model.predict(ex, heads, test_cfg),
+        }
+        parts = {k: cuda_ms(fn) for k, fn in stages.items()}
+    log(f"phase 11 SECOND stages B={SECOND_B} (ms/batch): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+
+    host_plan = {k: v for k, v in data.items() if k.startswith("plan_")}
+    fwd = {}
+    for prec, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        cases = conv_cases(host_plan, dev, dtype)
+        unpacked = [unpack_windows(pk, 3) for _, _, pk, _, _ in cases]
+        seen = set()
+        for (name, x, pk, w, subm), (r0, pres) in zip(cases, unpacked):
+            if name in seen:
+                continue
+            seen.add(name)
+            t = interleaved_ms({
+                "plain": lambda: window_conv_ref(x, r0, pres, w, subm),
+                "kernel": lambda: window_conv(x, pk, w, subm)})
+            b_ms, b_by = bound(*conv_work(x, pk, w, subm))
+            taps, rows = conv_taps(pk, x.shape[1], subm)
+            log(f"phase 11 window conv [{prec} {name}]: kernel "
+                f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
+                f"{b_ms:.7f} ms ({b_by}; {rows} of {x.shape[0] * x.shape[1]}"
+                f" input rows read, {taps} taps) [{smi}]")
+        t = interleaved_ms({
+            "plain": lambda: [window_conv_ref(x, r0, pres, w, subm)
+                              for (_, x, _, w, subm), (r0, pres)
+                              in zip(cases, unpacked)],
+            "kernel": lambda: [window_conv(x, pk, w, subm)
+                               for _, x, pk, w, subm in cases]})
+        work = [conv_work(x, pk, w, subm) for _, x, pk, w, subm in cases]
+        b_ms = sum(bound(*wk)[0] for wk in work)
+        b_by = "bytes" if all(bound(*wk)[1] == "bytes" for wk in work) \
+            else "operations"
+        fwd[prec] = dict(t, bound_ms=b_ms, bound_by=b_by)
+        log(f"phase 11 window conv, the forward's {len(cases)} launches "
+            f"[{prec}]: kernel {t['kernel']:.4f} ms, plain "
+            f"{t['plain']:.4f} ms, bound {b_ms:.7f} ms ({b_by}) [{smi}]")
+    return fwd["bf16"]
+
+
+def phase_profile(stack, dev, smi, steps=5, top=12):
+    """torch.profiler over ``steps`` SECOND predict steps: device time by
+    kernel and the device's busy share of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    step, data = stack[4], stack[5]
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    step(data_d)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(data_d)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            kernels.append((t / 1e3 / steps, e.count // steps, e.key))
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        log("phase 12 SECOND profile: the profiler saw no device time "
+            "(not measured)")
+        return
+    log(f"phase 12 SECOND profile, {steps} steps B={SECOND_B} under "
+        f"torch.profiler: {wall / steps:.3f} ms/step, device busy "
+        f"{busy:.3f} ms/step ({busy / (wall / steps):.2f} of the window), "
+        f"{sum(k[1] for k in kernels)} kernels/step [{smi}]")
+    for t, n, name in sorted(kernels, reverse=True)[:top]:
+        log(f"phase 12   {t:8.3f} ms/step  x{n:<4d} {name[:90]}")
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
-    kernel_err = phase_kernel(dev)
+    nms_err = phase_kernel(dev)
 
     from det3d_tpu_torch.utils.synth import structured_batch
     from det3d_tpu_torch.apis.flagship import PC_RANGE
     batch = structured_batch(B, POINTS, PC_RANGE, seed=SEED)
-    stack, state, launches = phase_predict(dev, batch)
+    stack, state, flagship = phase_predict(dev, batch)
     phase_cpu(dev, stack[0], state, batch)
-    times = phase_timing(dev, stack, batch, smi)
+    nms_times = phase_timing(dev, stack, batch, smi)
+    del stack, state
+    torch.cuda.empty_cache()
 
+    sec_range = second_config()["voxel_generator"]["range"]
+    sec_batch = structured_batch(SECOND_B, POINTS, sec_range, seed=SEED)
+    plan, plan_ms = phase_second_plan(sec_batch)
+    conv_err = phase_conv_kernel(dev, plan)
+    sec_stack, launches = phase_second_predict(dev, sec_batch, plan)
+    phase_second_cpu(dev, sec_batch)
+    conv = phase_second_timing(dev, sec_stack, plan_ms, smi)
+    phase_profile(sec_stack, dev, smi)
+
+    nms_b_ms, nms_b_by = nms_bound(*nms_cases(dev)["flagship N=8 K=1000"])
     print(json.dumps({"kernels": [{
         "name": "rotated_nms_keep", "route": "cuda",
         "source": "det3d_tpu_torch/csrc/rotated_nms.cu",
-        "replaces": "det3d_tpu/ops/nms_pallas.py:38",
-        "launches": launches, "max_abs_err": float(kernel_err),
-        "ms": times["kernel"], "plain_ms": times["plain"]}]}), flush=True)
+        "replaces": "det3d_tpu/ops/nms_pallas.py:89",
+        "launches": (flagship["rotated_nms_keep"]
+                     + launches["rotated_nms_keep"]),
+        "launches_by_path": {"flagship": flagship["rotated_nms_keep"],
+                             "second": launches["rotated_nms_keep"]},
+        "max_abs_err": float(nms_err),
+        "ms": nms_times["kernel"], "plain_ms": nms_times["plain"],
+        "bound_ms": nms_b_ms, "bound_by": nms_b_by, "library_ms": None,
+    }, {
+        "name": "window_conv", "route": "cuda",
+        "source": "det3d_tpu_torch/csrc/window_conv.cu",
+        "replaces": "det3d_tpu/ops/band_conv.py:216",
+        "launches": flagship["window_conv"] + launches["window_conv"],
+        "launches_by_path": {"flagship": flagship["window_conv"],
+                             "second": launches["window_conv"]},
+        "max_abs_err": conv_err,
+        "ms": conv["kernel"], "plain_ms": conv["plain"],
+        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+        "library_ms": None,
+    }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,45 +1,130 @@
-"""Build the serving stack from a config, PointPillars subset.
+"""Build the serving stack from a config, and the host plans it serves from.
 
-Port of det3d_tpu/apis/train.py::build_stack: the same reference-schema
-config (``voxel_generator``, ``model``, ``assigner``, ``tasks``,
-``test_cfg``) builds the voxelizer, the detector, the per-task anchor sets
-and the class ids. Training and evaluation entry points wait for later
-ports.
+Port of det3d_tpu/apis/train.py: ``build_stack`` (the same
+reference-schema config -- ``voxel_generator``, ``model``, ``assigner``,
+``tasks``, ``test_cfg`` -- builds the voxelizer, the detector, the per-task
+anchor sets and the class ids) and ``host_plan_fn`` (the sparse middle's
+rulebooks and the voxels, built on the host for each request batch).
+Training and evaluation entry points wait for later ports.
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from det3d_tpu_torch.core.anchors import build_box_coder
 from det3d_tpu_torch.core.target import build_target_assigners
 from det3d_tpu_torch.core.voxelize import VoxelGenerator
+from det3d_tpu_torch.models.backbones import middle_plan_spec
 from det3d_tpu_torch.models.builder import build_detector
+from det3d_tpu_torch.ops import sparse_host as sph
+from det3d_tpu_torch.ops.voxelize_host import (host_voxelize,
+                                               host_voxelize_batch,
+                                               stack_voxels)
 
 
-def build_stack(cfg, device="cpu"):
+def host_plan_fn(model, voxel_gen, train: bool = False,
+                 voxelize: bool = False):
+    """A callable that builds the packed host rulebook plans of a numpy
+    batch: ``fn(points (B, P, C), num_points (B,)) -> {key: (B, ...)}``.
+
+    Returns None when the model has no sparse middle (or the voxelizer's
+    order has no host twin) and ``voxelize`` is False. ``voxelize=True``
+    also voxelizes on the host (ops/voxelize_host.py): the result carries
+    the example's ``voxels`` / ``coordinates`` / ... keys, which the
+    predict step takes as they are, and no ``point_lin`` / ``point_perm``.
+    The serving process calls it in its request pre-processing, outside
+    the device step. ``train=True`` (inverse rulebooks) is not ported."""
+    if train:
+        raise NotImplementedError("training plans are not ported yet")
+    backbone = getattr(model, "backbone", None)
+    sparse_mid = ("SpMiddle" in type(backbone).__name__
+                  and voxel_gen.effective_order in ("hashed", "yxz"))
+    if not sparse_mid:
+        if not voxelize:
+            return None
+
+        def vox_fn(points, num_points):
+            return host_voxelize_batch(points, num_points, voxel_gen)
+
+        return vox_fn
+    spec = middle_plan_spec(backbone, voxel_gen.grid_size,
+                            voxel_gen.max_voxels)
+    kw = dict(voxel_size=tuple(voxel_gen.voxel_size),
+              pc_range=tuple(voxel_gen.point_cloud_range),
+              grid_size=tuple(voxel_gen.grid_size),
+              max_voxels=int(voxel_gen.max_voxels),
+              order=voxel_gen.effective_order, spec=spec)
+
+    def fn(points, num_points):
+        points = np.asarray(points)
+        num_points = np.asarray(num_points)
+        plans = [sph.build_plan(points[i], num_points[i], **kw)
+                 for i in range(points.shape[0])]
+        out = {k: np.stack([p[k] for p in plans]) for k in plans[0]}
+        if voxelize:
+            # the plan already owns lin/perm: voxelize without resorting
+            out.update(stack_voxels([
+                host_voxelize(points[i], num_points[i], lin=p["point_lin"],
+                              perm=p["point_perm"],
+                              **voxel_gen.host_kwargs())
+                for i, p in enumerate(plans)]))
+            out.pop("point_lin")
+            out.pop("point_perm")
+        return out
+
+    return fn
+
+
+def _device(device) -> torch.device:
+    """The model's device; "cuda" without a card raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "build_stack: device 'cuda' asked for and no CUDA device is "
+            "available; pass device='cpu' to serve on the CPU")
+    return dev
+
+
+def build_stack(cfg, device="cuda"):
     """Build (model, voxel_gen, assigners, class_ids_per_task, test_cfg).
 
-    The model is in eval mode on ``device`` with the modules' default
-    initial weights; load a state dict (``utils/convert.py::from_jax``) or
-    call ``models/builder.py::init_weights`` before serving. A reader or
-    neck with ``precision="bf16"`` raises NotImplementedError (fp32 only).
+    The model is in eval mode on ``device`` (the card unless the caller
+    asks for the CPU; "cuda" without a card raises) with the modules'
+    default initial weights; load a state dict
+    (``utils/convert.py::from_jax``) or call
+    ``models/builder.py::init_weights`` before serving. A reader or neck
+    with ``precision="bf16"`` raises NotImplementedError (the sparse
+    middle's ``serve_precision`` is ported).
     """
     vg_cfg = cfg["voxel_generator"]
+    # mean readers get the fused-mean voxelizer unless the config opts out
+    reader_type = cfg["model"].get("reader", {}).get("type", "")
+    fuse_mean = vg_cfg.get("fuse_mean",
+                           reader_type == "VoxelFeatureExtractorV3")
     voxel_gen = VoxelGenerator(
         voxel_size=vg_cfg["voxel_size"],
         point_cloud_range=vg_cfg["range"],
         max_num_points=vg_cfg.get("max_points_in_voxel", 100),
         max_voxels=vg_cfg.get("max_voxel_num", 20000),
         order=vg_cfg.get("order", "appearance"),
-        fuse_mean=bool(vg_cfg.get("fuse_mean", False)))
+        fuse_mean=bool(fuse_mean))
     grid = voxel_gen.grid_size
 
-    model = build_detector(cfg["model"], train_cfg=cfg.get("train_cfg"),
+    # order="yxz" emits voxel rows in the sparse middle's rank order: the
+    # backbone skips its res0 reorder
+    model_cfg = cfg["model"]
+    bb_cfg = model_cfg.get("backbone") or {}
+    if (voxel_gen.order == "yxz"
+            and "SpMiddle" in str(bb_cfg.get("type", ""))):
+        model_cfg = dict(model_cfg, backbone=dict(bb_cfg, pre_ranked=True))
+
+    model = build_detector(model_cfg, train_cfg=cfg.get("train_cfg"),
                            test_cfg=cfg.get("test_cfg"), grid_size=grid)
-    model = model.to(torch.device(device)).eval()
+    model = model.to(_device(device)).eval()
 
     assigner_cfg = cfg["assigner"]
     box_coder = build_box_coder(assigner_cfg["box_coder"])

@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from det3d_tpu.utils.registry import Registry
+from det3d_tpu_torch.utils.registry import Registry
 from det3d_tpu_torch.core import box_ops
 
 ANCHOR_GENERATORS = Registry("anchor_generator")

@@ -13,7 +13,7 @@ from typing import List
 import numpy as np
 import torch
 
-from det3d_tpu.utils.registry import build_from_cfg
+from det3d_tpu_torch.utils.registry import build_from_cfg
 from det3d_tpu_torch.core.anchors import ANCHOR_GENERATORS
 
 

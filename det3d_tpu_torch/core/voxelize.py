@@ -7,8 +7,11 @@ original order, find segment heads, and scatter points into a
 (max_voxels, max_points, C) buffer, dropping overflow. The reference vmaps
 one cloud at a time; here the batch dimension is written out.
 
-Only the hashed order is ported; "appearance" and "yxz" raise
-NotImplementedError, as does the fused-mean path.
+The device voxelizer covers the hashed order. ``VoxelGenerator`` also
+takes ``order="yxz"`` and ``fuse_mean=True`` (SECOND's configuration):
+those configurations are voxelized on the host (ops/voxelize_host.py,
+through apis/train.py::host_plan_fn), and ``generate_batch`` raises for
+them. "appearance" raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -144,12 +147,27 @@ class VoxelGenerator:
     fuse_mean: bool = False
 
     def __post_init__(self):
-        if self.order != "hashed":
+        if self.order not in ("hashed", "yxz"):
             raise NotImplementedError(
-                f"voxel order {self.order!r} is not ported yet; use 'hashed'")
+                f"voxel order {self.order!r} is not ported yet; use "
+                "'hashed' or 'yxz'")
+
+    @property
+    def effective_order(self) -> str:
+        """Voxel row order actually produced: the fused-mean path always
+        sorts by a fast key ("yxz" or "hashed"). Host plans key off it."""
         if self.fuse_mean:
-            raise NotImplementedError("the fused-mean voxelizer is not "
-                                      "ported yet")
+            return "yxz" if self.order == "yxz" else "hashed"
+        return self.order
+
+    def host_kwargs(self) -> dict:
+        """Keyword arguments of ops/voxelize_host.py::host_voxelize."""
+        return dict(voxel_size=tuple(float(v) for v in self.voxel_size),
+                    pc_range=tuple(float(v) for v in self.point_cloud_range),
+                    grid_size=self.grid_size,
+                    max_voxels=int(self.max_voxels),
+                    max_points=int(self.max_num_points),
+                    order=self.order, fuse_mean=bool(self.fuse_mean))
 
     @property
     def grid_size(self) -> Tuple[int, int, int]:
@@ -159,7 +177,14 @@ class VoxelGenerator:
         return tuple(int(v) for v in g)
 
     def generate_batch(self, points, num_points):
-        """(B, P, C) padded clouds and (B,) counts -> voxelize_hashed's dict."""
+        """(B, P, C) padded clouds and (B,) counts -> voxelize_hashed's dict.
+        Only the hashed buffer path runs on the device; the others raise
+        (voxelize them on the host, ops/voxelize_host.py)."""
+        if self.order != "hashed" or self.fuse_mean:
+            raise NotImplementedError(
+                f"device voxelization with order={self.order!r}, "
+                f"fuse_mean={self.fuse_mean} is not ported; voxelize on "
+                "the host (apis/train.py::host_plan_fn(voxelize=True))")
         return voxelize_hashed(
             points, num_points,
             voxel_size=tuple(float(v) for v in self.voxel_size),

@@ -23,11 +23,21 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
 
-# --fmad=false keeps a*b - c*d as two rounded products and a rounded
-# difference, as the plain PyTorch versions compute it; the kernels'
-# outputs then match theirs bit for bit.
+SOURCES = ("rotated_nms", "window_conv")
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+# Per-source flags. rotated_nms: --fmad=false keeps a*b - c*d as two
+# rounded products and a rounded difference, as the plain PyTorch version
+# computes it; its keep masks then match bit for bit. window_conv sums in
+# another order than its plain version anyway, so it keeps fused FMAs.
+EXTRA_FLAGS = {"rotated_nms": ("--fmad=false",)}
+
+
+def nvcc_flags(name: str) -> tuple:
+    """The nvcc flags ``<name>.cu`` is built with."""
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def find_nvcc() -> str:
@@ -46,7 +56,8 @@ def find_nvcc() -> str:
 def library_path(name: str) -> Path:
     """Where the library built from ``<name>.cu`` goes."""
     src = (_HERE / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(src + " ".join(nvcc_flags(name)).encode()
+                            ).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -59,7 +70,8 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_HERE / f"{name}.cu")]
+        cmd = [find_nvcc(), *nvcc_flags(name), "-o", tmp,
+               str(_HERE / f"{name}.cu")]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"

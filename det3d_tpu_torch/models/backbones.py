@@ -1,16 +1,19 @@
-"""Pillar scatter onto the BEV canvas.
+"""Backbones: the pillar scatter onto the BEV canvas, and the SECOND
+sparse middle.
 
-Port of det3d_tpu/models/backbones.py::PointPillarsScatter. The canvas
-keeps the reference's NHWC layout, (B, ny, nx, C). Padded pillar rows
-(coords -1) are dropped before the scatter, where the reference sends them
-to an out-of-bounds index that XLA drops.
+Port of det3d_tpu/models/backbones.py: ``PointPillarsScatter``, and
+``SpMiddleFHD`` with its layers (``SparseConvBN``, ``DenseConvBN``) for
+plan-fed serving. The canvas keeps the reference's NHWC layout, (B, ny,
+nx, C). Padded rows (coords -1) are dropped before every scatter, where
+the reference sends them to an out-of-bounds index that XLA drops.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from det3d_tpu_torch.core.voxelize import scatter_rows
@@ -38,3 +41,276 @@ class PointPillarsScatter(nn.Module):
         canvas = scatter_rows(voxel_features, base + y * nx + x, valid,
                               b * ny * nx)
         return canvas.view(b, ny, nx, c)
+
+
+# ---------------------------------------------------------------------------
+# The SECOND sparse middle, plan-fed serving
+# ---------------------------------------------------------------------------
+
+from det3d_tpu_torch.models.norm import build_norm  # noqa: E402
+from det3d_tpu_torch.models.precision import act_dtype  # noqa: E402
+from det3d_tpu_torch.ops import sparse as sp  # noqa: E402
+from det3d_tpu_torch.ops.window_conv_cuda import window_conv  # noqa: E402
+
+# stage geometry (kernel, stride, padding) shared by the SpMiddle variants
+_STAGE_GEOM = ((3, 2, (1, 1, 1)), (3, 2, (1, 1, 1)), (3, 2, (0, 1, 1)),
+               ((3, 1, 1), (2, 1, 1), (0, 0, 0)))
+
+
+def middle_plan_spec(middle, input_shape, max_voxels):
+    """Static description of the rulebooks a sparse middle reads.
+
+    ``middle``: the middle module, or a dict / object with its attributes
+    (stage_caps, dense_tail, dense_from, pre_ranked). Returns a plain dict:
+    shape0, v, pre_ranked, stages = (kernel, stride, padding, cap, subm).
+    Port of det3d_tpu/models/backbones.py::middle_plan_spec."""
+    def get(name, default):
+        if isinstance(middle, dict):
+            return middle.get(name, default)
+        return getattr(middle, name, default)
+
+    nx, ny, nz = (int(s) for s in input_shape)
+    shape0 = (nz + 1, ny, nx)
+    assert shape0[0] <= 64, "host plans need the bitmap regime (depth <= 64)"
+    v = int(max_voxels)
+    caps = [max(64, int(v * f)) for f in get("stage_caps", (1.0,) * 4)]
+    dense_tail = bool(get("dense_tail", False))
+    start = max(1, int(get("dense_from", 3))) if dense_tail else 4
+    stages = []
+    for i, (k, s, p) in enumerate(_STAGE_GEOM, start=1):
+        if i > start:
+            break
+        stages.append({"kernel": sp._as3(k), "stride": sp._as3(s),
+                       "padding": sp._as3(p), "cap": caps[i - 1],
+                       "subm": i < start})
+    return {"shape0": shape0, "v": v,
+            "pre_ranked": bool(get("pre_ranked", False)),
+            "stages": tuple(stages)}
+
+
+class SparseConvBN(nn.Module):
+    """Sparse conv over a packed window rulebook, BN, ReLU; evaluation.
+
+    The conv runs in ``precision`` (its operands cast to it, fp32 sums,
+    fp32 output): the CUDA kernel for card tensors, its plain twin for CPU
+    tensors (ops/window_conv_cuda.py). BN and ReLU run in fp32. The weight
+    keeps the JAX package's (kz*ky*kx, Cin, Cout) z-major layout."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32",
+                 kvol: int = 27):
+        super().__init__()
+        self.dtype = act_dtype(precision)
+        self.weight = nn.Parameter(torch.empty(kvol, in_channels,
+                                               out_channels))
+        bound = (3.0 / (kvol * in_channels)) ** 0.5  # flax fan_in uniform
+        nn.init.uniform_(self.weight, -bound, bound)
+        self.norm = build_norm(norm_cfg, out_channels)
+
+    def forward(self, x, packed, center_shift: bool):
+        y = window_conv(x.to(self.dtype).contiguous(), packed.contiguous(),
+                        self.weight.to(self.dtype).contiguous(),
+                        center_shift)
+        return torch.relu(self.norm(y))
+
+
+class DenseConvBN(nn.Module):
+    """Dense-tail twin of SparseConvBN: conv3d, BN, ReLU, re-zeroed off the
+    active sites; evaluation.
+
+    Tensors are NDHWC; the conv runs on NCDHW views of them. The conv is
+    PyTorch's conv3d (the JAX package leaves this one to XLA, outside any
+    Pallas kernel). With bf16 the whole epilogue stays in bf16, as the JAX
+    package serves it."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel=(3, 3, 3), stride=(1, 1, 1), padding=(1, 1, 1),
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32"):
+        super().__init__()
+        self.kernel, self.stride, self.padding = (
+            sp._as3(kernel), sp._as3(stride), sp._as3(padding))
+        self.dtype = act_dtype(precision)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
+                                               *self.kernel))
+        fan_in = in_channels * self.weight[0, 0].numel()
+        bound = (3.0 / fan_in) ** 0.5
+        nn.init.uniform_(self.weight, -bound, bound)
+        self.norm = build_norm(norm_cfg, out_channels, dtype=self.dtype)
+
+    def forward(self, x, occ_out):
+        y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
+                     self.weight.to(self.dtype), stride=self.stride,
+                     padding=self.padding).permute(0, 2, 3, 4, 1)
+        y = torch.relu(self.norm(y))
+        return y * occ_out[..., None].to(y.dtype)
+
+
+def _occupancy(coords, shape):
+    """(B, V, 3) zyx -> (B, D, H, W) bool active-site mask."""
+    d, h, w = shape
+    b = coords.shape[0]
+    n = d * h * w
+    lin = sp.linearize(coords, shape)
+    keep = lin != sp._SENTINEL
+    flat = torch.arange(b, device=lin.device)[:, None] * n + lin
+    occ = torch.zeros(b * n + 1, dtype=torch.bool, device=lin.device)
+    occ[torch.where(keep, flat, b * n)] = True
+    return occ[:-1].view(b, d, h, w)
+
+
+def _cover_mask(occ, kernel, stride, padding):
+    """Occupancy of a strided conv's output set: every output whose
+    footprint covers an active input, a max-pool of the occupancy."""
+    return F.max_pool3d(occ[:, None].float(), kernel, stride,
+                        padding)[:, 0] > 0
+
+
+def _fold_depth(dense):
+    """(B, D, H, W, C) -> (B, H, W, C*D), channel-major as the reference's
+    view(N, C*D, H, W)."""
+    b, d, h, w, c = dense.shape
+    return dense.permute(0, 2, 3, 4, 1).reshape(b, h, w, c * d)
+
+
+def _bev_reshape(features, coords, shape):
+    """Scatter the last sparse stage to dense and fold depth."""
+    return _fold_depth(sp.to_dense(features, coords, shape))
+
+
+def _res0_with_plan(voxel_features, coords, pre_ranked, plan):
+    """Rank-order the res0 rows from the plan's order0 (unless the
+    voxelizer already emitted them in rank order). Returns (features,
+    coords)."""
+    if not pre_ranked:
+        order0 = plan["order0"].long()
+        coords = torch.gather(coords, 1, order0[..., None].expand(-1, -1, 3))
+        voxel_features = torch.gather(
+            voxel_features, 1,
+            order0[..., None].expand(-1, -1, voxel_features.shape[-1]))
+    return voxel_features, coords
+
+
+def _plan_stage(plan, i, in_shape, kernel, stride, padding):
+    """Stage ``i`` of a packed plan: (coords (B, cap, 3), down rulebook,
+    subm rulebook or None, out shape)."""
+    oshape = sp.out_spatial_shape(in_shape, kernel, stride, padding)
+    co = sp.delinearize(plan[f"co{i}"], oshape)
+    return co, plan[f"down{i}"], plan.get(f"subm{i}"), oshape
+
+
+# (channels, n_subm, kernel, stride, padding) per downsample stage
+_SPECS = ((32, 2, 3, 2, 1), (64, 3, 3, 2, 1), (64, 3, 3, 2, (0, 1, 1)))
+
+
+@BACKBONES.register_module
+class SpMiddleFHD(nn.Module):
+    """SECOND sparse middle, plan-fed evaluation. Port of
+    det3d_tpu/models/backbones.py::SpMiddleFHD for ``plan is not None and
+    not train``.
+
+    Input: voxel_features (B, V, C), coords (B, V, 3) int32 zyx (-1 pad),
+    input_shape (nx, ny, nz), and the host plan (ops/sparse_host.py, keys
+    without their ``plan_`` prefix). Output: (B, ny/8, nx/8, 64 * D_final).
+    Stages before ``dense_from`` run sparse window convs; with
+    ``dense_tail`` the rest run masked dense conv3d. The middle computes
+    in ``serve_precision`` when set, else ``precision``. The
+    ``serve_*band`` keys tune the TPU kernel's band and are ignored: the
+    CUDA kernel has no band.
+
+    Modules carry the flax names in call order (``SparseConvBN_<n>``,
+    ``DenseConvBN_<n>``), so utils/convert.py::from_jax maps one to one.
+    """
+
+    def __init__(self, num_input_features: int = 128,
+                 norm_cfg: Optional[dict] = None, ds_factor: int = 8,
+                 stage_caps: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                 use_norm: bool = True, dense_tail: bool = True,
+                 dense_from: int = 3, precision: str = "fp32",
+                 pre_ranked: bool = False, serve_band=None,
+                 serve_col_band=None, serve_down_band=None,
+                 serve_down_col_band=None,
+                 serve_precision: Optional[str] = None,
+                 name_str: str = "SpMiddleFHD"):
+        super().__init__()
+        if not use_norm:
+            raise NotImplementedError("SpMiddleFHDNobn is not ported yet")
+        self.stage_caps = tuple(stage_caps)
+        self.dense_tail = bool(dense_tail)
+        self.dense_from = int(dense_from)
+        self.pre_ranked = bool(pre_ranked)
+        self.start = max(1, self.dense_from) if self.dense_tail else 4
+        prec = serve_precision or precision
+        self.dtype = act_dtype(prec)
+        self._sparse, self._dense = [], []      # module names, call order
+
+        def scb(cin, cout, kvol=27):
+            name = f"SparseConvBN_{len(self._sparse)}"
+            self.add_module(name, SparseConvBN(cin, cout, norm_cfg,
+                                               precision=prec, kvol=kvol))
+            self._sparse.append(name)
+
+        def dcb(cin, cout, **kw):
+            name = f"DenseConvBN_{len(self._dense)}"
+            self.add_module(name, DenseConvBN(
+                cin, cout, norm_cfg=norm_cfg, precision=prec, **kw))
+            self._dense.append(name)
+
+        scb(num_input_features, 16)
+        scb(16, 16)
+        cin = 16
+        for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
+            if i <= self.start:
+                scb(cin, ch)            # the down conv (or the transition)
+            else:
+                dcb(cin, ch, kernel=k, stride=s, padding=p)
+            for _ in range(n_subm):
+                (scb if i < self.start else dcb)(ch, ch)
+            cin = ch
+        if self.start < 4:
+            dcb(64, 64, kernel=(3, 1, 1), stride=(2, 1, 1), padding=0)
+        else:
+            scb(64, 64, kvol=3)
+
+    def forward(self, voxel_features, coords, input_shape, plan=None):
+        if plan is None:
+            raise ValueError(
+                "SpMiddleFHD serves from a host plan: pass the plan_* keys "
+                "of apis/train.py::host_plan_fn (the device rulebook "
+                "builders are not ported)")
+        nx, ny, nz = (int(s) for s in input_shape)
+        shape = (nz + 1, ny, nx)
+        convs = iter([getattr(self, n) for n in self._sparse])
+        dconvs = iter([getattr(self, n) for n in self._dense])
+
+        x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
+                                    plan)
+        s0 = plan["s0"]
+        x = next(convs)(x, s0, True)
+        x = next(convs)(x, s0, True)
+
+        xd = occ = co = None
+        for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
+            if i <= self.start:
+                co, down, subm, shape = _plan_stage(plan, i, shape, k, s, p)
+                x = next(convs)(x, down, False)
+                if i < self.start:
+                    for _ in range(n_subm):
+                        x = next(convs)(x, subm, True)
+                    continue
+                # transition: densify this stage
+                occ = _occupancy(co, shape)
+                xd = sp.to_dense(x.to(self.dtype), co, shape)
+            else:
+                k3, s3, p3 = sp._as3(k), sp._as3(s), sp._as3(p)
+                occ = _cover_mask(occ, k3, s3, p3)
+                xd = next(dconvs)(xd, occ)
+            for _ in range(n_subm):
+                xd = next(dconvs)(xd, occ)
+
+        if xd is not None:
+            occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
+            return _fold_depth(next(dconvs)(xd, occ4))
+        co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
+                                           (2, 1, 1), 0)
+        x = next(convs)(x, down, False)
+        return _bev_reshape(x, co4, shape4)

@@ -12,13 +12,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from det3d_tpu.utils.registry import build_from_cfg
+from det3d_tpu_torch.utils.registry import build_from_cfg
 from det3d_tpu_torch.core.anchors import build_box_coder
 from det3d_tpu_torch.models import backbones as _backbones  # noqa: F401
 from det3d_tpu_torch.models import detectors as _detectors  # noqa: F401
 from det3d_tpu_torch.models import heads as _heads  # noqa: F401
 from det3d_tpu_torch.models import necks as _necks  # noqa: F401
 from det3d_tpu_torch.models import readers as _readers  # noqa: F401
+from det3d_tpu_torch.models.backbones import DenseConvBN, SparseConvBN
 from det3d_tpu_torch.models.norm import MaskedBatchNorm
 from det3d_tpu_torch.models.registry import (BACKBONES, DETECTORS, HEADS,
                                              NECKS, READERS)
@@ -61,19 +62,23 @@ def build_detector(cfg, train_cfg: Optional[dict] = None,
 
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights drawn from ``generator`` (a CPU generator; the model
-    must be on the CPU): convolution and linear weights from a normal with
-    std 1/sqrt(fan_in), as flax's default LeCun init, biases zero,
-    BatchNorm at identity statistics."""
+    """Random weights drawn from ``generator``, a CPU generator, and copied
+    to the model's device, so one seed gives the same weights on every
+    device: convolution and linear weights from a normal with std
+    1/sqrt(fan_in), as flax's default LeCun init, biases zero, BatchNorm
+    at identity statistics."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear,
+                          DenseConvBN, SparseConvBN)):
             w = m.weight
             fan_in = w.shape[1] * w[0, 0].numel()
             if isinstance(m, nn.ConvTranspose2d):       # (in, out, kh, kw)
                 fan_in = w.shape[0] * w[0, 0].numel()
-            w.copy_(torch.randn(w.shape, generator=generator)
+            if isinstance(m, SparseConvBN):             # (kvol, in, out)
+                fan_in = w.shape[0] * w.shape[1]
+            w.copy_(torch.randn(w.shape, generator=generator).to(w.device)
                     / math.sqrt(fan_in))
-            if m.bias is not None:
+            if getattr(m, "bias", None) is not None:
                 m.bias.zero_()
         elif isinstance(m, MaskedBatchNorm):
             m.scale.fill_(1.0)

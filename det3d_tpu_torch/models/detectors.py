@@ -1,7 +1,8 @@
 """Detector composition: reader -> backbone -> neck -> bbox_head.
 
-Port of det3d_tpu/models/detectors.py::PointPillars. ``forward`` returns
-the head's raw predictions; ``predict`` decodes them, as in the reference.
+Port of det3d_tpu/models/detectors.py::PointPillars and ``VoxelNet``.
+``forward`` returns the head's raw predictions; ``predict`` decodes them,
+as in the reference.
 """
 
 from __future__ import annotations
@@ -39,3 +40,17 @@ class PointPillars(nn.Module):
     def predict(self, example, preds, test_cfg=None):
         return self.bbox_head.predict(example, preds,
                                       test_cfg or self.test_cfg)
+
+
+@DETECTORS.register_module
+class VoxelNet(PointPillars):
+    """SECOND family: voxel reader -> sparse middle -> RPN -> head.
+    ``plan``: the host-built packed rulebooks of the sparse middle
+    (ops/sparse_host.py), keys without their ``plan_`` prefix."""
+
+    def forward(self, voxels, num_points, coors, plan=None):
+        feats = self.reader(voxels, num_points)                 # (B, V, C)
+        x = self.backbone(feats, coors, self.grid_size, plan=plan)
+        if self.neck is not None:
+            x = self.neck(x)
+        return self.bbox_head(x)

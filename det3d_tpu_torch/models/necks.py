@@ -77,8 +77,9 @@ class RPN(nn.Module):
         return torch.relu(y).permute(0, 3, 1, 2)
 
     def forward(self, x):
-        """x: (B, H, W, C) -> (B, H', W', sum(us_num_filters))."""
-        x = x.permute(0, 3, 1, 2)
+        """x: (B, H, W, C) -> (B, H', W', sum(us_num_filters)). The input
+        is cast to fp32 first (a bf16 middle may feed it)."""
+        x = x.float().permute(0, 3, 1, 2)
         ups = []
         for names, branch in zip(self.stages, self.branches):
             for name in names:

@@ -3,7 +3,8 @@
 Port of det3d_tpu/models/norm.py::MaskedBatchNorm for serving: it
 normalizes the last axis with the running statistics,
 ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, in the reference's
-order of operations. In eval the mask plays no part. Batch statistics, the
+order of operations, in fp32, and returns ``dtype`` (fp32 unless a bf16
+epilogue asks for bf16). In eval the mask plays no part. Batch statistics, the
 mask and the synced variant wait for the training port.
 """
 
@@ -18,9 +19,11 @@ from torch import nn
 class MaskedBatchNorm(nn.Module):
     """Normalizes (..., C) over C with running ``mean`` and ``var``."""
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = float(eps)
+        self.dtype = dtype
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -32,14 +35,17 @@ class MaskedBatchNorm(nn.Module):
                 "MaskedBatchNorm batch statistics are not ported yet; call "
                 "model.eval()")
         inv = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean) * inv + self.bias
+        y = (x.float() - self.mean) * inv + self.bias
+        return y.to(self.dtype)
 
 
-def build_norm(norm_cfg: Optional[dict], num_features: int) -> MaskedBatchNorm:
+def build_norm(norm_cfg: Optional[dict], num_features: int,
+               dtype: torch.dtype = torch.float32) -> MaskedBatchNorm:
     """BN / BN1d / SyncBN configs all map to MaskedBatchNorm (eval is the
     same for all of them)."""
     cfg = dict(norm_cfg or {})
-    return MaskedBatchNorm(num_features, eps=float(cfg.get("eps", 1e-3)))
+    return MaskedBatchNorm(num_features, eps=float(cfg.get("eps", 1e-3)),
+                           dtype=dtype)
 
 
 def check_precision(precision: str) -> None:

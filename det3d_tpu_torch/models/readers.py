@@ -1,7 +1,8 @@
-"""Pillar feature reader: decorated points, linear + BN + ReLU, pillar max.
+"""Voxel feature readers: the voxel mean, and the pillar reader
+(decorated points, linear + BN + ReLU, pillar max).
 
-Port of det3d_tpu/models/readers.py (``paddings_indicator``, ``PFNLayer``,
-``PillarFeatureNet``). Inputs keep the reference's batched, padded layout:
+Port of det3d_tpu/models/readers.py (``paddings_indicator``,
+``VoxelFeatureExtractorV3``, ``PFNLayer``, ``PillarFeatureNet``). Inputs keep the reference's batched, padded layout:
 voxels (B, V, T, C), per-voxel point counts (B, V), zyx coords (B, V, 3).
 """
 
@@ -20,6 +21,25 @@ def paddings_indicator(num_points, max_points: int):
     """(B, V) counts -> (B, V, T) bool mask of the real point slots."""
     ids = torch.arange(max_points, device=num_points.device)
     return ids[None, None, :] < num_points[..., None]
+
+
+@READERS.register_module
+class VoxelFeatureExtractorV3(nn.Module):
+    """Mean of the valid points of each voxel. A (B, V, C) input is the
+    fused-mean voxelizer's output, already the means: it passes through."""
+
+    def __init__(self, num_input_features: int = 4,
+                 norm_cfg: Optional[dict] = None,
+                 name_str: str = "VoxelFeatureExtractorV3"):
+        super().__init__()
+
+    def forward(self, voxels, num_points, coors=None):
+        if voxels.dim() == 3:
+            return voxels
+        denom = torch.clamp(num_points, min=1).to(voxels.dtype)[..., None]
+        mask = paddings_indicator(num_points, voxels.shape[2])
+        pts = voxels * mask[..., None].to(voxels.dtype)
+        return pts.sum(dim=2) / denom                       # (B, V, C)
 
 
 class PFNLayer(nn.Module):

@@ -1,6 +1,6 @@
 """The port's model registries (the JAX package's own stay separate)."""
 
-from det3d_tpu.utils.registry import Registry
+from det3d_tpu_torch.utils.registry import Registry
 
 READERS = Registry("reader")
 BACKBONES = Registry("backbone")

@@ -1,0 +1,120 @@
+"""Sparse window convolution: the CUDA kernel's wrapper and its plain twin.
+
+``window_conv`` replaces det3d_tpu/ops/band_conv.py::band_window_conv (the
+Pallas TPU kernel) and, with it, the contract of
+det3d_tpu/ops/sparse.py::apply_conv_window. A CUDA tensor launches the
+hand-written kernel in ``csrc/window_conv.cu``; a CPU tensor takes
+``window_conv_ref`` (ops/sparse.py), the same function in plain PyTorch.
+There is no fallback between the two.
+
+The kernel reads the packed plan words (r0 | pres << 24) directly; the
+band machinery of the TPU kernel (band_prep, plan_band, the serve_*band
+buckets) has no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from det3d_tpu_torch import csrc
+from det3d_tpu_torch.ops.sparse import (_PACK_MASK, unpack_windows,
+                                        window_conv_ref)
+
+__all__ = ["window_conv", "window_conv_ref"]
+
+_COUTS = (16, 32, 64)
+_MAX_CIN = 128
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = csrc.load("window_conv")
+    fn = lib.window_conv_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(features, packed, weights, center_shift):
+    dev = features.device
+    if dev.type != "cuda":
+        raise ValueError(f"window_conv: no kernel for device {dev}")
+    if features.dim() != 3 or packed.dim() != 3 or weights.dim() != 3:
+        raise ValueError(
+            f"features (B, V, Cin), packed (B, O, K) and weights "
+            f"(kz*K, Cin, Cout) expected, got {tuple(features.shape)}, "
+            f"{tuple(packed.shape)}, {tuple(weights.shape)}")
+    b, v, cin = features.shape
+    bo, o, k = packed.shape
+    kvol, wcin, cout = weights.shape
+    if bo != b or wcin != cin or kvol % k:
+        raise ValueError(f"shapes disagree: features {tuple(features.shape)}"
+                         f", packed {tuple(packed.shape)}, weights "
+                         f"{tuple(weights.shape)}")
+    kz = kvol // k
+    for name, t in (("packed", packed), ("weights", weights)):
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, features on {dev}")
+    if features.dtype not in _DTYPES or weights.dtype != features.dtype:
+        raise ValueError(f"features and weights must share fp32 or bf16, "
+                         f"got {features.dtype} and {weights.dtype}")
+    if packed.dtype != torch.int32:
+        raise ValueError(f"packed must be int32, got {packed.dtype}")
+    for name, t in (("features", features), ("packed", packed),
+                    ("weights", weights)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cout not in _COUTS or not 0 < cin <= _MAX_CIN or not 0 < kz <= 7:
+        raise ValueError(f"window_conv kernel takes Cout in {_COUTS}, "
+                         f"0 < Cin <= {_MAX_CIN} and 0 < kz <= 7; got "
+                         f"Cout={cout}, Cin={cin}, kz={kz}")
+    if v > _PACK_MASK + 1:
+        raise ValueError(f"V={v} exceeds the packed rank range")
+    if center_shift and (kz != 3 or o != v):
+        raise ValueError("center_shift needs kz=3 and O == V")
+    return b, v, o, k, kz, cin, cout
+
+
+def window_conv(features, packed, weights, center_shift: bool):
+    """Sparse conv over a packed window rulebook.
+
+    features: (B, V, Cin) fp32 or bf16; packed: (B, O, K) int32 words
+    r0 | pres << 24; weights: (kz*K, Cin, Cout) z-major, the features'
+    type. ``center_shift``: submanifold rulebook (O == V, kz == 3), whose
+    center BEV column reads rows o-1, o, o+1. Returns (B, O, Cout) fp32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (one launch, counted in ``window_conv.launches``); any other input
+    raises.
+    """
+    if features.device.type == "cpu":
+        kz = weights.shape[0] // packed.shape[-1]
+        r0, pres = unpack_windows(packed, kz)
+        return window_conv_ref(features, r0, pres, weights, center_shift)
+    b, v, o, k, kz, cin, cout = _check(features, packed, weights,
+                                       center_shift)
+    out = torch.empty((b, o, cout), dtype=torch.float32,
+                      device=features.device)
+    if b == 0 or o == 0:
+        return out
+    if v == 0:
+        return out.zero_()
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _lib().window_conv_launch(
+            features.data_ptr(), packed.data_ptr(), weights.data_ptr(),
+            out.data_ptr(), b, v, o, k, kz, cin, cout, int(bool(center_shift)),
+            int(features.dtype == torch.bfloat16), stream)
+    if err != 0:
+        raise RuntimeError(f"window_conv: CUDA launch failed (cudaError "
+                           f"{err})")
+    window_conv.launches += 1
+    return out
+
+
+window_conv.launches = 0

@@ -3,7 +3,9 @@
 Port of det3d_tpu/parallel/train.py::build_example (``with_targets=False``)
 and ``make_predict_step``, without the mesh and without double-flip TTA.
 The JAX step takes its weights in a train state; here the model holds
-them, and the step runs eagerly on the model's device.
+them, and the step runs eagerly on the model's device. A batch's
+``plan_*`` keys (apis/train.py::host_plan_fn) go to the model as its
+sparse middle's plan.
 """
 
 from __future__ import annotations
@@ -50,8 +52,10 @@ def make_predict_step(model, voxel_generator: VoxelGenerator,
     """Returns ``predict_step(batch) -> padded detections dict``.
 
     ``batch`` holds ``points`` (B, P, C) and ``num_points`` (B,), as tensors
-    or numpy arrays; they are moved to the model's device. Output: the
-    head's ``predict`` dict (box3d_lidar, scores, label_preds, valid)."""
+    or numpy arrays, and for a sparse-middle model the host plan and voxels
+    of ``host_plan_fn(..., voxelize=True)``; everything is moved to the
+    model's device. Output: the head's ``predict`` dict (box3d_lidar,
+    scores, label_preds, valid)."""
     if test_cfg.get("double_flip", False):
         raise NotImplementedError("double-flip TTA is not ported yet")
     device = next(model.parameters()).device
@@ -60,9 +64,11 @@ def make_predict_step(model, voxel_generator: VoxelGenerator,
     def predict_step(batch):
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batch.items()}
+        plan = {k[5:]: v for k, v in batch.items() if k.startswith("plan_")}
         example = build_example(batch, voxel_generator, assigners)
+        kw = {"plan": plan} if plan else {}
         preds = model(example["voxels"], example["num_points_per_voxel"],
-                      example["coordinates"])
+                      example["coordinates"], **kw)
         return model.predict(example, preds, test_cfg)
 
     return predict_step

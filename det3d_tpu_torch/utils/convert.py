@@ -9,6 +9,9 @@ that flax's variables become under ``np.asarray`` and returns the port's
 - ConvTranspose kernel (kh, kw, in, out) -> flipped in both spatial axes,
   then ConvTranspose2d weight (in, out, kh, kw): flax's transposed conv
   (``transpose_kernel=False``) is the spatial flip of torch's;
+- SparseConvBN_<n> kernel (kvol, Cin, Cout) keeps its z-major layout;
+- DenseConvBN_<n> kernel (kz*ky*kx, Cin, Cout) -> (kz, ky, kx, Cin, Cout),
+  as the JAX package reshapes it, then conv3d weight OIDHW;
 - BatchNorm scale, bias, mean and var carry over as they are.
 
 flax names a module's BatchNorms by call order (``MaskedBatchNorm_<n>``);
@@ -54,18 +57,28 @@ def _rpn_bn_names(neck_params) -> list:
     return names
 
 
+# the dense tail's kernels, by tap count: its 3x3x3 convs and the final
+# (3, 1, 1) z conv of SpMiddleFHD
+_DENSE_KERNELS = {27: (3, 3, 3), 3: (3, 1, 1)}
+
+
 def _kernel(path, w):
     """flax kernel -> torch weight, by the layer kind in its path."""
     if w.ndim == 2:                                   # Dense
         return w.T
+    if path[-2].startswith("SparseConvBN_"):          # (kvol, in, out)
+        return w
+    if path[-2].startswith("DenseConvBN_"):
+        kz, ky, kx = _DENSE_KERNELS[w.shape[0]]
+        return w.reshape(kz, ky, kx, *w.shape[1:]).transpose(4, 3, 0, 1, 2)
     if path[-2].endswith("_deconv"):                  # ConvTranspose
         return w[::-1, ::-1].transpose(2, 3, 0, 1)
     return w.transpose(3, 2, 0, 1)                    # Conv HWIO -> OIHW
 
 
 def from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
-    """Map flax ``params`` / ``batch_stats`` of a PointPillars detector to
-    the port's state_dict (float32 CPU tensors)."""
+    """Map flax ``params`` / ``batch_stats`` of a PointPillars or VoxelNet
+    detector to the port's state_dict (float32 CPU tensors)."""
     flat_p = _flatten(params)
     flat_s = _flatten(batch_stats)
     bn_rename = {}
@@ -77,7 +90,7 @@ def from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
         # path without the leaf name
         if path[:2] in bn_rename:
             return bn_rename[path[:2]] + path[2:]
-        if path[-1] == "MaskedBatchNorm_0":           # PFN layer's norm
+        if path[-1] == "MaskedBatchNorm_0":           # a layer's own norm
             return path[:-1] + ("norm",)
         return path
 

@@ -1,4 +1,5 @@
-"""The CUDA rotated-NMS kernel against its plain PyTorch twin, on the card.
+"""The CUDA kernels against their plain PyTorch twins, on the card: the
+rotated-NMS keep mask and the sparse window convolution.
 
 These tests need an NVIDIA GPU and nvcc: they carry the ``cuda`` marker and
 skip elsewhere (the check runs inside a fixture, so every worker collects
@@ -7,7 +8,10 @@ the same tests). Run them on the card with
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Keep masks must be exactly equal: the kernel repeats the plain version's
-fp32 operations in order and is built with --fmad=false. TF32 is off.
+fp32 operations in order and is built with --fmad=false. The window conv
+sums in another order: fp32 within rtol = atol = 1e-4; bf16 operands
+against the plain version in fp32 on the same bf16-rounded operands,
+within rtol = atol = 1e-3. TF32 is off.
 """
 
 import numpy as np
@@ -122,3 +126,53 @@ def test_small_predict_card_post_processing_equals_cpu(dev):
         assert torch.equal(out[k], card[k]), k
     torch.testing.assert_close(card["box3d_lidar"].cpu(), cpu["box3d_lidar"],
                                rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def second_plan(dev):
+    """SECOND's host plan of one structured scan at full scale."""
+    from chip_smoke import POINTS, SEED, second_config, second_stack
+    from det3d_tpu_torch.utils.synth import structured_batch
+    batch = structured_batch(1, POINTS, second_config()["voxel_generator"][
+        "range"], seed=SEED)
+    return second_stack("cpu")[-1](batch["points"], batch["num_points"])
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["subm (4,16) s0", "strided (32,64) down2"])
+def test_window_conv_equals_plain(dev, second_plan, prec, name):
+    from chip_smoke import CONV_TOL, conv_cases
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    dtype = torch.float32 if prec == "fp32" else torch.bfloat16
+    case = {c[0]: c for c in conv_cases(second_plan, dev, dtype)}[name]
+    _, x, pk, w, subm = case
+    before = window_conv.launches
+    out = window_conv(x, pk, w, subm)
+    torch.cuda.synchronize()
+    assert window_conv.launches == before + 1
+    r0, pres = unpack_windows(pk, 3)
+    ref = window_conv_ref(x.float(), r0, pres, w.float(), subm)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    torch.testing.assert_close(out, ref, **CONV_TOL[prec])
+    # the CPU plain version agrees too
+    cpu = window_conv(x.cpu(), pk.cpu(), w.cpu(), subm)
+    torch.testing.assert_close(out.cpu(), cpu, **CONV_TOL[prec])
+
+
+def test_window_conv_rejects_bad_inputs(dev):
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    x = torch.zeros(1, 64, 16, device=dev)
+    pk = torch.zeros(1, 64, 9, dtype=torch.int32, device=dev)
+    w = torch.zeros(27, 16, 32, device=dev)
+    with pytest.raises(ValueError):
+        window_conv(x.bfloat16(), pk, w, True)          # mixed types
+    with pytest.raises(ValueError):
+        window_conv(x, pk.long(), w, True)
+    with pytest.raises(ValueError):
+        window_conv(x, pk, torch.zeros(27, 16, 24, device=dev), True)
+    with pytest.raises(ValueError):
+        window_conv(x, pk[:, :32], w, True)             # O != V
+    with pytest.raises(ValueError):
+        window_conv(x, pk.cpu(), w, True)

@@ -89,7 +89,8 @@ def stacks():
     jax_out = dict(voxels=vox, num_points=npv, coords=coords, feats=feats,
                    canvas=canvas, neck=neck, head=head)
 
-    tmodel = build_stack(flagship_config(small=True, **SMALL))[0]
+    tmodel = build_stack(flagship_config(small=True, **SMALL),
+                         device="cpu")[0]
     tmodel.load_state_dict(from_jax(var["params"], var["batch_stats"]),
                            strict=True)
     return to_np(jax_out), tmodel
@@ -169,7 +170,7 @@ def test_rpn_full_strides():
 def test_bf16_precision_raises():
     cfg = flagship_config(small=True, precision="bf16", **SMALL)
     with pytest.raises(NotImplementedError):
-        build_stack(cfg)
+        build_stack(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("rotate", [True, False])

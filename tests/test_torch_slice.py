@@ -70,7 +70,7 @@ def run():
     det = jax.jit(lambda e, p: model.predict(e, p, TEST_CFG))(ex, heads)
 
     tmodel, tvg, tasg, tcids, test_cfg = build_stack(
-        flagship_config(small=True, **SMALL))
+        flagship_config(small=True, **SMALL), device="cpu")
     tmodel.load_state_dict(from_jax(var["params"], var["batch_stats"]))
     step = make_predict_step(tmodel, tvg, tasg, tcids, test_cfg)
     tex = build_example({k: torch.from_numpy(v) for k, v in batch.items()},
@@ -135,23 +135,24 @@ def test_slice_imports_neither_jax_nor_flax():
     code = textwrap.dedent("""
         import sys
         import torch
-        from det3d_tpu.utils.synth import structured_batch
         from det3d_tpu_torch.apis.flagship import flagship_config
         from det3d_tpu_torch.apis.train import build_stack
         from det3d_tpu_torch.models.builder import init_weights
         from det3d_tpu_torch.parallel.predict import make_predict_step
         from det3d_tpu_torch.utils import convert  # noqa: F401
+        from det3d_tpu_torch.utils.synth import structured_batch
 
         pc = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
         cfg = flagship_config(voxel_size=(0.2, 0.2, 4.0), pc_range=pc,
                               max_points=8, max_voxels=300, small=True)
-        model, vg, asg, cids, test_cfg = build_stack(cfg)
+        model, vg, asg, cids, test_cfg = build_stack(cfg, device="cpu")
         init_weights(model, torch.Generator().manual_seed(0))
         out = make_predict_step(model, vg, asg, cids, test_cfg)(
             structured_batch(1, 800, pc, seed=0))
         assert out["box3d_lidar"].shape == (1, 100, 7)
         assert "jax" not in sys.modules, "jax was imported"
         assert "flax" not in sys.modules, "flax was imported"
+        assert "det3d_tpu" not in sys.modules, "det3d_tpu was imported"
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

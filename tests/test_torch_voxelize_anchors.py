@@ -82,9 +82,15 @@ def test_empty_cloud_and_unported_orders():
                              torch.tensor([0, 0], dtype=torch.int32))
     assert out["num_voxels"].tolist() == [0, 0]
     assert not out["voxels"].any() and (out["coords"] == -1).all()
-    for order in ("appearance", "yxz"):
+    with pytest.raises(NotImplementedError):
+        VoxelGenerator(order="appearance", **VG_KW)
+    # yxz and the fused mean are voxelized on the host (SECOND's serving
+    # path); the device voxelizer refuses them
+    for kw in (dict(order="yxz"), dict(order="hashed", fuse_mean=True)):
+        vg = VoxelGenerator(**kw, **VG_KW)
         with pytest.raises(NotImplementedError):
-            VoxelGenerator(order=order, **VG_KW)
+            vg.generate_batch(torch.from_numpy(pts),
+                              torch.tensor([5, 5], dtype=torch.int32))
 
 
 def test_mix32_matches_uint32_reference():
