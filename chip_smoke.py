@@ -1,14 +1,24 @@
 """Smoke run of the PyTorch / CUDA port (det3d_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --conv-timing [--tree DIR]
 
-Drives the port's two serving paths through the entry points a user calls
+The second form runs phases 1 and 7 and only the bf16 window-conv timing
+of phase 11, with det3d_tpu_torch imported from the checkout at DIR (by
+default this one): run it on two checkouts in one session (parent,
+change, change, parent) to compare two versions of the kernel on the
+same yardsticks.
+
+The first form drives the port's two serving paths through the entry points a user calls
 (the flagship PointPillars step, then SECOND from host plans, both at
 KITTI-car scale and full widths) and prints one line per phase:
 
   1. device: the card, as nvidia-smi names it, and its power limit;
   2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
-     (sm_90a) from the checkout, one process each, in parallel;
+     (sm_90a) from the checkout, one process each, in parallel; prints each
+     kernel's registers and spills (-Xptxas -v) and the HMMA instructions
+     in window_conv's SASS (cuobjdump, where the toolkit has it: a bf16
+     kernel without one fails);
   3. NMS kernel against plain: the rotated-NMS keep masks of the CUDA
      kernel and of its plain PyTorch twin, on the card, must be equal at
      the flagship shape (N=8 samples, K=1000 boxes), at K=333, all invalid,
@@ -22,8 +32,8 @@ KITTI-car scale and full widths) and prints one line per phase:
      within the stated tolerance, and the CPU post-processing (plain NMS)
      fed the card's head outputs gives exactly the card's detections;
   6. flagship timing with CUDA events (5 warm-up runs, median of 20):
-     predict ms per scan at B=8, its stages, and the NMS kernel against its
-     plain twin;
+     predict ms per scan at B=8, its stages, and the NMS kernel (a call
+     from Python, and its device time by graph_ms) against its plain twin;
   7. SECOND host plan: configs/kitti_car_second.py as shipped (0.05 m
      voxels, 20000 voxels of 5 points, bf16 middle; random weights from
      torch.Generator().manual_seed(0), BatchNorm statistics calibrated on
@@ -40,22 +50,31 @@ KITTI-car scale and full widths) and prints one line per phase:
      voxels equal, head outputs within the stated tolerance, the CPU
      post-processing of the card's heads gives the card's detections;
  11. SECOND timing: predict ms per scan at B=2 (device step; the host plan
-     build printed apart), its stages, each conv shape's kernel time
-     against its plain version, peak memory;
+     build printed apart), its stages, peak memory; each conv shape's and
+     the forward's 10 launches' kernel time, a call from Python, against
+     the plain version and the bound, in both precisions; in bf16 also
+     the device time (20 calls replayed from one CUDA graph, without the
+     host's launch overhead) with the achieved TB/s, TFLOP/s and share of
+     the bound, and the yardstick im2col+matmul (an im2col gather and one
+     torch.matmul, which the port never calls) timed both ways;
  12. SECOND profile: torch.profiler over 5 predict steps, device time by
-     kernel and the device's busy share.
+     kernel (the window-conv kernels summed) and the device's busy share.
 
 TF32 is off throughout (cuDNN and matmul), so the card computes in full
 fp32 like the CPU. Any failed check raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing anything. The last two
-lines are a JSON object of the kernels and the JSON result line.
+lines are a JSON object of the kernels (``ms``: a call from Python,
+interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
+result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import functools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -72,12 +91,16 @@ IOU_MARGIN = 1e-4
 HEAD_TOL = dict(rtol=1e-3, atol=1e-3)   # card vs CPU fp32: sum order only
 DET_TOL = 1e-5                          # CPU vs card decode: last-bit exp/sin
 WARMUP, REPEAT = 5, 20
+GRAPH_REPS = 20                         # calls per CUDA graph (graph_ms)
 
 SECOND_CFG = Path(__file__).resolve().parent / "configs" / "kitti_car_second.py"
 SECOND_B = 2
 SECOND_LAUNCHES = 10                    # window-conv launches a forward
 CONV_TOL = {"fp32": dict(rtol=1e-4, atol=1e-4),
             "bf16": dict(rtol=1e-3, atol=1e-3)}
+# bf16 im2col+matmul against the kernel, max abs: the matmul rounds its
+# output to bf16 (|out| < 8 here, half an ulp 2^-6)
+YARD_TOL = 3e-2
 SECOND_HEAD_TOL = dict(rtol=1e-3, atol=1e-3)
 BOX_GAIN = 0.1          # random box-regression weights, scaled (second_state)
 
@@ -180,6 +203,27 @@ def cuda_ms(fn, warmup=WARMUP, repeat=REPEAT):
     return statistics.median(times)
 
 
+def graph_ms(fn, reps=GRAPH_REPS, repeat=5):
+    """Device milliseconds of one fn(): ``reps`` calls captured in one CUDA
+    graph, the median replay by CUDA events over ``reps``. The host's
+    launch overhead, which paces a small kernel called eagerly from Python,
+    is left out. The capture is relaxed, so that a kernel version which
+    sets a function attribute at each launch can be captured too."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                 # warm-up off the default stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    ms = cuda_ms(graph.replay, warmup=1, repeat=repeat) / reps
+    del graph
+    return ms
+
+
 def interleaved_ms(fns, rounds=REPEAT):
     """Median ms of each fn, timed in turns (a, b, b, a, ...) so that both
     see the same clocks."""
@@ -218,6 +262,56 @@ def phase_device():
     return smi
 
 
+def ptxas_report(text):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    output of ``nvcc -Xptxas -v``; names demangled by c++filt where the
+    host has it."""
+    found, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            found[cur] = [None, None, None]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            found[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            found[cur][0] = int(m.group(1))
+    return {short_name(k): tuple(v) for k, v in found.items()}
+
+
+def short_name(mangled):
+    """c++filt's name of a kernel, without its namespace and arguments."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    except OSError:
+        return mangled
+    name = name.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").strip() or mangled
+
+
+def sass_mma_counts(lib):
+    """{kernel: number of HMMA instructions} in ``lib``'s SASS, by
+    cuobjdump beside nvcc; None where the toolkit has no cuobjdump."""
+    from det3d_tpu_torch import csrc
+    tool = Path(csrc.find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            cur = short_name(line.split("Function :")[1].strip())
+            counts[cur] = 0
+        elif cur and "HMMA" in line:
+            counts[cur] += 1
+    return counts
+
+
 def phase_build():
     from det3d_tpu_torch import csrc
     t0 = time.perf_counter()
@@ -226,6 +320,24 @@ def phase_build():
     names = ", ".join(csrc.library_path(n).name for n in csrc.SOURCES)
     log(f"phase 2 build: {names} in "
         f"{(time.perf_counter() - t0) * 1e3:.0f} ms (parallel nvcc)")
+    for src in csrc.SOURCES:
+        logf = csrc.build_log(src)
+        report = ptxas_report(logf.read_text()) if logf.is_file() else {}
+        for kern, (regs, st, ld) in sorted(report.items()):
+            log(f"phase 2 ptxas {src}: {kern}: {regs} registers, spill "
+                f"stores {st} B, spill loads {ld} B")
+        if not report:
+            log(f"phase 2 ptxas {src}: no -Xptxas -v output kept")
+    counts = sass_mma_counts(csrc.library_path("window_conv"))
+    if counts is None:
+        log("phase 2 SASS of window_conv: not checked (no cuobjdump)")
+        return
+    bf16 = {k: n for k, n in counts.items() if "bf16" in k}
+    log("phase 2 SASS of window_conv, HMMA instructions per kernel: "
+        + ", ".join(f"{k} {n}" for k, n in sorted(counts.items())))
+    if not bf16 or not all(bf16.values()):
+        raise AssertionError(f"a bf16 window-conv kernel has no HMMA in its "
+                             f"SASS: {counts}")
 
 
 def phase_kernel(dev):
@@ -373,9 +485,11 @@ def phase_timing(dev, stack, batch, smi):
     nms_ms = interleaved_ms({
         "plain": lambda: rotated_nms_keep_ref(c, a, v, IOU_THR),
         "kernel": lambda: rotated_nms_keep(c, a, v, IOU_THR)})
+    nms_ms["device"] = graph_ms(lambda: rotated_nms_keep(c, a, v, IOU_THR))
     log(f"phase 6 rotated NMS keep N=8 K=1000: kernel "
-        f"{nms_ms['kernel']:.4f} ms, plain {nms_ms['plain']:.4f} ms "
-        f"[{smi}]")
+        f"{nms_ms['kernel']:.4f} ms a call from Python "
+        f"({nms_ms['device']:.4f} ms on the device), plain "
+        f"{nms_ms['plain']:.4f} ms [{smi}]")
 
     torch.backends.cudnn.allow_tf32 = True
     tf32_ms = cuda_ms(lambda: step(batch_d))
@@ -406,19 +520,27 @@ def nms_bound(corners, area, valid):
     return bound(nbytes, pairs * NMS_FLOPS_PER_PAIR, FP32_FLOPS)
 
 
-def conv_taps(packed, v, center_shift):
-    """(taps, rows) of one window conv on this plan: the present taps that
-    read an input row (rows past V or before 0 read zero), and the distinct
-    input rows they read, over the batch. The rules are window_conv_ref's."""
+def tap_rows(packed, v, center_shift):
+    """(rows, sel), each (B, O, K, kz): the input row tap j of column k
+    reads for output o, and whether it reads one (the tap is present and
+    the row lies in [0, V)). The rules are window_conv_ref's."""
     from det3d_tpu_torch.ops.sparse import unpack_windows
     r0, pres = unpack_windows(packed, 3)
-    b, o, kbev, kz = pres.shape
+    o, kbev, kz = pres.shape[1:]
     off = pres.long().cumsum(-1) - pres.long()       # popcount(pres[:j])
     rows = r0.clamp(max=v - 1)[..., None] + off
     if center_shift:
         rows[:, :, kbev // 2] = (torch.arange(o, device=rows.device)[:, None]
                                  - 1 + torch.arange(kz, device=rows.device))
-    sel = pres & (rows >= 0) & (rows < v)
+    return rows, pres & (rows >= 0) & (rows < v)
+
+
+def conv_taps(packed, v, center_shift):
+    """(taps, rows) of one window conv on this plan: the present taps that
+    read an input row (rows past V or before 0 read zero), and the distinct
+    input rows they read, over the batch."""
+    rows, sel = tap_rows(packed, v, center_shift)
+    b = rows.shape[0]
     batch = torch.arange(b, device=rows.device).view(b, 1, 1, 1)
     hit = torch.zeros(b, v, dtype=torch.bool, device=rows.device)
     hit[batch.expand_as(rows)[sel], rows[sel]] = True
@@ -438,6 +560,50 @@ def conv_work(features, packed, weights, center_shift):
               + weights.numel() * elt + b * o * cout * 4)
     peak = BF16_FLOPS if features.dtype == torch.bfloat16 else FP32_FLOPS
     return nbytes, 2.0 * cin * cout * taps, peak
+
+
+def im2col_matmul(features, packed, weights, center_shift):
+    """Phase 11's yardstick, which the port never calls: the same conv as a
+    gather of every output row's kz*K taps into an im2col matrix
+    (B*O, kz*K*Cin), a zero row where a tap reads none, and one
+    torch.matmul with the (kz*K*Cin, Cout) weights, in the operands' type.
+    Returns fn() -> (B, O, Cout). The gather index and the features with
+    their zero row are made once, outside fn, as a plan would hold them.
+    Where a row is a multiple of 16 bytes, the rows and the weights get 8
+    bytes of zero channels: index_select of such rows takes a path that is
+    an order of magnitude slower on the H100 whatever the width
+    (gather_ms; phase 11 prints both)."""
+    b, v, cin = features.shape
+    o, k = packed.shape[1:]
+    kvol, _, cout = weights.shape
+    rows, sel = tap_rows(packed, v, center_shift)          # (B, O, K, kz)
+    base = torch.arange(b, device=rows.device).view(b, 1, 1, 1) * (v + 1)
+    idx = torch.where(sel, base + rows, base + v)          # row v is zero
+    idx = idx.transpose(2, 3).reshape(-1)                  # tap j*K + k
+    elt = features.element_size()
+    width = cin + (8 // elt if cin * elt % 16 == 0 else 0)
+    xpad = features.new_zeros(b, v + 1, width)
+    xpad[:, :v, :cin] = features
+    xpad = xpad.reshape(b * (v + 1), width)
+    wmat = weights.new_zeros(kvol, width, cout)
+    wmat[:, :cin] = weights
+    wmat = wmat.reshape(kvol * width, cout)
+
+    def fn():
+        cols = xpad.index_select(0, idx).view(b * o, kvol * width)
+        return torch.matmul(cols, wmat).view(b, o, cout)
+    return fn
+
+
+def gather_ms(features, pad):
+    """Device ms (graph_ms) of index_select of 27 random rows per row of
+    ``features`` (B, V, C), its rows widened by ``pad`` zero channels."""
+    flat = torch.nn.functional.pad(features, (0, pad))
+    flat = flat.reshape(-1, flat.shape[-1])
+    g = torch.Generator(device=flat.device).manual_seed(0)
+    idx = torch.randint(0, flat.shape[0], (27 * flat.shape[0],),
+                        generator=g, device=flat.device)
+    return graph_ms(lambda: flat.index_select(0, idx))
 
 
 # ---------------------------------------------------------------------------
@@ -553,9 +719,17 @@ def conv_cases(plan, dev, dtype):
     return out
 
 
+def second_plan_fn():
+    """SECOND's host plan builder (voxels and rulebooks), on the CPU; the
+    weights play no part in it."""
+    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    model, vg = build_stack(second_config(), device="cpu")[:2]
+    return host_plan_fn(model, vg, train=False, voxelize=True)
+
+
 def phase_second_plan(batch):
     """The host plan and voxels of B=2 scans, and its build time."""
-    plan_fn = second_stack("cpu")[-1]
+    plan_fn = second_plan_fn()
     plan_fn(batch["points"], batch["num_points"])             # warm
     t0 = time.perf_counter()
     plan = plan_fn(batch["points"], batch["num_points"])
@@ -697,9 +871,6 @@ def phase_second_cpu(dev, batch):
 
 
 def phase_second_timing(dev, stack, plan_ms, smi):
-    from det3d_tpu_torch.ops.sparse import unpack_windows
-    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
-                                                      window_conv_ref)
     from det3d_tpu_torch.parallel.predict import build_example
     model, vg, asg, test_cfg, step, data = stack
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
@@ -730,39 +901,93 @@ def phase_second_timing(dev, stack, plan_ms, smi):
         f"{k} {v:.3f}" for k, v in parts.items()))
 
     host_plan = {k: v for k, v in data.items() if k.startswith("plan_")}
-    fwd = {}
-    for prec, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        cases = conv_cases(host_plan, dev, dtype)
-        unpacked = [unpack_windows(pk, 3) for _, _, pk, _, _ in cases]
-        seen = set()
-        for (name, x, pk, w, subm), (r0, pres) in zip(cases, unpacked):
-            if name in seen:
-                continue
-            seen.add(name)
-            t = interleaved_ms({
-                "plain": lambda: window_conv_ref(x, r0, pres, w, subm),
-                "kernel": lambda: window_conv(x, pk, w, subm)})
-            b_ms, b_by = bound(*conv_work(x, pk, w, subm))
-            taps, rows = conv_taps(pk, x.shape[1], subm)
-            log(f"phase 11 window conv [{prec} {name}]: kernel "
-                f"{t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound "
-                f"{b_ms:.7f} ms ({b_by}; {rows} of {x.shape[0] * x.shape[1]}"
-                f" input rows read, {taps} taps) [{smi}]")
-        t = interleaved_ms({
-            "plain": lambda: [window_conv_ref(x, r0, pres, w, subm)
-                              for (_, x, _, w, subm), (r0, pres)
-                              in zip(cases, unpacked)],
-            "kernel": lambda: [window_conv(x, pk, w, subm)
-                               for _, x, pk, w, subm in cases]})
-        work = [conv_work(x, pk, w, subm) for _, x, pk, w, subm in cases]
-        b_ms = sum(bound(*wk)[0] for wk in work)
-        b_by = "bytes" if all(bound(*wk)[1] == "bytes" for wk in work) \
-            else "operations"
-        fwd[prec] = dict(t, bound_ms=b_ms, bound_by=b_by)
-        log(f"phase 11 window conv, the forward's {len(cases)} launches "
-            f"[{prec}]: kernel {t['kernel']:.4f} ms, plain "
-            f"{t['plain']:.4f} ms, bound {b_ms:.7f} ms ({b_by}) [{smi}]")
+    fwd = {prec: conv_timing(dev, host_plan, smi, prec)
+           for prec in ("bf16", "fp32")}
     return fwd["bf16"]
+
+
+def conv_timing(dev, host_plan, smi, prec):
+    """Phase 11's window-conv timing on SECOND's host plan in ``prec``: at
+    each (Cin, Cout, center_shift) of the middle and for the forward's 10
+    launches, a call from Python interleaved with the plain version, and
+    the bound. In bf16 (what SECOND serves) also the device time
+    (graph_ms) with the achieved rates and share of the bound, and the
+    yardstick im2col+matmul, timed both ways. Returns the forward's times
+    (``kernel``: a call; ``device``: bf16 only) and bound."""
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    bf16 = prec == "bf16"
+    cases = conv_cases(host_plan, dev,
+                       torch.bfloat16 if bf16 else torch.float32)
+    unpacked = [unpack_windows(pk, 3) for _, _, pk, _, _ in cases]
+    yard = ([im2col_matmul(x, pk, w, subm) for _, x, pk, w, subm in cases]
+            if bf16 else [None] * len(cases))
+    seen = set()
+    for (name, x, pk, w, subm), (r0, pres), ys in zip(cases, unpacked, yard):
+        if name in seen:
+            continue
+        seen.add(name)
+        fns = {"plain": lambda: window_conv_ref(x, r0, pres, w, subm),
+               "kernel": lambda: window_conv(x, pk, w, subm)}
+        if bf16:
+            fns["im2col+matmul"] = ys
+        t = interleaved_ms(fns)
+        work = conv_work(x, pk, w, subm)
+        b_ms, b_by = bound(*work)
+        taps, rows = conv_taps(pk, x.shape[1], subm)
+        log(f"phase 11 window conv [{prec} {name}]: kernel "
+            f"{t['kernel']:.4f} ms a call from Python, plain "
+            f"{t['plain']:.4f} ms, bound {b_ms:.7f} ms ({b_by}; {rows} of "
+            f"{x.shape[0] * x.shape[1]} input rows read, {taps} taps) "
+            f"[{smi}]")
+        if not bf16:
+            continue
+        dev_ms = graph_ms(fns["kernel"])
+        log(f"phase 11   kernel on the device {dev_ms:.4f} ms: achieved "
+            f"{work[0] / dev_ms / 1e9:.3f} TB/s, "
+            f"{work[1] / dev_ms / 1e9:.3f} TFLOP/s, "
+            f"{b_ms / dev_ms:.4f} of the bound")
+        err = float((ys().float() - window_conv(x, pk, w, subm)).abs().max())
+        if err > YARD_TOL:
+            raise AssertionError(f"im2col+matmul [{prec} {name}] differs "
+                                 f"from the kernel by {err}")
+        log(f"phase 11   im2col+matmul (yardstick, never called by the "
+            f"port): {t['im2col+matmul']:.4f} ms a call from Python, "
+            f"{graph_ms(ys):.4f} ms on the device; max abs diff from the "
+            f"kernel {err:.3e}")
+    fns = {"plain": lambda: [window_conv_ref(x, r0, pres, w, subm)
+                             for (_, x, _, w, subm), (r0, pres)
+                             in zip(cases, unpacked)],
+           "kernel": lambda: [window_conv(x, pk, w, subm)
+                              for _, x, pk, w, subm in cases]}
+    if bf16:
+        fns["im2col+matmul"] = lambda: [ys() for ys in yard]
+    t = interleaved_ms(fns)
+    work = [conv_work(x, pk, w, subm) for _, x, pk, w, subm in cases]
+    fwd = dict(kernel=t["kernel"], plain=t["plain"],
+               bound_ms=sum(bound(*wk)[0] for wk in work),
+               bound_by="bytes" if all(bound(*wk)[1] == "bytes"
+                                       for wk in work) else "operations")
+    line = (f"phase 11 window conv, the forward's {len(cases)} launches "
+            f"[{prec}]: kernel {t['kernel']:.4f} ms called from Python")
+    if bf16:
+        fwd["device"] = graph_ms(fns["kernel"])
+        line += f" ({fwd['device']:.4f} ms on the device)"
+    line += (f", plain {t['plain']:.4f} ms, bound {fwd['bound_ms']:.7f} ms "
+             f"({fwd['bound_by']})")
+    if bf16:
+        line += (f", im2col+matmul {t['im2col+matmul']:.4f} ms called from "
+                 f"Python ({graph_ms(fns['im2col+matmul']):.4f} ms on the "
+                 f"device)")
+    log(f"{line} [{smi}]")
+    if bf16:
+        x = cases[-1][1]
+        log(f"phase 11 why im2col+matmul pads its rows: index_select of "
+            f"{27 * x.shape[0] * x.shape[1]} random rows of {x.shape[-1]} "
+            f"bf16 takes {gather_ms(x, 0):.4f} ms on the device, of "
+            f"{x.shape[-1] + 4} (8 bytes of zeros) {gather_ms(x, 4):.4f} ms")
+    return fwd
 
 
 def phase_profile(stack, dev, smi, steps=5, top=12):
@@ -797,9 +1022,38 @@ def phase_profile(stack, dev, smi, steps=5, top=12):
         f"{sum(k[1] for k in kernels)} kernels/step [{smi}]")
     for t, n, name in sorted(kernels, reverse=True)[:top]:
         log(f"phase 12   {t:8.3f} ms/step  x{n:<4d} {name[:90]}")
+    conv = [k for k in kernels if "window_conv" in k[2]]
+    log(f"phase 12 window-conv kernels: {sum(k[0] for k in conv):.3f} "
+        f"ms/step over {sum(k[1] for k in conv)} launches")
+
+
+def conv_timing_main(tree):
+    """--conv-timing: phases 1 and 7, then the bf16 window-conv timing of
+    phase 11, with det3d_tpu_torch imported from ``tree``."""
+    if tree:
+        sys.path.insert(0, str(Path(tree).resolve()))
+    smi = phase_device()
+    import det3d_tpu_torch
+    from det3d_tpu_torch.utils.synth import structured_batch
+    log(f"conv timing of {Path(det3d_tpu_torch.__file__).parent}")
+    sec_range = second_config()["voxel_generator"]["range"]
+    batch = structured_batch(SECOND_B, POINTS, sec_range, seed=SEED)
+    plan = phase_second_plan(batch)[0]
+    conv_timing(torch.device("cuda", 0),
+                {k: v for k, v in plan.items() if k.startswith("plan_")},
+                smi, "bf16")
+    return 0
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--conv-timing", action="store_true",
+                    help="time only the bf16 window conv (phase 11)")
+    ap.add_argument("--tree", help="with --conv-timing: the checkout whose "
+                    "det3d_tpu_torch to time (default: this one)")
+    args = ap.parse_args()
+    if args.conv_timing:
+        return conv_timing_main(args.tree)
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -827,13 +1081,14 @@ def main():
     print(json.dumps({"kernels": [{
         "name": "rotated_nms_keep", "route": "cuda",
         "source": "det3d_tpu_torch/csrc/rotated_nms.cu",
-        "replaces": "det3d_tpu/ops/nms_pallas.py:89",
+        "replaces": "det3d_tpu/ops/nms_pallas.py:90",
         "launches": (flagship["rotated_nms_keep"]
                      + launches["rotated_nms_keep"]),
         "launches_by_path": {"flagship": flagship["rotated_nms_keep"],
                              "second": launches["rotated_nms_keep"]},
         "max_abs_err": float(nms_err),
-        "ms": nms_times["kernel"], "plain_ms": nms_times["plain"],
+        "ms": nms_times["kernel"], "device_ms": nms_times["device"],
+        "plain_ms": nms_times["plain"],
         "bound_ms": nms_b_ms, "bound_by": nms_b_by, "library_ms": None,
     }, {
         "name": "window_conv", "route": "cuda",
@@ -843,7 +1098,8 @@ def main():
         "launches_by_path": {"flagship": flagship["window_conv"],
                              "second": launches["window_conv"]},
         "max_abs_err": conv_err,
-        "ms": conv["kernel"], "plain_ms": conv["plain"],
+        "ms": conv["kernel"], "device_ms": conv["device"],
+        "plain_ms": conv["plain"],
         "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
         "library_ms": None,
     }]}), flush=True)

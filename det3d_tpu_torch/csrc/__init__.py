@@ -3,8 +3,10 @@
 Each ``*.cu`` file here is compiled by ``nvcc`` at first use into a shared
 library with a plain C interface, which ``ctypes`` loads. The library lands
 in ``csrc/_build/`` under a name keyed by a hash of the source and the
-flags, so an edited source rebuilds and an unchanged one is reused. Nothing
-is built at import time.
+flags, so an edited source rebuilds and an unchanged one is reused; beside
+it, ``build_log(name)`` keeps what nvcc printed (``-Xptxas -v``: each
+kernel's registers, shared memory and spills). Nothing is built at import
+time.
 
     lib = load("rotated_nms")      # compiles rotated_nms.cu if needed
 """
@@ -26,7 +28,7 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = ("rotated_nms", "window_conv")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Per-source flags. rotated_nms: --fmad=false keeps a*b - c*d as two
 # rounded products and a rounded difference, as the plain PyTorch version
@@ -61,6 +63,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def build_log(name: str) -> Path:
+    """Where nvcc's output for ``library_path(name)`` is kept."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(name: str) -> Path:
     """Compile ``<name>.cu`` unless its library already exists."""
     out = library_path(name)
@@ -76,6 +83,7 @@ def build(name: str) -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        build_log(name).write_text(proc.stdout + proc.stderr)
         os.replace(tmp, out)        # atomic: concurrent builds are safe
     finally:
         if os.path.exists(tmp):

@@ -5,7 +5,9 @@ Pallas TPU kernel) and, with it, the contract of
 det3d_tpu/ops/sparse.py::apply_conv_window. A CUDA tensor launches the
 hand-written kernel in ``csrc/window_conv.cu``; a CPU tensor takes
 ``window_conv_ref`` (ops/sparse.py), the same function in plain PyTorch.
-There is no fallback between the two.
+bf16 operands run on the tensor cores (mma.sync over rows gathered by
+cp.async), fp32 operands on the fp32 CUDA cores; the operands' type alone
+picks the kernel. There is no fallback between any of them.
 
 The kernel reads the packed plan words (r0 | pres << 24) directly; the
 band machinery of the TPU kernel (band_prep, plan_band, the serve_*band
@@ -37,7 +39,18 @@ def _lib():
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.window_conv_smem.argtypes = [ctypes.c_int] * 5
+    lib.window_conv_smem.restype = ctypes.c_longlong
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _smem(index, cin, cout, k, kz, bf16):
+    """(bytes of shared memory a block of the kernel needs, bytes the card
+    ``index`` allows a block)."""
+    need = _lib().window_conv_smem(cin, cout, k, kz, int(bf16))
+    have = torch.cuda.get_device_properties(index).shared_memory_per_block_optin
+    return need, have
 
 
 def _check(features, packed, weights, center_shift):
@@ -77,6 +90,14 @@ def _check(features, packed, weights, center_shift):
         raise ValueError(f"V={v} exceeds the packed rank range")
     if center_shift and (kz != 3 or o != v):
         raise ValueError("center_shift needs kz=3 and O == V")
+    bf16 = features.dtype == torch.bfloat16
+    if bf16 and weights.data_ptr() % 16:
+        raise ValueError("bf16 weights must start on a 16-byte boundary")
+    need, have = _smem(dev.index, cin, cout, k, kz, bf16)
+    if need > have:
+        raise ValueError(f"window_conv: a window of K={k} columns x kz={kz} "
+                         f"at Cin={cin}, Cout={cout} needs {need} bytes of "
+                         f"shared memory a block, the card allows {have}")
     return b, v, o, k, kz, cin, cout
 
 
@@ -88,9 +109,9 @@ def window_conv(features, packed, weights, center_shift: bool):
     type. ``center_shift``: submanifold rulebook (O == V, kz == 3), whose
     center BEV column reads rows o-1, o, o+1. Returns (B, O, Cout) fp32.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (one launch, counted in ``window_conv.launches``); any other input
-    raises.
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    the tensor-core one for bf16 and the CUDA-core one for fp32 (one
+    launch, counted in ``window_conv.launches``); any other input raises.
     """
     if features.device.type == "cpu":
         kz = weights.shape[0] // packed.shape[-1]

@@ -9,9 +9,12 @@ the same tests). Run them on the card with
 
 Keep masks must be exactly equal: the kernel repeats the plain version's
 fp32 operations in order and is built with --fmad=false. The window conv
-sums in another order: fp32 within rtol = atol = 1e-4; bf16 operands
-against the plain version in fp32 on the same bf16-rounded operands,
-within rtol = atol = 1e-3. TF32 is off.
+sums in another order: fp32 (the CUDA-core kernel) within rtol = atol =
+1e-4; bf16 (the tensor-core kernel) against the plain version in fp32 on
+the same bf16-rounded operands, within rtol = atol = 1e-3, at SECOND's
+shapes and on edge cases: ragged tiles, taps in one row of a tile, center
+taps at tile edges, windows past V, Cin from 4 to 128, unaligned features.
+TF32 is off.
 """
 
 import numpy as np
@@ -138,9 +141,16 @@ def second_plan(dev):
     return second_stack("cpu")[-1](batch["points"], batch["num_points"])
 
 
+CONV_SHAPES = ("subm (4,16) s0", "subm (16,16) s0", "strided (16,32) down1",
+               "subm (32,32) subm1", "strided (32,64) down2",
+               "subm (64,64) subm2", "strided (64,64) down3")
+
+
 @pytest.mark.parametrize("prec", ["fp32", "bf16"])
-@pytest.mark.parametrize("name", ["subm (4,16) s0", "strided (32,64) down2"])
+@pytest.mark.parametrize("name", CONV_SHAPES)
 def test_window_conv_equals_plain(dev, second_plan, prec, name):
+    """Every (Cin, Cout, center_shift) of SECOND's middle, on its plan: the
+    bf16 tensor-core kernel and the fp32 CUDA-core kernel."""
     from chip_smoke import CONV_TOL, conv_cases
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
@@ -161,6 +171,127 @@ def test_window_conv_equals_plain(dev, second_plan, prec, name):
     torch.testing.assert_close(out.cpu(), cpu, **CONV_TOL[prec])
 
 
+def random_words(o, v, seed, density=0.3, k=9):
+    """(1, O, K) packed words: each (row, column) present with probability
+    ``density``, 1-7 presence bits, r0 anywhere in [0, V + 2] (windows
+    that start at or run past V clamp and read zero there)."""
+    r = np.random.RandomState(seed)
+    r0 = r.randint(0, v + 3, size=(1, o, k))
+    bits = r.randint(1, 8, size=(1, o, k)) * (r.uniform(size=(1, o, k))
+                                              < density)
+    return (r0 | (bits << 24)).astype(np.int32)
+
+
+def conv_bf16_against_plain(dev, packed, v, cin, cout, center_shift, seed=0,
+                            x=None):
+    """The bf16 kernel on ``packed`` against the plain version in fp32 on
+    the same bf16-rounded operands; returns the plain output."""
+    from chip_smoke import CONV_TOL
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    r = np.random.RandomState(seed)
+    pk = torch.as_tensor(packed, device=dev)
+    if x is None:
+        x = torch.as_tensor(r.randn(pk.shape[0], v, cin).astype(np.float32),
+                            device=dev).bfloat16()
+    kvol = 3 * pk.shape[-1]
+    w = torch.as_tensor((r.randn(kvol, cin, cout) / (kvol * cin) ** 0.5)
+                        .astype(np.float32), device=dev).bfloat16()
+    out = window_conv(x, pk, w, center_shift)
+    torch.cuda.synchronize()
+    r0, pres = unpack_windows(pk, 3)
+    ref = window_conv_ref(x.float(), r0, pres, w.float(), center_shift)
+    torch.testing.assert_close(out, ref, **CONV_TOL["bf16"])
+    return ref
+
+
+@pytest.mark.parametrize("center_shift", [True, False])
+@pytest.mark.parametrize("cout", [32, 64])
+@pytest.mark.parametrize("o", [1, 63, 64, 65, 127, 128, 129])
+def test_window_conv_bf16_ragged_tiles(dev, o, cout, center_shift):
+    """O not a multiple of the tile (64 rows below Cout 64, 128 at it): the
+    last tile's rows past O are neither read nor written."""
+    v = o if center_shift else 97
+    ref = conv_bf16_against_plain(dev, random_words(o, v, o), v, 32, cout,
+                                  center_shift)
+    assert ref.abs().max() > 0.1
+
+
+@pytest.mark.parametrize("center_shift", [True, False])
+def test_window_conv_bf16_tap_in_one_row(dev, center_shift):
+    """A tap present in exactly one row of a tile (and no other tap in that
+    tile): the tile's tap list holds it alone."""
+    o = v = 192
+    packed = np.zeros((1, o, 9), np.int32)
+    packed[0, 37, 2] = 50 | (0b010 << 24)
+    packed[0, 127, 4] = 100 | (0b100 << 24)        # last row of tile 1
+    packed[0, 128, 8] = (v - 1) | (0b001 << 24)    # first row of tile 2
+    ref = conv_bf16_against_plain(dev, packed, v, 16, 32, center_shift)
+    rows = set(torch.nonzero(ref.abs().sum(-1))[:, 1].tolist())
+    assert rows == {37, 127, 128}
+
+
+@pytest.mark.parametrize("cout", [32, 64])
+def test_window_conv_bf16_center_taps_at_tile_edges(dev, cout):
+    """Submanifold center column at both edges of each tile (64 or 128
+    rows): rows o-1 and o+1 belong to the neighbouring tiles (or lie outside
+    [0, V))."""
+    o = v = 192
+    packed = np.zeros((1, o, 9), np.int32)
+    for row in (0, 63, 64, 127, 128, 191):
+        packed[0, row, 4] = row | (0b111 << 24)
+    ref = conv_bf16_against_plain(dev, packed, v, 64, cout, True)
+    assert float(ref[0, [0, 63, 64, 127, 128, 191]].abs().min()) > 0
+
+
+@pytest.mark.parametrize("center_shift", [True, False])
+def test_window_conv_bf16_windows_past_v(dev, center_shift):
+    """Present taps on the last rows, windows that clamp at V-1 and run
+    past V (those rows read zero)."""
+    v = 130
+    r = np.random.RandomState(5)
+    packed = np.zeros((1, v, 9), np.int32)
+    for o in range(v - 70, v):
+        for k in range(9):
+            r0 = min(o + k - 4, v + 2) if k != 4 else max(o - 1, 0)
+            packed[0, o, k] = max(r0, 0) | (r.randint(1, 8) << 24)
+    ref = conv_bf16_against_plain(dev, packed, v, 32, 32, center_shift)
+    assert float(ref[0, -4:].abs().max()) > 0.1
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 16), (5, 16), (12, 32), (24, 64),
+                                      (128, 64)])
+@pytest.mark.parametrize("center_shift", [True, False])
+def test_window_conv_bf16_cin(dev, cin, cout, center_shift):
+    """Cin below the MMA depth of 16 (4: the first conv, 8-byte copies),
+    odd (plain copies), not a multiple of 16, and the widest accepted."""
+    o = 300
+    v = o if center_shift else 257
+    conv_bf16_against_plain(dev, random_words(o, v, cin), v, cin, cout,
+                            center_shift)
+
+
+@pytest.mark.parametrize("center_shift", [True, False])
+def test_window_conv_bf16_wide_window(dev, center_shift):
+    """A 5 x 5 BEV window: 75 taps, more than one 64-bit word of tap bits
+    per tile."""
+    o = v = 200
+    conv_bf16_against_plain(dev, random_words(o, v, 7, k=25), v, 16, 32,
+                            center_shift)
+
+
+def test_window_conv_bf16_unaligned_features(dev):
+    """Features that start 2 bytes into an allocation (a contiguous view
+    with an offset) take the plain copies and give the same result."""
+    o = v = 200
+    buf = torch.randn(1 + v * 16, device=dev).bfloat16()
+    x = buf[1:].view(1, v, 16)
+    assert x.data_ptr() % 16
+    conv_bf16_against_plain(dev, random_words(o, v, 1), v, 16, 16, True,
+                            x=x)
+
+
 def test_window_conv_rejects_bad_inputs(dev):
     from det3d_tpu_torch.ops.window_conv_cuda import window_conv
     x = torch.zeros(1, 64, 16, device=dev)
@@ -176,3 +307,12 @@ def test_window_conv_rejects_bad_inputs(dev):
         window_conv(x, pk[:, :32], w, True)             # O != V
     with pytest.raises(ValueError):
         window_conv(x, pk.cpu(), w, True)
+    wbuf = torch.zeros(1 + w.numel(), device=dev).bfloat16()
+    with pytest.raises(ValueError, match="16-byte"):     # unaligned weights
+        window_conv(x.bfloat16(), pk, wbuf[1:].view(27, 16, 32), True)
+    # a 9 x 9 window of kz 3 at Cin 128, Cout 64 needs more shared memory
+    # a block than the card allows
+    with pytest.raises(ValueError, match="shared memory"):
+        window_conv(torch.zeros(1, 64, 128, device=dev).bfloat16(),
+                    torch.zeros(1, 64, 81, dtype=torch.int32, device=dev),
+                    torch.zeros(243, 128, 64, device=dev).bfloat16(), False)
