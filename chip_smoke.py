@@ -2,12 +2,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-timing [--tree DIR]
+    python3 chip_smoke.py --nms-timing [--tree DIR]
 
 The second form runs phases 1 and 7 and only the bf16 window-conv timing
-of phase 11, with det3d_tpu_torch imported from the checkout at DIR (by
-default this one): run it on two checkouts in one session (parent,
-change, change, parent) to compare two versions of the kernel on the
-same yardsticks.
+of phase 11, the third phases 1 and 13 without the steps' inputs (the NMS
+kernel at the flagship's N=8 K=1000 at 0.5, SECOND's N=2 K=1000 at 0.01
+and one cluster: a call from Python, the device time by graph_ms, each of
+the tree's NMS kernels by name under torch.profiler); both import
+det3d_tpu_torch from the checkout
+at DIR (by default this one): run them on two checkouts in turns on one
+card (parent, change, change, parent) to compare two versions of a
+kernel on the same yardsticks.
 
 The first form drives the port's two serving paths through the entry points a user calls
 (the flagship PointPillars step, then SECOND from host plans, both at
@@ -21,8 +26,12 @@ KITTI-car scale and full widths) and prints one line per phase:
      kernel without one fails);
   3. NMS kernel against plain: the rotated-NMS keep masks of the CUDA
      kernel and of its plain PyTorch twin, on the card, must be equal at
-     the flagship shape (N=8 samples, K=1000 boxes), at K=333, all invalid,
-     duplicated boxes and zero-size boxes;
+     thresholds 0.01, 0.2, 0.5, 0.7 and -0.1 (no cull), at the flagship
+     shape (N=8 samples, K=1000 boxes), SECOND's (N=2) and CBGS's (N=12),
+     K=333, K at the block edges 1, 63, 64, 65, 128, K=4096 and K at the
+     wrapper's limit, one cluster, near-touching pairs, all invalid,
+     duplicated boxes and zero-size boxes; each line counts the pairs
+     past the kernel's cull (near_pairs);
   4. flagship predict: build_stack from the flagship config (full widths,
      fp32, 12000 pillars of 32 points), random weights from
      torch.Generator().manual_seed(0), B=8 structured scans of 16384
@@ -30,10 +39,11 @@ KITTI-car scale and full widths) and prints one line per phase:
      and the NMS kernel must have been launched;
   5. the same weights on the CPU at B=1: head outputs agree with the card's
      within the stated tolerance, and the CPU post-processing (plain NMS)
-     fed the card's head outputs gives exactly the card's detections;
+     fed the card's head outputs gives the card's detections (valid masks
+     and labels equal, boxes and scores within DET_TOL: check_decode);
   6. flagship timing with CUDA events (5 warm-up runs, median of 20):
      predict ms per scan at B=8, its stages, and the NMS kernel (a call
-     from Python, and its device time by graph_ms) against its plain twin;
+     from Python) against its plain twin;
   7. SECOND host plan: configs/kitti_car_second.py as shipped (0.05 m
      voxels, 20000 voxels of 5 points, bf16 middle; random weights from
      torch.Generator().manual_seed(0), BatchNorm statistics calibrated on
@@ -58,14 +68,22 @@ KITTI-car scale and full widths) and prints one line per phase:
      the bound, and the yardstick im2col+matmul (an im2col gather and one
      torch.matmul, which the port never calls) timed both ways;
  12. SECOND profile: torch.profiler over 5 predict steps, device time by
-     kernel (the window-conv kernels summed) and the device's busy share.
+     kernel (the window-conv kernels summed) and the device's busy share;
+ 13. the NMS kernel alone at the flagship's and SECOND's shapes, on one
+     cluster, and on the inputs the flagship and SECOND predict steps
+     feed it: the share of the pairs past its cull, a call from Python,
+     the device time by graph_ms (the JSON line's device_ms), its two
+     kernels under torch.profiler. Last, so that no profiler session runs
+     before a step is timed.
 
 TF32 is off throughout (cuDNN and matmul), so the card computes in full
 fp32 like the CPU. Any failed check raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing anything. The last two
 lines are a JSON object of the kernels (``ms``: a call from Python,
 interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
-result line.
+result line. The NMS bound counts the work these inputs need (a distance
+test for every valid pair, a full IoU for the pairs past the cull); the
+all-pairs bound of earlier PRs is printed beside it.
 """
 
 from __future__ import annotations
@@ -88,8 +106,13 @@ import torch
 B, POINTS, SEED = 8, 16384, 3
 IOU_THR = 0.5
 IOU_MARGIN = 1e-4
+# phase 3's thresholds: SECOND's, nuScenes / Lyft's, the flagship's, a
+# stricter one, and a negative one, where the kernel culls nothing
+NMS_THRESHOLDS = (0.01, 0.2, 0.5, 0.7, -0.1)
+SECOND_NMS_THR = 0.01
 HEAD_TOL = dict(rtol=1e-3, atol=1e-3)   # card vs CPU fp32: sum order only
 DET_TOL = 1e-5                          # CPU vs card decode: last-bit exp/sin
+BOX_FIELDS = ("x", "y", "z", "w", "l", "h", "yaw")
 WARMUP, REPEAT = 5, 20
 GRAPH_REPS = 20                         # calls per CUDA graph (graph_ms)
 
@@ -108,6 +131,7 @@ BOX_GAIN = 0.1          # random box-regression weights, scaled (second_state)
 # CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 NMS_FLOPS_PER_PAIR = 250        # ~ fp32 operations of one pair IoU
+NMS_FLOPS_PER_TEST = 10         # ~ fp32 operations of one circumcircle test
 
 
 def log(msg):
@@ -146,30 +170,62 @@ def nms_inputs(boxes, valid, device):
             torch.as_tensor(valid, device=device).contiguous())
 
 
-def clear_of_threshold(corners, area, valid):
+def clear_of_threshold(corners, area, valid, thr=IOU_THR):
     """Invalidate the later box of each valid pair whose plain IoU lies
-    within IOU_MARGIN of the threshold; returns the new valid mask."""
+    within IOU_MARGIN of ``thr``; returns the new valid mask."""
     from det3d_tpu_torch.ops.nms_cuda import pairwise_iou_from_corners
     iou = pairwise_iou_from_corners(corners, area)
-    close = (iou - IOU_THR).abs() < IOU_MARGIN
+    close = (iou - thr).abs() < IOU_MARGIN
     close = torch.triu(close, diagonal=1) & valid[:, :, None] \
         & valid[:, None, :]
     valid = valid & ~close.any(dim=1)
     live = torch.triu(valid[:, :, None] & valid[:, None, :], diagonal=1)
-    assert bool(((iou - IOU_THR).abs()[live] >= IOU_MARGIN).all())
+    assert bool(((iou - thr).abs()[live] >= IOU_MARGIN).all())
     return valid
 
 
-def nms_cases(device):
+def touching_pairs(n, seed, gaps=(1e-5, 1e-2)):
+    """(n, 2, 5) pairs of boxes [x, y, w, l, r], each car- or
+    pedestrian-sized at random yaw, the pairs across KITTI's range: half
+    with circumcircles just apart (a gap log-uniform in ``gaps``, metres),
+    half overlapping by as much."""
+    r = np.random.RandomState(seed)
+    car = r.uniform(size=(n, 2, 1)) < 0.5
+    dims = np.where(car, r.uniform([1.4, 3.4], [1.9, 4.4], (n, 2, 2)),
+                    r.uniform([0.4, 0.5], [0.9, 1.0], (n, 2, 2)))
+    radius = 0.5 * np.hypot(dims[..., 0], dims[..., 1])          # (n, 2)
+    gap = np.exp(r.uniform(*np.log(gaps), n)) * np.where(
+        r.uniform(size=n) < 0.5, 1.0, -1.0)
+    ang = r.uniform(-np.pi, np.pi, n)
+    boxes = np.empty((n, 2, 5))
+    boxes[:, 0, :2] = r.uniform([0.0, -40.0], [70.4, 40.0], (n, 2))
+    boxes[:, 1, :2] = boxes[:, 0, :2] + (radius.sum(1) + gap)[:, None] \
+        * np.stack([np.cos(ang), np.sin(ang)], -1)
+    boxes[..., 2:4] = dims
+    boxes[..., 4] = r.uniform(-np.pi, np.pi, (n, 2))
+    return boxes.astype(np.float32)
+
+
+def nms_cases(device, thr=IOU_THR):
     """name -> (corners, area, valid) on device, every valid pair's IoU at
-    least IOU_MARGIN from the threshold where it decides anything."""
+    least IOU_MARGIN from ``thr`` where it decides anything (the
+    duplicate, zero-size and all-invalid cases as they are)."""
     cases = {}
-    for name, (n, k, seed) in {"flagship N=8 K=1000": (8, 1000, 0),
-                               "K=333": (3, 333, 1)}.items():
-        boxes = clustered_boxes(n, k, seed)
+    for name, (n, k, seed, objs) in {
+            "flagship N=8 K=1000": (8, 1000, 0, 60),
+            "K=333": (3, 333, 1, 60),
+            "SECOND N=2 K=1000": (2, 1000, 5, 60),
+            "CBGS N=12 K=1000": (12, 1000, 6, 60),
+            "one cluster": (1, 1000, 7, 1),
+            **{f"K={k}": (2, k, k, 4) for k in (1, 63, 64, 65, 128)},
+    }.items():
+        boxes = clustered_boxes(n, k, seed, n_objects=objs)
         valid = np.random.RandomState(seed).uniform(size=(n, k)) > 0.05
         c, a, v = nms_inputs(boxes, valid, device)
-        cases[name] = (c, a, clear_of_threshold(c, a, v))
+        cases[name] = (c, a, clear_of_threshold(c, a, v, thr))
+    c, a, v = nms_inputs(touching_pairs(500, 8).reshape(1, 1000, 5),
+                         np.ones((1, 1000), bool), device)
+    cases["touching"] = (c, a, clear_of_threshold(c, a, v, thr))
     boxes = clustered_boxes(2, 1000, 2)
     cases["all invalid"] = nms_inputs(boxes, np.zeros((2, 1000), bool),
                                       device)
@@ -180,6 +236,18 @@ def nms_cases(device):
     zero[:, ::4, 2:4] = 0.0                       # points among the boxes
     c, a, v = nms_inputs(zero, np.ones((2, 500), bool), device)
     cases["zero-size"] = (c, a, v)
+    return cases
+
+
+def nms_large_cases(device, thr=IOU_THR):
+    """K=4096 and K at the wrapper's limit, one sample each, on device
+    only: the plain twin's (K, K) intermediates take gigabytes there."""
+    from det3d_tpu_torch.ops.nms_cuda import MAX_K
+    cases = {}
+    for k, objs in ((4096, 400), (MAX_K, 1200)):
+        c, a, v = nms_inputs(clustered_boxes(1, k, k, n_objects=objs),
+                             np.ones((1, k), bool), device)
+        cases[f"K={k}"] = (c, a, clear_of_threshold(c, a, v, thr))
     return cases
 
 
@@ -222,6 +290,29 @@ def graph_ms(fn, reps=GRAPH_REPS, repeat=5):
     ms = cuda_ms(graph.replay, warmup=1, repeat=repeat) / reps
     del graph
     return ms
+
+
+def kernel_split_ms(fn, calls=REPEAT):
+    """{kernel name: device ms per call} of the CUDA kernels fn() launches,
+    under torch.profiler over ``calls`` calls; {} if the profiler sees no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    split = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            if t > 0:
+                split[name] = split.get(name, 0.0) + t / 1e3 / calls
+    return split
 
 
 def interleaved_ms(fns, rounds=REPEAT):
@@ -341,24 +432,30 @@ def phase_build():
 
 
 def phase_kernel(dev):
-    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+    from det3d_tpu_torch.ops.nms_cuda import (near_pairs, rotated_nms_keep,
                                               rotated_nms_keep_ref)
     worst = 0
-    for name, (c, a, v) in nms_cases(dev).items():
-        keep = rotated_nms_keep(c, a, v, IOU_THR)
-        ref = rotated_nms_keep_ref(c, a, v, IOU_THR)
-        torch.cuda.synchronize()
-        diff = int((keep != ref).sum())
-        worst = max(worst, int((keep.int() - ref.int()).abs().max()))
-        log(f"phase 3 kernel vs plain [{name}] N={c.shape[0]} "
-            f"K={c.shape[1]}: kept {int(keep.sum())} of {int(v.sum())} "
-            f"valid, mismatches {diff}")
-        if diff:
-            raise AssertionError(f"keep masks differ on {name}")
-        if name == "all invalid" and keep.any():
-            raise AssertionError("all-invalid input kept a box")
-        if name == "duplicates" and int(keep.sum()) != 100:
-            raise AssertionError("duplicates: expected one box per group")
+    for thr in NMS_THRESHOLDS:
+        cases = dict(nms_cases(dev, thr), **nms_large_cases(dev, thr))
+        for name, (c, a, v) in cases.items():
+            keep = rotated_nms_keep(c, a, v, thr)
+            ref = rotated_nms_keep_ref(c, a, v, thr)
+            torch.cuda.synchronize()
+            diff = int((keep != ref).sum())
+            worst = max(worst, int((keep.int() - ref.int()).abs().max()))
+            near = int(near_pairs(c, a, v).sum()) if thr >= 0 else "all"
+            log(f"phase 3 kernel vs plain [{name}, thr {thr}] "
+                f"N={c.shape[0]} K={c.shape[1]}: kept {int(keep.sum())} of "
+                f"{int(v.sum())} valid, pairs past the cull {near}, "
+                f"mismatches {diff}")
+            if diff:
+                raise AssertionError(f"keep masks differ on {name}, "
+                                     f"thr {thr}")
+            if name == "all invalid" and keep.any():
+                raise AssertionError("all-invalid input kept a box")
+            if (name == "duplicates" and thr >= 0
+                    and int(keep.sum()) != 100):
+                raise AssertionError("duplicates: expected one box per group")
     return worst
 
 
@@ -411,6 +508,37 @@ def phase_predict(dev, batch):
     return (model, vg, asg, test_cfg, step), state, launches
 
 
+def check_decode(det_d, det_c, what):
+    """The card's post-processing (``det_d``) against the CPU's of the same
+    head outputs: valid masks and labels equal, boxes and scores within
+    DET_TOL absolute. Returns the text to log: each field's largest error,
+    where it lies and its size. Past the tolerance it raises with both
+    values and the CPU slot whose box is nearest the card's there (another
+    slot: the two selections differ; the same slot: the arithmetic)."""
+    for k in ("valid", "label_preds"):
+        if not torch.equal(det_d[k].cpu(), det_c[k]):
+            raise AssertionError(f"{what} post-processing {k} differs")
+    parts = []
+    for k in ("box3d_lidar", "scores"):
+        d, c = det_d[k].cpu(), det_c[k]
+        err = (d - c).abs()
+        at = tuple(int(i) for i in np.unravel_index(int(err.argmax()),
+                                                    err.shape))
+        field = BOX_FIELDS[at[2]] if len(at) == 3 else "score"
+        parts.append(f"{k} max err {float(err[at]):.2e} ({field} of sample "
+                     f"{at[0]} slot {at[1]}, |value| {abs(float(c[at])):.4g})")
+        if float(err[at]) > DET_TOL:
+            near = (c[at[0]] - d[at[:2]]).abs().reshape(c.shape[1], -1)
+            near = near.amax(dim=1)
+            slot = int(near.argmin())
+            raise AssertionError(
+                f"{what} post-processing {k} differs: {parts[-1]}, card "
+                f"{float(d[at])!r} CPU {float(c[at])!r}; the CPU box nearest "
+                f"the card's is slot {slot}, {float(near[slot]):.3e} away")
+    return (f"valid mask and labels equal ({int(det_c['valid'].sum())} "
+            f"valid), " + ", ".join(parts) + f" (tolerance {DET_TOL})")
+
+
 def phase_cpu(dev, model, state, batch):
     from det3d_tpu_torch.parallel.predict import build_example
     cpu_model, vg, asg, cids, test_cfg = flagship_stack("cpu", state)
@@ -441,17 +569,72 @@ def phase_cpu(dev, model, state, batch):
         det_c = cpu_model.predict(
             ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
             test_cfg)
-    for k in ("valid", "label_preds"):
-        if not torch.equal(det_d[k].cpu(), det_c[k]):
-            raise AssertionError(f"post-processing {k} differs")
-    errs = {k: float((det_d[k].cpu() - det_c[k]).abs().max())
-            for k in ("box3d_lidar", "scores")}
-    if max(errs.values()) > DET_TOL:
-        raise AssertionError(f"post-processing differs: {errs}")
-    log(f"phase 5 CPU post-processing of the card's heads: valid mask and "
-        f"labels equal ({int(det_c['valid'].sum())} valid), boxes max err "
-        f"{errs['box3d_lidar']:.2e}, scores max err {errs['scores']:.2e} "
-        f"(tolerance {DET_TOL})")
+    log(f"phase 5 CPU post-processing of the card's heads: "
+        f"{check_decode(det_d, det_c, 'flagship')}")
+
+
+# the flagship's and SECOND's shapes and thresholds, and a sample whose
+# boxes all overlap, where the cull drops almost nothing
+NMS_TIMING_CASES = (("flagship N=8 K=1000", IOU_THR),
+                    ("SECOND N=2 K=1000", SECOND_NMS_THR),
+                    ("one cluster", IOU_THR))
+
+
+def step_nms_inputs(run):
+    """(corners, area, valid, thr): what one ``run()`` of a predict step
+    passes to the NMS kernel's wrapper, taken at its caller, ops/nms.py."""
+    from det3d_tpu_torch.ops import nms
+    seen, wrapper = [], nms.rotated_nms_keep
+
+    def spy(corners, area, valid, thr):
+        seen.append((corners, area, valid, thr))
+        return wrapper(corners, area, valid, thr)
+    nms.rotated_nms_keep = spy
+    try:
+        run()
+    finally:
+        nms.rotated_nms_keep = wrapper
+    (case,) = seen
+    return case
+
+
+def nms_timing(dev, smi, label, extra=()):
+    """The NMS kernel on NMS_TIMING_CASES, then on ``extra`` ((name,
+    (corners, area, valid, thr)) pairs): the share of the valid pairs past
+    the cull (near_pairs), a call from Python (cuda_ms), the device time
+    (graph_ms) and each of its kernels' device time under torch.profiler.
+    Returns {case: times}."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    try:
+        from det3d_tpu_torch.ops.nms_cuda import near_pairs
+    except ImportError:         # --tree: a version from before the cull
+        near_pairs = None
+    cases = [(name, (*nms_cases(dev, thr)[name], thr))
+             for name, thr in NMS_TIMING_CASES] + list(extra)
+    out = {}
+    for name, (c, a, v, thr) in cases:
+        n_valid = v.sum(dim=1).double()
+        pairs = int((n_valid * (n_valid - 1) / 2).sum())
+        if near_pairs is None:
+            past = f"all {pairs} valid (no cull)"
+        else:
+            near = int(near_pairs(c, a, v).sum())
+            past = (f"{near} of {pairs} valid "
+                    f"({100 * near / max(pairs, 1):.2f}%)")
+
+        def fn():
+            return rotated_nms_keep(c, a, v, thr)
+        t = {"call": cuda_ms(fn), "device": graph_ms(fn),
+             "split": kernel_split_ms(fn)}
+        split = ", ".join(f"{k} {ms:.4f}" for k, ms in t["split"].items()) \
+            or "not measured (the profiler saw no device time)"
+        log(f"{label} NMS kernel [{name}, thr {thr}] N={c.shape[0]} "
+            f"K={c.shape[1]}: pairs past the cull {past}; {t['call']:.4f} "
+            f"ms a call from Python, {t['device']:.4f} ms on the device "
+            f"(graph_ms); by kernel under torch.profiler (ms a call): "
+            f"{split} [{smi}]")
+        out[name] = t
+    return out
 
 
 def phase_timing(dev, stack, batch, smi):
@@ -485,10 +668,9 @@ def phase_timing(dev, stack, batch, smi):
     nms_ms = interleaved_ms({
         "plain": lambda: rotated_nms_keep_ref(c, a, v, IOU_THR),
         "kernel": lambda: rotated_nms_keep(c, a, v, IOU_THR)})
-    nms_ms["device"] = graph_ms(lambda: rotated_nms_keep(c, a, v, IOU_THR))
     log(f"phase 6 rotated NMS keep N=8 K=1000: kernel "
-        f"{nms_ms['kernel']:.4f} ms a call from Python "
-        f"({nms_ms['device']:.4f} ms on the device), plain "
+        f"{nms_ms['kernel']:.4f} ms a call from Python interleaved with "
+        f"the plain twin (device time: phase 13), plain "
         f"{nms_ms['plain']:.4f} ms [{smi}]")
 
     torch.backends.cudnn.allow_tf32 = True
@@ -512,12 +694,21 @@ def bound(nbytes, flops, peak):
 
 
 def nms_bound(corners, area, valid):
-    """Rotated NMS keep: every pair of valid boxes needs one IoU; inputs
-    read once, the keep mask written once."""
+    """Rotated NMS keep, the work these inputs need: a distance test
+    (NMS_FLOPS_PER_TEST) for every pair of valid boxes and a full IoU
+    (NMS_FLOPS_PER_PAIR) for the pairs near_pairs keeps; inputs read once,
+    the keep mask written once. Returns (bound_ms, bound_by,
+    all_pairs_ms): the last the earlier bound, a full IoU for every valid
+    pair, kept for continuity."""
+    from det3d_tpu_torch.ops.nms_cuda import near_pairs
     v = valid.sum(dim=1).double()
     pairs = float((v * (v - 1) / 2).sum())
+    near = float(near_pairs(corners, area, valid).sum())
     nbytes = (corners.numel() * 4 + area.numel() * 4 + 2 * valid.numel())
-    return bound(nbytes, pairs * NMS_FLOPS_PER_PAIR, FP32_FLOPS)
+    b_ms, b_by = bound(nbytes, pairs * NMS_FLOPS_PER_TEST
+                       + near * NMS_FLOPS_PER_PAIR, FP32_FLOPS)
+    return b_ms, b_by, bound(nbytes, pairs * NMS_FLOPS_PER_PAIR,
+                             FP32_FLOPS)[0]
 
 
 def tap_rows(packed, v, center_shift):
@@ -857,17 +1048,8 @@ def phase_second_cpu(dev, batch):
         det_c = cpu.predict(
             ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
             test_cfg)
-    for k in ("valid", "label_preds"):
-        if not torch.equal(det_d[k].cpu(), det_c[k]):
-            raise AssertionError(f"SECOND post-processing {k} differs")
-    errs = {k: float((det_d[k].cpu() - det_c[k]).abs().max())
-            for k in ("box3d_lidar", "scores")}
-    if max(errs.values()) > DET_TOL:
-        raise AssertionError(f"SECOND post-processing differs: {errs}")
-    log(f"phase 10 SECOND CPU post-processing of the card's heads: valid "
-        f"mask and labels equal ({int(det_c['valid'].sum())} valid), boxes "
-        f"max err {errs['box3d_lidar']:.2e}, scores max err "
-        f"{errs['scores']:.2e} (tolerance {DET_TOL})")
+    log(f"phase 10 SECOND CPU post-processing of the card's heads: "
+        f"{check_decode(det_d, det_c, 'SECOND')}")
 
 
 def phase_second_timing(dev, stack, plan_ms, smi):
@@ -1045,15 +1227,32 @@ def conv_timing_main(tree):
     return 0
 
 
+def nms_timing_main(tree):
+    """--nms-timing: phases 1 and 13, with det3d_tpu_torch imported from
+    ``tree``."""
+    if tree:
+        sys.path.insert(0, str(Path(tree).resolve()))
+    smi = phase_device()
+    import det3d_tpu_torch
+    log(f"NMS timing of {Path(det3d_tpu_torch.__file__).parent}")
+    nms_timing(torch.device("cuda", 0), smi, "nms-timing")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--conv-timing", action="store_true",
                     help="time only the bf16 window conv (phase 11)")
-    ap.add_argument("--tree", help="with --conv-timing: the checkout whose "
-                    "det3d_tpu_torch to time (default: this one)")
+    ap.add_argument("--nms-timing", action="store_true",
+                    help="time only the rotated-NMS kernel (phase 13)")
+    ap.add_argument("--tree", help="with --conv-timing or --nms-timing: the "
+                    "checkout whose det3d_tpu_torch to time (default: this "
+                    "one)")
     args = ap.parse_args()
     if args.conv_timing:
         return conv_timing_main(args.tree)
+    if args.nms_timing:
+        return nms_timing_main(args.tree)
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -1065,6 +1264,7 @@ def main():
     stack, state, flagship = phase_predict(dev, batch)
     phase_cpu(dev, stack[0], state, batch)
     nms_times = phase_timing(dev, stack, batch, smi)
+    flagship_in = step_nms_inputs(lambda: stack[4](batch))
     del stack, state
     torch.cuda.empty_cache()
 
@@ -1076,8 +1276,19 @@ def main():
     phase_second_cpu(dev, sec_batch)
     conv = phase_second_timing(dev, sec_stack, plan_ms, smi)
     phase_profile(sec_stack, dev, smi)
+    # torch.profiler after every step is timed; the inputs the two predict
+    # steps feed the kernel beside the synthetic cases
+    step, data = sec_stack[4], sec_stack[5]
+    steps_in = (("flagship step B=8", flagship_in),
+                ("SECOND step B=2", step_nms_inputs(lambda: step(data))))
+    nms_times["device"] = nms_timing(dev, smi, "phase 13", steps_in)[
+        "flagship N=8 K=1000"]["device"]
 
-    nms_b_ms, nms_b_by = nms_bound(*nms_cases(dev)["flagship N=8 K=1000"])
+    nms_b_ms, nms_b_by, nms_all_ms = nms_bound(
+        *nms_cases(dev)["flagship N=8 K=1000"])
+    log(f"rotated NMS bound N=8 K=1000: {nms_b_ms:.7f} ms ({nms_b_by}; the "
+        f"pairs these inputs need), {nms_all_ms:.7f} ms counting a full IoU "
+        f"for every valid pair as before")
     print(json.dumps({"kernels": [{
         "name": "rotated_nms_keep", "route": "cuda",
         "source": "det3d_tpu_torch/csrc/rotated_nms.cu",

@@ -23,7 +23,11 @@ from det3d_tpu_torch import csrc
 from det3d_tpu_torch.core.geometry import _clip_contrib
 
 _BLOCK = 64                     # boxes per bitmask word (rotated_nms.cu)
-_MAX_K = 65535 * _BLOCK         # grid y/z limit of the mask kernel
+# Largest K the kernel takes: its scan stages two blocks of 64 rows x
+# ceil(K/64) mask words in shared memory, 232,200 of the 232,448 bytes a
+# block may have on an H100 (rotated_nms.cu, rotated_nms_max_k()).
+MAX_K = 14400
+CULL_SCALE = 1.0001             # rotated_nms.cu kCullScale
 
 
 def pairwise_iou_from_corners(corners, area):
@@ -59,6 +63,28 @@ def greedy_suppress(iou, valid, iou_threshold):
     return keep
 
 
+def near_pairs(corners, area, valid):
+    """(N, K, K) bool: the pairs (i < j, both valid) that the kernel's cull
+    keeps for the full IoU when the threshold is >= 0, in the kernel's fp32
+    operations. A pair is culled when both areas are > 0 and the squared
+    distance of the circumcircle centres exceeds (r_i + r_j)^2 (1 + 1e-4):
+    the centre is the midpoint of corners 0 and 2, the radius the distance
+    to the farthest corner."""
+    x, y = corners[..., 0::2], corners[..., 1::2]                # (N, K, 4)
+    cx = 0.5 * (x[..., 0] + x[..., 2])
+    cy = 0.5 * (y[..., 0] + y[..., 2])
+    ddx, ddy = x - cx[..., None], y - cy[..., None]
+    r = torch.sqrt((ddx * ddx + ddy * ddy).amax(dim=-1))
+    dx = cx[:, :, None] - cx[:, None, :]
+    dy = cy[:, :, None] - cy[:, None, :]
+    s = r[:, :, None] + r[:, None, :]
+    pos = area > 0
+    far = ((dx * dx + dy * dy > s * s * CULL_SCALE)
+           & pos[:, :, None] & pos[:, None, :])
+    pair = torch.triu(valid[:, :, None] & valid[:, None, :], diagonal=1)
+    return pair & ~far
+
+
 def rotated_nms_keep_ref(corners, area, valid, iou_threshold: float):
     """Plain PyTorch twin of the CUDA kernel. corners (N, K, 8) f32 CCW,
     area (N, K) f32, valid (N, K) bool -> keep (N, K) bool."""
@@ -74,6 +100,9 @@ def _lib():
                    ctypes.c_int, ctypes.c_int, ctypes.c_float,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    if lib.rotated_nms_max_k() != MAX_K:
+        raise RuntimeError(f"rotated_nms.cu takes K up to "
+                           f"{lib.rotated_nms_max_k()}, MAX_K says {MAX_K}")
     return lib
 
 
@@ -96,8 +125,9 @@ def _check(corners, area, valid):
     if tuple(area.shape) != (n, k) or tuple(valid.shape) != (n, k):
         raise ValueError(f"area {tuple(area.shape)} and valid "
                          f"{tuple(valid.shape)} must be ({n}, {k})")
-    if k > _MAX_K:
-        raise ValueError(f"K={k} exceeds the kernel's limit {_MAX_K}")
+    if k > MAX_K:
+        raise ValueError(f"K={k} boxes exceed the kernel's limit of {MAX_K} "
+                         f"(its scan's shared memory); pass at most {MAX_K}")
 
 
 def rotated_nms_keep(corners, area, valid, iou_threshold: float):
@@ -118,7 +148,8 @@ def rotated_nms_keep(corners, area, valid, iou_threshold: float):
     keep = torch.empty((n, k), dtype=torch.bool, device=corners.device)
     if n == 0 or k == 0:
         return keep
-    mask = torch.empty((n, k, -(-k // _BLOCK)), dtype=torch.int64,
+    w = -(-k // _BLOCK)
+    mask = torch.empty((n, w * _BLOCK, w), dtype=torch.int64,
                        device=corners.device)
     with torch.cuda.device(corners.device):
         stream = torch.cuda.current_stream().cuda_stream

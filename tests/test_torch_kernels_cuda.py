@@ -8,7 +8,10 @@ the same tests). Run them on the card with
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 
 Keep masks must be exactly equal: the kernel repeats the plain version's
-fp32 operations in order and is built with --fmad=false. The window conv
+fp32 operations in order and is built with --fmad=false, and culls only
+pairs whose IoU is exactly 0. They are held at five thresholds, on
+near-touching boxes, one cluster, CBGS's 12 samples, K from 1 to the
+wrapper's limit. The window conv
 sums in another order: fp32 (the CUDA-core kernel) within rtol = atol =
 1e-4; bf16 (the tensor-core kernel) against the plain version in fp32 on
 the same bf16-rounded operands, within rtol = atol = 1e-3, at SECOND's
@@ -21,12 +24,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import IOU_THR, nms_cases
+from chip_smoke import IOU_THR, NMS_THRESHOLDS, nms_cases, nms_large_cases
 
 pytestmark = pytest.mark.cuda
 
-CASES = ("flagship N=8 K=1000", "K=333", "all invalid", "duplicates",
-         "zero-size")
+CASES = ("flagship N=8 K=1000", "K=333", "SECOND N=2 K=1000",
+         "CBGS N=12 K=1000", "one cluster", "touching", "all invalid",
+         "duplicates", "zero-size")
 
 
 @pytest.fixture(scope="module")
@@ -41,39 +45,81 @@ def dev():
 
 @pytest.fixture(scope="module")
 def cases(dev):
-    return nms_cases(dev)
+    """{threshold: nms_cases at that threshold}, built once."""
+    return {thr: nms_cases(dev, thr) for thr in NMS_THRESHOLDS}
 
 
+@pytest.mark.parametrize("thr", NMS_THRESHOLDS)
 @pytest.mark.parametrize("name", CASES)
-def test_kernel_equals_plain(cases, name):
+def test_kernel_equals_plain(cases, name, thr):
+    """Exact keep masks at SECOND's, nuScenes', the flagship's and a
+    stricter threshold (the kernel culls far pairs), and at a negative one
+    (it culls none)."""
     from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
                                               rotated_nms_keep_ref)
-    c, a, v = cases[name]
-    keep = rotated_nms_keep(c, a, v, IOU_THR)
+    c, a, v = cases[thr][name]
+    keep = rotated_nms_keep(c, a, v, thr)
     torch.cuda.synchronize()
-    ref = rotated_nms_keep_ref(c, a, v, IOU_THR)
+    ref = rotated_nms_keep_ref(c, a, v, thr)
     assert keep.dtype == torch.bool and keep.shape == v.shape
     assert torch.equal(keep, ref)
     # the CPU plain version agrees too on inputs clear of the threshold
     if name in ("flagship N=8 K=1000", "K=333", "duplicates"):
-        cpu = rotated_nms_keep(c.cpu(), a.cpu(), v.cpu(), IOU_THR)
+        cpu = rotated_nms_keep(c.cpu(), a.cpu(), v.cpu(), thr)
         assert torch.equal(keep.cpu(), cpu)
 
 
-@pytest.mark.parametrize("k", [1, 63, 64, 65, 128])
-def test_block_edges(dev, k):
-    from chip_smoke import clustered_boxes, nms_inputs
+@pytest.mark.parametrize("thr", [0.01, IOU_THR])
+def test_large_k(dev, thr):
+    """K=4096 and K at the wrapper's limit (MAX_K): the scan's ring at its
+    largest."""
     from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
                                               rotated_nms_keep_ref)
-    c, a, v = nms_inputs(clustered_boxes(2, k, k, n_objects=4),
-                         np.ones((2, k), bool), dev)
+    for name, (c, a, v) in nms_large_cases(dev, thr).items():
+        keep = rotated_nms_keep(c, a, v, thr)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, rotated_nms_keep_ref(c, a, v, thr)), name
+
+
+def test_k_above_limit_raises(dev):
+    from det3d_tpu_torch.ops.nms_cuda import MAX_K, rotated_nms_keep
+    k = MAX_K + 1
+    c = torch.zeros(1, k, 8, device=dev)
+    with pytest.raises(ValueError, match=f"limit of {MAX_K}"):
+        rotated_nms_keep(c, torch.zeros(1, k, device=dev),
+                         torch.ones(1, k, dtype=torch.bool, device=dev),
+                         IOU_THR)
+
+
+def test_samples_past_grid_y_limit(cases):
+    """N = 70000 samples, more than a grid's y axis holds (65535): the mask
+    kernel puts the samples on x and its three tiles (K=65) on y. Each
+    sample is one of the two of the K=65 case, so each keep row equals the
+    plain twin's of that sample."""
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    c, a, v = cases[IOU_THR]["K=65"]
+    reps = 35000
+    keep = rotated_nms_keep(c.repeat(reps, 1, 1), a.repeat(reps, 1),
+                            v.repeat(reps, 1), IOU_THR)
+    torch.cuda.synchronize()
+    ref = rotated_nms_keep_ref(c, a, v, IOU_THR)
+    assert keep.shape == (2 * reps, 65)
+    assert torch.equal(keep, ref.repeat(reps, 1))
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 128])
+def test_block_edges(cases, k):
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    c, a, v = cases[IOU_THR][f"K={k}"]
     assert torch.equal(rotated_nms_keep(c, a, v, IOU_THR),
                        rotated_nms_keep_ref(c, a, v, IOU_THR))
 
 
 def test_launch_counter(cases):
     from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
-    c, a, v = cases["K=333"]
+    c, a, v = cases[IOU_THR]["K=333"]
     before = rotated_nms_keep.launches
     rotated_nms_keep(c, a, v, IOU_THR)
     rotated_nms_keep(c.cpu(), a.cpu(), v.cpu(), IOU_THR)   # plain: no launch
@@ -82,7 +128,7 @@ def test_launch_counter(cases):
 
 def test_wrapper_rejects_bad_inputs(cases):
     from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
-    c, a, v = cases["K=333"]
+    c, a, v = cases[IOU_THR]["K=333"]
     with pytest.raises(ValueError):
         rotated_nms_keep(c.double(), a, v, IOU_THR)
     with pytest.raises(ValueError):
