@@ -14,9 +14,11 @@ at DIR (by default this one): run them on two checkouts in turns on one
 card (parent, change, change, parent) to compare two versions of a
 kernel on the same yardsticks.
 
-The first form drives the port's two serving paths through the entry points a user calls
-(the flagship PointPillars step, then SECOND from host plans, both at
-KITTI-car scale and full widths) and prints one line per phase:
+The first form drives the port's three serving paths through the entry
+points a user calls (the flagship PointPillars step and SECOND from host
+plans, both at KITTI-car scale, then CBGS from host plans at nuScenes
+scale, all at full widths) and prints one line per phase, in the order 1
+to 11, 14 to 18, 12, 19, 13:
 
   1. device: the card, as nvidia-smi names it, and its power limit;
   2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
@@ -67,23 +69,48 @@ KITTI-car scale and full widths) and prints one line per phase:
      host's launch overhead) with the achieved TB/s, TFLOP/s and share of
      the bound, and the yardstick im2col+matmul (an im2col gather and one
      torch.matmul, which the port never calls) timed both ways;
+ 14. CBGS host plan: configs/nusc_cbgs_voxelnet.py as shipped (0.1 x 0.1 x
+     0.2 m voxels over +-51.2 m, 60000 voxels of 10 points, 5 point
+     features, SpMiddleResNetFHD with dense_from=2, bf16 middle, 6-task
+     9-dim head; random weights from torch.Generator().manual_seed(0),
+     BatchNorm statistics calibrated in fp32 on the card on one scan), the
+     rulebooks and voxels of B=2 structured scans of 300000 points and
+     their build time;
+ 15. window-conv kernel against plain on those plans at CBGS's 5 (Cin,
+     Cout, center_shift), fp32 and bf16, as phase 8;
+ 16. CBGS predict at B=2: boxes (2, 498, 9), finite, some valid, exactly
+     11 window-conv launches, the NMS kernel launched and fed N=12 K=1000
+     at thr 0.2;
+ 17. CBGS card vs CPU at B=1 on the range cut to +-12.8 m (8000 voxels,
+     full widths, fp32 middle): host plans and voxels equal, the 6 tasks'
+     head outputs within the stated tolerance, the CPU post-processing of
+     the card's heads gives the card's detections; then the CPU
+     post-processing of the full-size card heads (scan 0 of phase 16's
+     batch) against the card's;
+ 18. CBGS timing: predict ms per scan at B=2, its stages, peak memory, the
+     host plan apart; the bf16 window conv at each CBGS shape and the
+     forward's 11 launches, as phase 11 does in bf16; the NMS kernel on
+     the step's own inputs against its plain twin (a call);
  12. SECOND profile: torch.profiler over 5 predict steps, device time by
      kernel (the window-conv kernels summed) and the device's busy share;
+ 19. CBGS profile, the same over 3 steps;
  13. the NMS kernel alone at the flagship's and SECOND's shapes, on one
-     cluster, and on the inputs the flagship and SECOND predict steps
-     feed it: the share of the pairs past its cull, a call from Python,
-     the device time by graph_ms (the JSON line's device_ms), its two
-     kernels under torch.profiler. Last, so that no profiler session runs
-     before a step is timed.
+     cluster, and on the inputs the flagship, SECOND and CBGS predict
+     steps feed it: the share of the pairs past its cull, a call from
+     Python, the device time by graph_ms (the JSON line's device_ms), its
+     two kernels under torch.profiler. Last, so that no profiler session
+     runs before a step is timed.
 
 TF32 is off throughout (cuDNN and matmul), so the card computes in full
 fp32 like the CPU. Any failed check raises and the script exits non-zero;
 without a CUDA device it exits 1 before printing anything. The last two
-lines are a JSON object of the kernels (``ms``: a call from Python,
-interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
-result line. The NMS bound counts the work these inputs need (a distance
-test for every valid pair, a full IoU for the pairs past the cull); the
-all-pairs bound of earlier PRs is printed beside it.
+lines are a JSON object of the kernels (one entry per kernel over every
+path, with the flagship's NMS and SECOND's window-conv times, then one per
+kernel with ``"path": "cbgs"`` at CBGS's shapes; ``ms``: a call from
+Python, interleaved with the plain version; ``device_ms``: graph_ms) and
+the JSON result line. The NMS bound counts the work these inputs need (a
+distance test for every valid pair, a full IoU for the pairs past the
+cull); the all-pairs bound of earlier PRs is printed beside it.
 """
 
 from __future__ import annotations
@@ -126,6 +153,27 @@ CONV_TOL = {"fp32": dict(rtol=1e-4, atol=1e-4),
 YARD_TOL = 3e-2
 SECOND_HEAD_TOL = dict(rtol=1e-3, atol=1e-3)
 BOX_GAIN = 0.1          # random box-regression weights, scaled (second_state)
+# the window convs of each sparse middle in forward order: (plan key, Cin,
+# Cout, center_shift)
+SECOND_LAYERS = (("s0", 4, 16, True), ("s0", 16, 16, True),
+                 ("down1", 16, 32, False), ("subm1", 32, 32, True),
+                 ("subm1", 32, 32, True), ("down2", 32, 64, False),
+                 ("subm2", 64, 64, True), ("subm2", 64, 64, True),
+                 ("subm2", 64, 64, True), ("down3", 64, 64, False))
+CBGS_LAYERS = ((("s0", 5, 16, True),) + (("s0", 16, 16, True),) * 4
+               + (("down1", 16, 32, False),) + (("subm1", 32, 32, True),) * 4
+               + (("down2", 32, 64, False),))
+
+CBGS_CFG = (Path(__file__).resolve().parent / "configs"
+            / "nusc_cbgs_voxelnet.py")
+CBGS_B, CBGS_POINTS = 2, 300000         # bench.py's cbgs_nusc_predict row
+CBGS_LAUNCHES = len(CBGS_LAYERS)        # window-conv launches a forward: 11
+CBGS_NMS_THR = 0.2
+CBGS_DETS = 6 * 83                      # 6 tasks x nms_post_max_size
+# card vs CPU (phase 17): the range cut to +-CBGS_CUT m and its voxels and
+# points scaled down with it; every width as shipped
+CBGS_CUT, CBGS_CUT_VOXELS, CBGS_CUT_POINTS = 12.8, 8000, 40000
+BOX_FIELDS_9 = ("x", "y", "z", "w", "l", "h", "vx", "vy", "yaw")
 
 # H100 SXM published peaks: HBM bytes/s, fp32
 # CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s
@@ -524,7 +572,8 @@ def check_decode(det_d, det_c, what):
         err = (d - c).abs()
         at = tuple(int(i) for i in np.unravel_index(int(err.argmax()),
                                                     err.shape))
-        field = BOX_FIELDS[at[2]] if len(at) == 3 else "score"
+        fields = BOX_FIELDS if d.shape[-1] == 7 else BOX_FIELDS_9
+        field = fields[at[2]] if len(at) == 3 else "score"
         parts.append(f"{k} max err {float(err[at]):.2e} ({field} of sample "
                      f"{at[0]} slot {at[1]}, |value| {abs(float(c[at])):.4g})")
         if float(err[at]) > DET_TOL:
@@ -838,51 +887,66 @@ def calibrate_norms(model, run):
             h.remove()
 
 
-@functools.lru_cache(maxsize=None)
-def second_state():
-    """SECOND's weights: random from torch.Generator().manual_seed(0)
-    (models/builder.py::init_weights), BatchNorm statistics calibrated in
-    fp32 on the CPU on the first structured scan, and the box-regression
-    convs scaled by BOX_GAIN. At unit scale the size deltas go through
-    exp() to boxes of 1e8 m and more, whose IoUs are rounding noise; scaled,
-    the boxes stay within a car's size of their anchors, as a trained
-    head's do. Every SECOND model of this script loads these weights,
-    whatever its device and precision."""
+def calibrated_state(cfg, scan, device):
+    """A sparse-middle model's weights: random from
+    torch.Generator().manual_seed(0) (models/builder.py::init_weights),
+    BatchNorm statistics calibrated in fp32 on ``device`` on ``scan`` (its
+    host plan and voxels), and the box-regression convs scaled by BOX_GAIN
+    (every channel: sizes, and CBGS's velocities and vector angles). At unit
+    scale the size deltas go through exp() to boxes of 1e8 m and more,
+    whose IoUs are rounding noise; scaled, the boxes stay within a car's
+    size of their anchors, as a trained head's do. Returns the state dict
+    on the CPU."""
     from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
     from det3d_tpu_torch.models.builder import init_weights
-    from det3d_tpu_torch.utils.synth import structured_batch
-    model, vg = build_stack(second_config("fp32"), device="cpu")[:2]
+    model, vg = build_stack(cfg, device="cpu")[:2]
     init_weights(model, torch.Generator().manual_seed(0))
-    scan = structured_batch(1, POINTS, vg.point_cloud_range, seed=SEED)
-    ex = host_plan_fn(model, vg, voxelize=True)(scan["points"],
-                                                scan["num_points"])
-    plan = {k[5:]: torch.as_tensor(v) for k, v in ex.items()
-            if k.startswith("plan_")}
+    model = model.to(device)
+    ex = {k: torch.as_tensor(v, device=device) for k, v in host_plan_fn(
+        model, vg, voxelize=True)(scan["points"], scan["num_points"]).items()}
+    plan = {k[5:]: v for k, v in ex.items() if k.startswith("plan_")}
     calibrate_norms(model, lambda: model(
-        torch.as_tensor(ex["voxels"]),
-        torch.as_tensor(ex["num_points_per_voxel"]),
-        torch.as_tensor(ex["coordinates"]), plan=plan))
+        ex["voxels"], ex["num_points_per_voxel"], ex["coordinates"],
+        plan=plan))
     with torch.no_grad():
         for name, w in model.named_parameters():
             if name.endswith("conv_box.weight"):
                 w.mul_(BOX_GAIN)
-    return model.state_dict()
+    return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
-def second_stack(device, precision=None):
+@functools.lru_cache(maxsize=None)
+def second_state():
+    """SECOND's weights (calibrated_state), calibrated on the CPU on the
+    first structured scan. Every SECOND model of this script loads these
+    weights, whatever its device and precision."""
+    from det3d_tpu_torch.utils.synth import structured_batch
+    cfg = second_config("fp32")
+    scan = structured_batch(1, POINTS, cfg["voxel_generator"]["range"],
+                            seed=SEED)
+    return calibrated_state(cfg, scan, "cpu")
+
+
+def load_stack(cfg, state, device):
+    """build_stack(cfg) on ``device`` with ``state`` loaded, and the host
+    plan builder of its sparse middle."""
     from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
-    model, vg, asg, cids, test_cfg = build_stack(second_config(precision),
-                                                 device=device)
-    model.load_state_dict(second_state())
+    model, vg, asg, cids, test_cfg = build_stack(cfg, device=device)
+    model.load_state_dict(state)
     plan_fn = host_plan_fn(model, vg, train=False, voxelize=True)
     return model, vg, asg, cids, test_cfg, plan_fn
 
 
-def conv_cases(plan, dev, dtype):
-    """The window convs of SECOND's middle on a host plan, in forward
-    order: (name, features, packed, weights, center_shift) on ``dev``,
-    random features and weights (std 1/sqrt(27 Cin)) in ``dtype``. The
-    cases of one (Cin, Cout, center_shift) repeat with the forward."""
+def second_stack(device, precision=None):
+    return load_stack(second_config(precision), second_state(), device)
+
+
+def conv_cases(plan, dev, dtype, layers=SECOND_LAYERS):
+    """The window convs of a sparse middle (``layers``: SECOND_LAYERS or
+    CBGS_LAYERS) on its host plan, in forward order: (name, features,
+    packed, weights, center_shift) on ``dev``, random features and weights
+    (std 1/sqrt(27 Cin)) in ``dtype``. The cases of one (Cin, Cout,
+    center_shift) repeat with the forward."""
     g = torch.Generator().manual_seed(0)
     b, v = plan["plan_s0"].shape[:2]
 
@@ -896,11 +960,6 @@ def conv_cases(plan, dev, dtype):
     def packed(key):
         return torch.as_tensor(plan[key], device=dev).contiguous()
 
-    layers = [("s0", 4, 16, True), ("s0", 16, 16, True),
-              ("down1", 16, 32, False), ("subm1", 32, 32, True),
-              ("subm1", 32, 32, True), ("down2", 32, 64, False),
-              ("subm2", 64, 64, True), ("subm2", 64, 64, True),
-              ("subm2", 64, 64, True), ("down3", 64, 64, False)]
     out, rows = [], v
     for key, cin, cout, subm in layers:
         pk = packed(f"plan_{key}")
@@ -910,17 +969,17 @@ def conv_cases(plan, dev, dtype):
     return out
 
 
-def second_plan_fn():
-    """SECOND's host plan builder (voxels and rulebooks), on the CPU; the
-    weights play no part in it."""
+def plan_builder(cfg):
+    """A sparse-middle config's host plan builder (voxels and rulebooks),
+    on the CPU; the weights play no part in it."""
     from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
-    model, vg = build_stack(second_config(), device="cpu")[:2]
+    model, vg = build_stack(cfg, device="cpu")[:2]
     return host_plan_fn(model, vg, train=False, voxelize=True)
 
 
 def phase_second_plan(batch):
     """The host plan and voxels of B=2 scans, and its build time."""
-    plan_fn = second_plan_fn()
+    plan_fn = plan_builder(second_config())
     plan_fn(batch["points"], batch["num_points"])             # warm
     t0 = time.perf_counter()
     plan = plan_fn(batch["points"], batch["num_points"])
@@ -933,14 +992,18 @@ def phase_second_plan(batch):
     return plan, plan_ms
 
 
-def phase_conv_kernel(dev, plan):
+def phase_conv_kernel(dev, plan, layers=SECOND_LAYERS, label="phase 8"):
+    """The window-conv kernel against its plain twin at every (Cin, Cout,
+    center_shift) of ``layers`` on ``plan``, in fp32 and bf16; SECOND's
+    phase also runs an all-absent plan. Returns the largest error."""
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
     from det3d_tpu_torch.ops.sparse import unpack_windows
     worst = 0.0
+    n_shapes = len({layer[1:] for layer in layers})
     for prec, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
         seen = set()
-        for name, x, pk, w, subm in conv_cases(plan, dev, dtype):
+        for name, x, pk, w, subm in conv_cases(plan, dev, dtype, layers):
             shape = name.split(" ")[1] + str(subm)
             if shape in seen:
                 continue
@@ -952,14 +1015,17 @@ def phase_conv_kernel(dev, plan):
             err = float((out - ref).abs().max())
             worst = max(worst, err)
             ok = torch.allclose(out, ref, **CONV_TOL[prec])
-            log(f"phase 8 window conv vs plain [{prec} {name}] B={x.shape[0]}"
+            log(f"{label} window conv vs plain [{prec} {name}] B={x.shape[0]}"
                 f" V={x.shape[1]} O={pk.shape[1]}: max abs err {err:.3e}, "
                 f"|ref| max {float(ref.abs().max()):.3f} (tolerance "
                 f"{CONV_TOL[prec]})")
             if not ok:
                 raise AssertionError(f"window conv {prec} {name} differs")
-        if len(seen) != 7:
-            raise AssertionError(f"expected 7 conv shapes, got {seen}")
+        if len(seen) != n_shapes:
+            raise AssertionError(f"expected {n_shapes} conv shapes, got "
+                                 f"{seen}")
+    if layers is not SECOND_LAYERS:
+        return worst
     x = torch.randn(SECOND_B, 20000, 16, device=dev)
     w = torch.randn(27, 16, 32, device=dev)
     for subm in (True, False):
@@ -972,11 +1038,18 @@ def phase_conv_kernel(dev, plan):
     return worst
 
 
-def phase_second_predict(dev, batch, plan):
+def sparse_predict(dev, stack, batch, plan, shape_expected,
+                   launches_expected, label):
+    """One predict step of a sparse-middle ``stack`` (second_stack or
+    cbgs_stack) on ``batch`` and its host ``plan``, the kernel launch
+    counts set to 0 just before it and read just after. Checks: finite
+    boxes of ``shape_expected``, some valid, exactly ``launches_expected``
+    window-conv launches, the NMS kernel launched. Returns ((model, vg,
+    asg, test_cfg, step, data), launches)."""
     from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
     from det3d_tpu_torch.ops.window_conv_cuda import window_conv
     from det3d_tpu_torch.parallel.predict import make_predict_step
-    model, vg, asg, cids, test_cfg, _ = second_stack(dev)
+    model, vg, asg, cids, test_cfg, _ = stack
     step = make_predict_step(model, vg, asg, cids, test_cfg)
     data = dict(batch, **plan)
     window_conv.launches = rotated_nms_keep.launches = 0
@@ -985,62 +1058,76 @@ def phase_second_predict(dev, batch, plan):
     launches = {"window_conv": window_conv.launches,
                 "rotated_nms_keep": rotated_nms_keep.launches}
     shape = tuple(out["box3d_lidar"].shape)
+    b = batch["points"].shape[0]
     n_valid = out["valid"].sum(dim=1).tolist()
-    log(f"phase 9 SECOND predict B={SECOND_B} P={POINTS} (bf16 middle): "
-        f"boxes {shape}, valid per scan {n_valid}, kernel launches "
-        f"{launches}")
-    if shape != (SECOND_B, 100, 7):
-        raise AssertionError(f"box3d_lidar shape {shape}")
+    labels = sorted(set(out["label_preds"][out["valid"]].tolist()))
+    log(f"{label} predict B={b} P={batch['points'].shape[1]} (bf16 "
+        f"middle): boxes {shape}, valid per scan {n_valid}, labels "
+        f"{labels}, kernel launches {launches}")
+    if shape != shape_expected:
+        raise AssertionError(f"box3d_lidar shape {shape}, expected "
+                             f"{shape_expected}")
     for k in ("box3d_lidar", "scores"):
         if not bool(torch.isfinite(out[k]).all()):
             raise AssertionError(f"{k} not finite")
     if sum(n_valid) < 1:
         raise AssertionError("no valid detection")
-    if launches["window_conv"] != SECOND_LAUNCHES:
+    if launches["window_conv"] != launches_expected:
         raise AssertionError(f"{launches['window_conv']} window-conv "
-                             f"launches, expected {SECOND_LAUNCHES}")
+                             f"launches, expected {launches_expected}")
     if launches["rotated_nms_keep"] < 1:
         raise AssertionError("the NMS kernel was not launched")
     return (model, vg, asg, test_cfg, step, data), launches
 
 
-def phase_second_cpu(dev, batch):
+def phase_second_predict(dev, batch, plan):
+    return sparse_predict(dev, second_stack(dev), batch, plan,
+                          (SECOND_B, 100, 7), SECOND_LAUNCHES,
+                          "phase 9 SECOND")
+
+
+def heads_on(model, vg, asg, data, device):
+    """(example, head outputs) of a sparse-middle ``model`` on ``data``
+    (scans with their host plan and voxels), on ``device``."""
     from det3d_tpu_torch.parallel.predict import build_example
-    one = {k: v[:1] for k, v in batch.items()}
-    card, vg, asg, _, test_cfg, plan_fn = second_stack(dev, "fp32")
-    cpu, *_, plan_fn_c = second_stack("cpu", "fp32")
+    t = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    ex = build_example(t, vg, asg)
+    plan = {k[5:]: v for k, v in t.items() if k.startswith("plan_")}
+    return ex, model(ex["voxels"], ex["num_points_per_voxel"],
+                     ex["coordinates"], plan=plan)
+
+
+def card_vs_cpu(dev, card_stack, cpu_stack, one, label):
+    """Card against CPU on the scan ``one`` (B=1) of one sparse-middle
+    config, both stacks fp32: host plans and voxels equal, every task's
+    head outputs within SECOND_HEAD_TOL, class logits not degenerate, and
+    the CPU post-processing of the card's heads gives the card's
+    detections (check_decode)."""
+    card, vg, asg, _, test_cfg, plan_fn = card_stack
+    cpu, *_, plan_fn_c = cpu_stack
     plan_d = plan_fn(one["points"], one["num_points"])
     plan_c = plan_fn_c(one["points"], one["num_points"])
     for k in plan_c:
         if not np.array_equal(plan_d[k], plan_c[k]):
             raise AssertionError(f"host plan {k} differs")
     with torch.no_grad():
-        ex_d = build_example({k: torch.as_tensor(v, device=dev) for k, v in
-                              dict(one, **plan_d).items()}, vg, asg)
-        ex_c = build_example({k: torch.as_tensor(v) for k, v in
-                              dict(one, **plan_c).items()}, vg, asg)
-
-        def heads(model, ex, plan, device):
-            p = {k[5:]: torch.as_tensor(v, device=device)
-                 for k, v in plan.items() if k.startswith("plan_")}
-            return model(ex["voxels"], ex["num_points_per_voxel"],
-                         ex["coordinates"], plan=p)
-
-        heads_d = heads(card, ex_d, plan_d, dev)
-        heads_c = heads(cpu, ex_c, plan_c, "cpu")
+        ex_d, heads_d = heads_on(card, vg, asg, dict(one, **plan_d), dev)
+        ex_c, heads_c = heads_on(cpu, vg, asg, dict(one, **plan_c), "cpu")
         worst = 0.0
-        for k in heads_c[0]:
-            d, c = heads_d[0][k].cpu(), heads_c[0][k]
-            err = float((d - c).abs().max())
-            worst = max(worst, err)
-            if not torch.allclose(d, c, **SECOND_HEAD_TOL):
-                raise AssertionError(f"SECOND head {k}: card vs CPU max err "
-                                     f"{err}")
-        spread = float(heads_c[0]["cls_preds"].std())
-        log(f"phase 10 SECOND card vs CPU B=1 (fp32 middle): host plans and "
-            f"voxels equal; head outputs max abs err {worst:.3e} (tolerance "
-            f"rtol={SECOND_HEAD_TOL['rtol']} atol={SECOND_HEAD_TOL['atol']}),"
-            f" class logits std {spread:.3f}")
+        for t, (hd, hc) in enumerate(zip(heads_d, heads_c)):
+            for k in hc:
+                err = float((hd[k].cpu() - hc[k]).abs().max())
+                worst = max(worst, err)
+                if not torch.allclose(hd[k].cpu(), hc[k], **SECOND_HEAD_TOL):
+                    raise AssertionError(f"{label} task {t} head {k}: card "
+                                         f"vs CPU max err {err}")
+        spread = min(float(h["cls_preds"].std()) for h in heads_c)
+        log(f"{label} card vs CPU B=1 (fp32 middle): host plans and voxels "
+            f"equal ({int(plan_c['num_voxels'][0])} voxels); "
+            f"{len(heads_c)} task(s)' head outputs max abs err {worst:.3e} "
+            f"(tolerance rtol={SECOND_HEAD_TOL['rtol']} "
+            f"atol={SECOND_HEAD_TOL['atol']}), class logits std >= "
+            f"{spread:.3f}")
         if spread < 0.1:
             raise AssertionError(f"degenerate head outputs (class logits std "
                                  f"{spread})")
@@ -1048,20 +1135,30 @@ def phase_second_cpu(dev, batch):
         det_c = cpu.predict(
             ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
             test_cfg)
-    log(f"phase 10 SECOND CPU post-processing of the card's heads: "
-        f"{check_decode(det_d, det_c, 'SECOND')}")
+    log(f"{label} CPU post-processing of the card's heads: "
+        f"{check_decode(det_d, det_c, label)}")
 
 
-def phase_second_timing(dev, stack, plan_ms, smi):
+def phase_second_cpu(dev, batch):
+    card_vs_cpu(dev, second_stack(dev, "fp32"), second_stack("cpu", "fp32"),
+                {k: v[:1] for k, v in batch.items()}, "phase 10 SECOND")
+
+
+def step_timing(dev, stack, plan_ms, smi, label):
+    """A sparse-middle predict step's time (CUDA events, WARMUP warm-ups,
+    median of REPEAT), scans/s, peak memory, the host plan build printed
+    apart, and its stages: middle, rpn+head, decode+nms. Returns the
+    middle's output and the device batch."""
     from det3d_tpu_torch.parallel.predict import build_example
     model, vg, asg, test_cfg, step, data = stack
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    b = data_d["points"].shape[0]
     torch.cuda.reset_peak_memory_stats()
     predict_ms = cuda_ms(lambda: step(data_d))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    log(f"phase 11 SECOND predict B={SECOND_B}: {predict_ms:.3f} ms/batch, "
-        f"{predict_ms / SECOND_B:.3f} ms/scan device step, "
-        f"{SECOND_B * 1e3 / predict_ms:.1f} scans/s, peak memory "
+    log(f"{label} predict B={b}: {predict_ms:.3f} ms/batch, "
+        f"{predict_ms / b:.3f} ms/scan device step, "
+        f"{b * 1e3 / predict_ms:.1f} scans/s, peak memory "
         f"{peak:.0f} MiB; host plan build {plan_ms:.1f} ms/scan apart "
         f"[{smi}]")
 
@@ -1079,29 +1176,35 @@ def phase_second_timing(dev, stack, plan_ms, smi):
             "decode+nms": lambda: model.predict(ex, heads, test_cfg),
         }
         parts = {k: cuda_ms(fn) for k, fn in stages.items()}
-    log(f"phase 11 SECOND stages B={SECOND_B} (ms/batch): " + ", ".join(
+    log(f"{label} stages B={b} (ms/batch): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()))
+    return mid
 
-    host_plan = {k: v for k, v in data.items() if k.startswith("plan_")}
+
+def phase_second_timing(dev, stack, plan_ms, smi):
+    step_timing(dev, stack, plan_ms, smi, "phase 11 SECOND")
+    host_plan = {k: v for k, v in stack[5].items() if k.startswith("plan_")}
     fwd = {prec: conv_timing(dev, host_plan, smi, prec)
            for prec in ("bf16", "fp32")}
     return fwd["bf16"]
 
 
-def conv_timing(dev, host_plan, smi, prec):
-    """Phase 11's window-conv timing on SECOND's host plan in ``prec``: at
-    each (Cin, Cout, center_shift) of the middle and for the forward's 10
-    launches, a call from Python interleaved with the plain version, and
-    the bound. In bf16 (what SECOND serves) also the device time
-    (graph_ms) with the achieved rates and share of the bound, and the
-    yardstick im2col+matmul, timed both ways. Returns the forward's times
-    (``kernel``: a call; ``device``: bf16 only) and bound."""
+def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
+                label="phase 11"):
+    """The window-conv timing on a middle's host plan in ``prec`` (phase
+    11: SECOND's; phase 18: CBGS's): at each (Cin, Cout, center_shift) of
+    ``layers`` and for the forward's launches, a call from Python
+    interleaved with the plain version, and the bound. In bf16 (what both
+    serve) also the device time (graph_ms) with the achieved rates and
+    share of the bound, and the yardstick im2col+matmul, timed both ways.
+    Returns the forward's times (``kernel``: a call; ``device``: bf16
+    only) and bound."""
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
     bf16 = prec == "bf16"
     cases = conv_cases(host_plan, dev,
-                       torch.bfloat16 if bf16 else torch.float32)
+                       torch.bfloat16 if bf16 else torch.float32, layers)
     unpacked = [unpack_windows(pk, 3) for _, _, pk, _, _ in cases]
     yard = ([im2col_matmul(x, pk, w, subm) for _, x, pk, w, subm in cases]
             if bf16 else [None] * len(cases))
@@ -1118,7 +1221,7 @@ def conv_timing(dev, host_plan, smi, prec):
         work = conv_work(x, pk, w, subm)
         b_ms, b_by = bound(*work)
         taps, rows = conv_taps(pk, x.shape[1], subm)
-        log(f"phase 11 window conv [{prec} {name}]: kernel "
+        log(f"{label} window conv [{prec} {name}]: kernel "
             f"{t['kernel']:.4f} ms a call from Python, plain "
             f"{t['plain']:.4f} ms, bound {b_ms:.7f} ms ({b_by}; {rows} of "
             f"{x.shape[0] * x.shape[1]} input rows read, {taps} taps) "
@@ -1126,7 +1229,7 @@ def conv_timing(dev, host_plan, smi, prec):
         if not bf16:
             continue
         dev_ms = graph_ms(fns["kernel"])
-        log(f"phase 11   kernel on the device {dev_ms:.4f} ms: achieved "
+        log(f"{label}   kernel on the device {dev_ms:.4f} ms: achieved "
             f"{work[0] / dev_ms / 1e9:.3f} TB/s, "
             f"{work[1] / dev_ms / 1e9:.3f} TFLOP/s, "
             f"{b_ms / dev_ms:.4f} of the bound")
@@ -1134,7 +1237,7 @@ def conv_timing(dev, host_plan, smi, prec):
         if err > YARD_TOL:
             raise AssertionError(f"im2col+matmul [{prec} {name}] differs "
                                  f"from the kernel by {err}")
-        log(f"phase 11   im2col+matmul (yardstick, never called by the "
+        log(f"{label}   im2col+matmul (yardstick, never called by the "
             f"port): {t['im2col+matmul']:.4f} ms a call from Python, "
             f"{graph_ms(ys):.4f} ms on the device; max abs diff from the "
             f"kernel {err:.3e}")
@@ -1151,7 +1254,7 @@ def conv_timing(dev, host_plan, smi, prec):
                bound_ms=sum(bound(*wk)[0] for wk in work),
                bound_by="bytes" if all(bound(*wk)[1] == "bytes"
                                        for wk in work) else "operations")
-    line = (f"phase 11 window conv, the forward's {len(cases)} launches "
+    line = (f"{label} window conv, the forward's {len(cases)} launches "
             f"[{prec}]: kernel {t['kernel']:.4f} ms called from Python")
     if bf16:
         fwd["device"] = graph_ms(fns["kernel"])
@@ -1165,16 +1268,18 @@ def conv_timing(dev, host_plan, smi, prec):
     log(f"{line} [{smi}]")
     if bf16:
         x = cases[-1][1]
-        log(f"phase 11 why im2col+matmul pads its rows: index_select of "
+        log(f"{label} why im2col+matmul pads its rows: index_select of "
             f"{27 * x.shape[0] * x.shape[1]} random rows of {x.shape[-1]} "
             f"bf16 takes {gather_ms(x, 0):.4f} ms on the device, of "
             f"{x.shape[-1] + 4} (8 bytes of zeros) {gather_ms(x, 4):.4f} ms")
     return fwd
 
 
-def phase_profile(stack, dev, smi, steps=5, top=12):
-    """torch.profiler over ``steps`` SECOND predict steps: device time by
-    kernel and the device's busy share of the window."""
+def phase_profile(stack, dev, smi, steps=5, top=12, label="phase 12 SECOND",
+                  batch=SECOND_B):
+    """torch.profiler over ``steps`` predict steps of a sparse-middle stack
+    (phase 12: SECOND's; phase 19: CBGS's): device time by kernel and the
+    device's busy share of the window."""
     from torch.profiler import ProfilerActivity, profile
     step, data = stack[4], stack[5]
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
@@ -1195,18 +1300,163 @@ def phase_profile(stack, dev, smi, steps=5, top=12):
             kernels.append((t / 1e3 / steps, e.count // steps, e.key))
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
-        log("phase 12 SECOND profile: the profiler saw no device time "
+        log(f"{label} profile: the profiler saw no device time "
             "(not measured)")
         return
-    log(f"phase 12 SECOND profile, {steps} steps B={SECOND_B} under "
+    log(f"{label} profile, {steps} steps B={batch} under "
         f"torch.profiler: {wall / steps:.3f} ms/step, device busy "
         f"{busy:.3f} ms/step ({busy / (wall / steps):.2f} of the window), "
         f"{sum(k[1] for k in kernels)} kernels/step [{smi}]")
     for t, n, name in sorted(kernels, reverse=True)[:top]:
-        log(f"phase 12   {t:8.3f} ms/step  x{n:<4d} {name[:90]}")
+        log(f"{label}   {t:8.3f} ms/step  x{n:<4d} {name[:90]}")
     conv = [k for k in kernels if "window_conv" in k[2]]
-    log(f"phase 12 window-conv kernels: {sum(k[0] for k in conv):.3f} "
+    log(f"{label} window-conv kernels: {sum(k[0] for k in conv):.3f} "
         f"ms/step over {sum(k[1] for k in conv)} launches")
+
+
+# ---------------------------------------------------------------------------
+# CBGS
+# ---------------------------------------------------------------------------
+
+def cbgs_config(precision=None, cut=False):
+    """configs/nusc_cbgs_voxelnet.py as a dict; ``precision`` overrides the
+    middle's serve_precision; ``cut``: the range, every anchor generator's
+    range, the voxel cap cut for phase 17 (CBGS_CUT, CBGS_CUT_VOXELS)."""
+    from det3d_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(CBGS_CFG)
+    c = {k: copy.deepcopy(cfg[k]) for k in cfg.keys()}
+    if precision is not None:
+        c["model"]["backbone"]["serve_precision"] = precision
+    if cut:
+        e = CBGS_CUT
+        c["voxel_generator"].update(range=[-e, -e, -5.0, e, e, 3.0],
+                                    max_voxel_num=CBGS_CUT_VOXELS)
+        for g in c["assigner"]["target_assigner"]["anchor_generators"]:
+            z = g["anchor_ranges"][2]
+            g["anchor_ranges"] = [-e, -e, z, e, e, z]
+    return c
+
+
+def cbgs_batch(batch, points, pc_range, seed=SEED):
+    """Structured scans with nuScenes' 5 point features, the fifth (the
+    sweep time) zero, as bench.py's cbgs_nusc_predict row feeds CBGS."""
+    from det3d_tpu_torch.utils.synth import structured_batch
+    d = structured_batch(batch, points, pc_range, seed=seed)
+    d["points"] = np.concatenate(
+        [d["points"], np.zeros_like(d["points"][..., :1])], -1)
+    return d
+
+
+@functools.lru_cache(maxsize=None)
+def cbgs_state():
+    """CBGS's weights (calibrated_state), calibrated on the card in fp32
+    (TF32 off) on the first structured scan of CBGS_POINTS points: on the
+    host CPU the dense conv3d tail at full size is slow. Every CBGS model
+    of this script loads these weights, whatever its device, precision and
+    range (the widths do not depend on the range)."""
+    cfg = cbgs_config("fp32")
+    scan = cbgs_batch(1, CBGS_POINTS, cfg["voxel_generator"]["range"])
+    return calibrated_state(cfg, scan, "cuda")
+
+
+def cbgs_stack(device, precision=None, cut=False):
+    return load_stack(cbgs_config(precision, cut), cbgs_state(), device)
+
+
+def phase_cbgs_plan(batch):
+    """The host plan and voxels of CBGS_B scans of CBGS_POINTS points, and
+    its build time."""
+    plan_fn = plan_builder(cbgs_config())
+    t0 = time.perf_counter()
+    plan = plan_fn(batch["points"], batch["num_points"])
+    plan_ms = (time.perf_counter() - t0) * 1e3 / CBGS_B
+    log(f"phase 14 CBGS host plan B={CBGS_B} P={CBGS_POINTS}: "
+        f"{plan_ms:.1f} ms/scan on the host (numpy, one process); voxels "
+        f"per scan {plan['num_voxels'].tolist()}, stage rows "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in plan.items()
+                    if k.startswith("plan_")))
+    return plan, plan_ms
+
+
+def phase_cbgs_predict(dev, batch, plan):
+    """CBGS predict at B=2 through build_stack + host_plan_fn +
+    make_predict_step (sparse_predict); returns the stack, the launches,
+    and what the step passes to the NMS kernel, which must be N = B x 6
+    samples of K=1000 at CBGS_NMS_THR."""
+    stack, launches = sparse_predict(
+        dev, cbgs_stack(dev), batch, plan, (CBGS_B, CBGS_DETS, 9),
+        CBGS_LAUNCHES, "phase 16 CBGS")
+    step, data = stack[4], stack[5]
+    nms_in = step_nms_inputs(lambda: step(data))
+    log(f"phase 16 CBGS NMS kernel fed N={nms_in[0].shape[0]} "
+        f"K={nms_in[0].shape[1]} thr {nms_in[3]}")
+    if (tuple(nms_in[0].shape[:2]) != (CBGS_B * 6, 1000)
+            or nms_in[3] != CBGS_NMS_THR):
+        raise AssertionError(f"NMS fed N, K = {tuple(nms_in[0].shape[:2])}"
+                             f", thr {nms_in[3]}")
+    return stack, launches, nms_in
+
+
+def phase_cbgs_cpu(dev, stack):
+    """Card against CPU on the range cut to +-CBGS_CUT m at full widths
+    (card_vs_cpu), then the CPU post-processing of the full-size card
+    heads (the bf16 middle as served, scan 0 of the B=2 step's batch)
+    against the card's."""
+    from det3d_tpu_torch.parallel.predict import build_example
+    cut = cbgs_config(cut=True)["voxel_generator"]["range"]
+    cpu_stack = cbgs_stack("cpu", "fp32", cut=True)
+    card_vs_cpu(dev, cbgs_stack(dev, "fp32", cut=True), cpu_stack,
+                cbgs_batch(1, CBGS_CUT_POINTS, cut),
+                f"phase 17 CBGS at +-{CBGS_CUT} m, {CBGS_CUT_VOXELS} voxels,")
+    model, vg, asg, test_cfg, _, data = stack
+    data = {k: v[:1] for k, v in data.items()}
+    with torch.no_grad():
+        ex_d, heads_d = heads_on(model, vg, asg, data, dev)
+        det_d = model.predict(ex_d, heads_d, test_cfg)
+        ex_c = build_example({k: torch.as_tensor(v) for k, v in
+                              data.items()}, vg, asg)
+        det_c = cpu_stack[0].predict(
+            ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
+            test_cfg)
+    log(f"phase 17 CBGS CPU post-processing of the full-size card heads "
+        f"(scan 0, bf16 middle): {check_decode(det_d, det_c, 'CBGS full')}")
+
+
+def phase_cbgs_timing(dev, stack, plan_ms, nms_in, smi):
+    """CBGS predict at B=2 and its stages (step_timing); the RPN's first
+    conv as one cuDNN call and as the port runs it; the window conv at
+    CBGS's shapes in bf16; the NMS kernel on the step's own inputs against
+    its plain twin (a call)."""
+    from det3d_tpu_torch.models.necks import CIN_CHUNK, stage_conv
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    mid = step_timing(dev, stack, plan_ms, smi, "phase 18 CBGS")
+    # the RPN's first conv, fp32 256 -> 128 channels on 128 x 128: one
+    # cuDNN call against the 128-channel chunks the port runs
+    conv0 = stack[0].neck.block0_down_conv
+    with torch.no_grad():
+        x0 = mid.float().permute(0, 3, 1, 2)
+        diff = float((conv0(x0) - stage_conv(conv0, x0)).abs().max())
+        rpn0 = interleaved_ms({"one cuDNN call": lambda: conv0(x0),
+                               "chunks": lambda: stage_conv(conv0, x0)},
+                              rounds=4)
+    log(f"phase 18 CBGS RPN first conv {tuple(x0.shape)} -> "
+        f"{conv0.out_channels} channels, fp32: one cuDNN call "
+        f"{rpn0['one cuDNN call']:.3f} ms, over {CIN_CHUNK}-channel chunks "
+        f"(models/necks.py::stage_conv, what the port runs) "
+        f"{rpn0['chunks']:.3f} ms, max abs diff {diff:.3e} [{smi}]")
+
+    host_plan = {k: v for k, v in stack[5].items() if k.startswith("plan_")}
+    conv = conv_timing(dev, host_plan, smi, "bf16", CBGS_LAYERS, "phase 18")
+    c, a, v, thr = nms_in
+    nms = interleaved_ms({
+        "plain": lambda: rotated_nms_keep_ref(c, a, v, thr),
+        "kernel": lambda: rotated_nms_keep(c, a, v, thr)})
+    log(f"phase 18 rotated NMS keep on the CBGS step's inputs N={c.shape[0]}"
+        f" K={c.shape[1]} thr {thr}: kernel {nms['kernel']:.4f} ms a call "
+        f"from Python interleaved with the plain twin (device time: phase "
+        f"13), plain {nms['plain']:.4f} ms [{smi}]")
+    return conv, nms
 
 
 def conv_timing_main(tree):
@@ -1275,45 +1525,75 @@ def main():
     sec_stack, launches = phase_second_predict(dev, sec_batch, plan)
     phase_second_cpu(dev, sec_batch)
     conv = phase_second_timing(dev, sec_stack, plan_ms, smi)
+
+    cbgs_range = cbgs_config()["voxel_generator"]["range"]
+    cbgs_data = cbgs_batch(CBGS_B, CBGS_POINTS, cbgs_range)
+    cbgs_plan, cbgs_plan_ms = phase_cbgs_plan(cbgs_data)
+    cbgs_conv_err = phase_conv_kernel(dev, cbgs_plan, CBGS_LAYERS, "phase 15")
+    cbgs_stack_, cbgs_launches, cbgs_in = phase_cbgs_predict(
+        dev, cbgs_data, cbgs_plan)
+    phase_cbgs_cpu(dev, cbgs_stack_)
+    cbgs_conv, cbgs_nms = phase_cbgs_timing(dev, cbgs_stack_, cbgs_plan_ms,
+                                            cbgs_in, smi)
+
+    # torch.profiler after every step is timed; the inputs the three
+    # predict steps feed the kernel beside the synthetic cases
     phase_profile(sec_stack, dev, smi)
-    # torch.profiler after every step is timed; the inputs the two predict
-    # steps feed the kernel beside the synthetic cases
+    phase_profile(cbgs_stack_, dev, smi, steps=3, label="phase 19 CBGS",
+                  batch=CBGS_B)
     step, data = sec_stack[4], sec_stack[5]
     steps_in = (("flagship step B=8", flagship_in),
-                ("SECOND step B=2", step_nms_inputs(lambda: step(data))))
-    nms_times["device"] = nms_timing(dev, smi, "phase 13", steps_in)[
-        "flagship N=8 K=1000"]["device"]
+                ("SECOND step B=2", step_nms_inputs(lambda: step(data))),
+                ("CBGS step B=2", cbgs_in))
+    nms_dev = nms_timing(dev, smi, "phase 13", steps_in)
+    nms_times["device"] = nms_dev["flagship N=8 K=1000"]["device"]
 
     nms_b_ms, nms_b_by, nms_all_ms = nms_bound(
         *nms_cases(dev)["flagship N=8 K=1000"])
     log(f"rotated NMS bound N=8 K=1000: {nms_b_ms:.7f} ms ({nms_b_by}; the "
         f"pairs these inputs need), {nms_all_ms:.7f} ms counting a full IoU "
         f"for every valid pair as before")
-    print(json.dumps({"kernels": [{
-        "name": "rotated_nms_keep", "route": "cuda",
-        "source": "det3d_tpu_torch/csrc/rotated_nms.cu",
-        "replaces": "det3d_tpu/ops/nms_pallas.py:90",
-        "launches": (flagship["rotated_nms_keep"]
-                     + launches["rotated_nms_keep"]),
-        "launches_by_path": {"flagship": flagship["rotated_nms_keep"],
-                             "second": launches["rotated_nms_keep"]},
-        "max_abs_err": float(nms_err),
-        "ms": nms_times["kernel"], "device_ms": nms_times["device"],
-        "plain_ms": nms_times["plain"],
-        "bound_ms": nms_b_ms, "bound_by": nms_b_by, "library_ms": None,
-    }, {
-        "name": "window_conv", "route": "cuda",
-        "source": "det3d_tpu_torch/csrc/window_conv.cu",
-        "replaces": "det3d_tpu/ops/band_conv.py:216",
-        "launches": flagship["window_conv"] + launches["window_conv"],
-        "launches_by_path": {"flagship": flagship["window_conv"],
-                             "second": launches["window_conv"]},
-        "max_abs_err": conv_err,
-        "ms": conv["kernel"], "device_ms": conv["device"],
-        "plain_ms": conv["plain"],
-        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
-        "library_ms": None,
-    }]}), flush=True)
+    cbgs_b_ms, cbgs_b_by, cbgs_all_ms = nms_bound(*cbgs_in[:3])
+    log(f"rotated NMS bound on the CBGS step's inputs N=12 K=1000: "
+        f"{cbgs_b_ms:.7f} ms ({cbgs_b_by}), {cbgs_all_ms:.7f} ms counting a "
+        f"full IoU for every valid pair")
+    by_path = {
+        name: {"flagship": flagship[name], "second": launches[name],
+               "cbgs": cbgs_launches[name]}
+        for name in ("rotated_nms_keep", "window_conv")}
+    nms_src = dict(name="rotated_nms_keep", route="cuda",
+                   source="det3d_tpu_torch/csrc/rotated_nms.cu",
+                   replaces="det3d_tpu/ops/nms_pallas.py:90")
+    conv_src = dict(name="window_conv", route="cuda",
+                    source="det3d_tpu_torch/csrc/window_conv.cu",
+                    replaces="det3d_tpu/ops/band_conv.py:216")
+    # one entry per kernel over every path, with the flagship's (NMS) and
+    # SECOND's (window conv) times, then one per kernel at CBGS's shapes
+    print(json.dumps({"kernels": [dict(
+        nms_src, launches=sum(by_path["rotated_nms_keep"].values()),
+        launches_by_path=by_path["rotated_nms_keep"],
+        max_abs_err=float(nms_err), ms=nms_times["kernel"],
+        device_ms=nms_times["device"], plain_ms=nms_times["plain"],
+        bound_ms=nms_b_ms, bound_by=nms_b_by, library_ms=None,
+    ), dict(
+        conv_src, launches=sum(by_path["window_conv"].values()),
+        launches_by_path=by_path["window_conv"],
+        max_abs_err=conv_err, ms=conv["kernel"], device_ms=conv["device"],
+        plain_ms=conv["plain"], bound_ms=conv["bound_ms"],
+        bound_by=conv["bound_by"], library_ms=None,
+    ), dict(
+        nms_src, path="cbgs", launches=cbgs_launches["rotated_nms_keep"],
+        max_abs_err=float(nms_err), ms=cbgs_nms["kernel"],
+        device_ms=nms_dev["CBGS step B=2"]["device"],
+        plain_ms=cbgs_nms["plain"], bound_ms=cbgs_b_ms, bound_by=cbgs_b_by,
+        library_ms=None,
+    ), dict(
+        conv_src, path="cbgs", launches=cbgs_launches["window_conv"],
+        max_abs_err=cbgs_conv_err, ms=cbgs_conv["kernel"],
+        device_ms=cbgs_conv["device"], plain_ms=cbgs_conv["plain"],
+        bound_ms=cbgs_conv["bound_ms"], bound_by=cbgs_conv["bound_by"],
+        library_ms=None,
+    )]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,9 @@ The device voxelizer covers the hashed order. ``VoxelGenerator`` also
 takes ``order="yxz"`` and ``fuse_mean=True`` (SECOND's configuration):
 those configurations are voxelized on the host (ops/voxelize_host.py,
 through apis/train.py::host_plan_fn), and ``generate_batch`` raises for
-them. "appearance" raises NotImplementedError.
+them. "appearance" is taken only with ``fuse_mean`` (CBGS's
+configuration), whose effective order is "hashed", as in the JAX
+package; without the fused mean it raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -147,10 +149,12 @@ class VoxelGenerator:
     fuse_mean: bool = False
 
     def __post_init__(self):
-        if self.order not in ("hashed", "yxz"):
+        if self.order not in ("hashed", "yxz") and not (
+                self.order == "appearance" and self.fuse_mean):
             raise NotImplementedError(
                 f"voxel order {self.order!r} is not ported yet; use "
-                "'hashed' or 'yxz'")
+                "'hashed' or 'yxz' (or 'appearance' with fuse_mean, "
+                "which voxelizes in hashed order)")
 
     @property
     def effective_order(self) -> str:

@@ -1,11 +1,13 @@
-"""Backbones: the pillar scatter onto the BEV canvas, and the SECOND
-sparse middle.
+"""Backbones: the pillar scatter onto the BEV canvas, and the SECOND and
+CBGS sparse middles.
 
 Port of det3d_tpu/models/backbones.py: ``PointPillarsScatter``, and
-``SpMiddleFHD`` with its layers (``SparseConvBN``, ``DenseConvBN``) for
-plan-fed serving. The canvas keeps the reference's NHWC layout, (B, ny,
-nx, C). Padded rows (coords -1) are dropped before every scatter, where
-the reference sends them to an out-of-bounds index that XLA drops.
+``SpMiddleFHD`` and ``SpMiddleResNetFHD`` with their layers
+(``SparseConvBN``, ``DenseConvBN``, ``SparseBasicBlock``,
+``DenseBasicBlock``) for plan-fed serving. The canvas keeps the
+reference's NHWC layout, (B, ny, nx, C). Padded rows (coords -1) are
+dropped before every scatter, where the reference sends them to an
+out-of-bounds index that XLA drops.
 """
 
 from __future__ import annotations
@@ -44,7 +46,7 @@ class PointPillarsScatter(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# The SECOND sparse middle, plan-fed serving
+# The SECOND and CBGS sparse middles, plan-fed serving
 # ---------------------------------------------------------------------------
 
 from det3d_tpu_torch.models.norm import build_norm  # noqa: E402
@@ -89,60 +91,120 @@ def middle_plan_spec(middle, input_shape, max_voxels):
 
 
 class SparseConvBN(nn.Module):
-    """Sparse conv over a packed window rulebook, BN, ReLU; evaluation.
+    """Sparse conv over a packed window rulebook, optional bias, BN and
+    optional ReLU; evaluation.
 
     The conv runs in ``precision`` (its operands cast to it, fp32 sums,
     fp32 output): the CUDA kernel for card tensors, its plain twin for CPU
-    tensors (ops/window_conv_cuda.py). BN and ReLU run in fp32. The weight
-    keeps the JAX package's (kz*ky*kx, Cin, Cout) z-major layout."""
+    tensors (ops/window_conv_cuda.py). Bias (added before the BN, as the
+    JAX package does), BN and ReLU run in fp32. The weight keeps the JAX
+    package's (kz*ky*kx, Cin, Cout) z-major layout."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
-                 kvol: int = 27):
+                 kvol: int = 27, use_bias: bool = False, relu: bool = True):
         super().__init__()
         self.dtype = act_dtype(precision)
+        self.relu = relu
         self.weight = nn.Parameter(torch.empty(kvol, in_channels,
                                                out_channels))
         bound = (3.0 / (kvol * in_channels)) ** 0.5  # flax fan_in uniform
         nn.init.uniform_(self.weight, -bound, bound)
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
         self.norm = build_norm(norm_cfg, out_channels)
 
     def forward(self, x, packed, center_shift: bool):
         y = window_conv(x.to(self.dtype).contiguous(), packed.contiguous(),
                         self.weight.to(self.dtype).contiguous(),
                         center_shift)
-        return torch.relu(self.norm(y))
+        if self.bias is not None:
+            y = y + self.bias
+        y = self.norm(y)
+        return torch.relu(y) if self.relu else y
+
+
+class SparseBasicBlock(nn.Module):
+    """Residual block of two biased submanifold convs on one rulebook, the
+    second without ReLU, then relu(x + y), all in fp32 (the convs' BN
+    leaves fp32). Port of det3d_tpu/models/backbones.py::SparseBasicBlock
+    (reference scn.py:46-89), evaluation."""
+
+    def __init__(self, channels: int, norm_cfg: Optional[dict] = None,
+                 precision: str = "fp32"):
+        super().__init__()
+        self.SparseConvBN_0 = SparseConvBN(channels, channels, norm_cfg,
+                                           precision, use_bias=True)
+        self.SparseConvBN_1 = SparseConvBN(channels, channels, norm_cfg,
+                                           precision, use_bias=True,
+                                           relu=False)
+
+    def forward(self, x, packed):
+        y = self.SparseConvBN_0(x, packed, True)
+        y = self.SparseConvBN_1(y, packed, True)
+        return torch.relu(x + y)
 
 
 class DenseConvBN(nn.Module):
-    """Dense-tail twin of SparseConvBN: conv3d, BN, ReLU, re-zeroed off the
-    active sites; evaluation.
+    """Dense-tail twin of SparseConvBN: conv3d, optional bias, BN, optional
+    ReLU, re-zeroed off the active sites; evaluation.
 
     Tensors are NDHWC; the conv runs on NCDHW views of them. The conv is
     PyTorch's conv3d (the JAX package leaves this one to XLA, outside any
-    Pallas kernel). With bf16 the whole epilogue stays in bf16, as the JAX
-    package serves it."""
+    Pallas kernel). With bf16 the whole epilogue (the bias among it) stays
+    in bf16, as the JAX package serves it."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel=(3, 3, 3), stride=(1, 1, 1), padding=(1, 1, 1),
-                 norm_cfg: Optional[dict] = None, precision: str = "fp32"):
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32",
+                 use_bias: bool = False, relu: bool = True):
         super().__init__()
         self.kernel, self.stride, self.padding = (
             sp._as3(kernel), sp._as3(stride), sp._as3(padding))
         self.dtype = act_dtype(precision)
+        self.relu = relu
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels,
                                                *self.kernel))
         fan_in = in_channels * self.weight[0, 0].numel()
         bound = (3.0 / fan_in) ** 0.5
         nn.init.uniform_(self.weight, -bound, bound)
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
         self.norm = build_norm(norm_cfg, out_channels, dtype=self.dtype)
 
     def forward(self, x, occ_out):
         y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
                      self.weight.to(self.dtype), stride=self.stride,
                      padding=self.padding).permute(0, 2, 3, 4, 1)
-        y = torch.relu(self.norm(y))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype)
+        y = self.norm(y)
+        if self.relu:
+            y = torch.relu(y)
         return y * occ_out[..., None].to(y.dtype)
+
+
+class DenseBasicBlock(nn.Module):
+    """Dense-tail twin of SparseBasicBlock: two biased DenseConvBNs, then
+    relu(x + y) in the activation dtype (bf16 when serving bf16), re-masked
+    by the occupancy. Port of det3d_tpu/models/backbones.py::
+    DenseBasicBlock, evaluation."""
+
+    def __init__(self, channels: int, norm_cfg: Optional[dict] = None,
+                 precision: str = "fp32"):
+        super().__init__()
+        self.DenseConvBN_0 = DenseConvBN(channels, channels,
+                                         norm_cfg=norm_cfg,
+                                         precision=precision, use_bias=True)
+        self.DenseConvBN_1 = DenseConvBN(channels, channels,
+                                         norm_cfg=norm_cfg,
+                                         precision=precision, use_bias=True,
+                                         relu=False)
+
+    def forward(self, x, occ):
+        y = self.DenseConvBN_0(x, occ)
+        y = self.DenseConvBN_1(y, occ)
+        return torch.relu(x + y) * occ[..., None].to(x.dtype)
 
 
 def _occupancy(coords, shape):
@@ -313,4 +375,122 @@ class SpMiddleFHD(nn.Module):
         co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
                                            (2, 1, 1), 0)
         x = next(convs)(x, down, False)
+        return _bev_reshape(x, co4, shape4)
+
+
+# (channels, kernel, stride, padding) per downsample stage of the CBGS middle
+_RES_SPECS = ((32, 3, 2, 1), (64, 3, 2, 1), (128, 3, 2, (0, 1, 1)))
+
+
+@BACKBONES.register_module
+class SpMiddleResNetFHD(nn.Module):
+    """CBGS residual sparse middle, plan-fed evaluation. Port of
+    det3d_tpu/models/backbones.py::SpMiddleResNetFHD (reference
+    scn.py:308-370) for ``plan is not None and not train``.
+
+    The stem SparseConvBN and two SparseBasicBlocks at res0; per stage
+    before ``dense_from`` a strided SparseConvBN and two SparseBasicBlocks;
+    at ``dense_from`` the strided conv, then ``to_dense`` in the activation
+    dtype and two DenseBasicBlocks; after it a strided DenseConvBN and two
+    DenseBasicBlocks; then the (3, 1, 1) z conv to 128 channels. Without
+    ``dense_tail`` every stage and the z conv stay sparse. Input and output
+    as SpMiddleFHD's (output (B, ny/8, nx/8, 128 * D_final)); the
+    ``serve_*band`` keys are accepted and ignored likewise.
+
+    Modules carry flax's names in call order at each level
+    (``SparseConvBN_<n>``, ``SparseBasicBlock_<n>``, ``DenseBasicBlock_<n>``,
+    ``DenseConvBN_<n>``; each block holds ``<Layer>_0`` and ``<Layer>_1``),
+    so utils/convert.py::from_jax maps one to one.
+    """
+
+    def __init__(self, num_input_features: int = 128,
+                 norm_cfg: Optional[dict] = None, ds_factor: int = 8,
+                 stage_caps: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                 dense_tail: bool = True, dense_from: int = 3,
+                 precision: str = "fp32", pre_ranked: bool = False,
+                 serve_band=None, serve_col_band=None, serve_down_band=None,
+                 serve_down_col_band=None,
+                 serve_precision: Optional[str] = None,
+                 name_str: str = "SpMiddleResNetFHD"):
+        super().__init__()
+        self.stage_caps = tuple(stage_caps)
+        self.dense_tail = bool(dense_tail)
+        self.dense_from = int(dense_from)
+        self.pre_ranked = bool(pre_ranked)
+        self.start = max(1, self.dense_from) if self.dense_tail else 4
+        prec = serve_precision or precision
+        self.dtype = act_dtype(prec)
+        self._names = {}                        # class -> names, call order
+
+        def add(module):
+            cls = type(module).__name__
+            names = self._names.setdefault(cls, [])
+            names.append(f"{cls}_{len(names)}")
+            self.add_module(names[-1], module)
+
+        def blocks(ch, dense):
+            for _ in range(2):
+                add((DenseBasicBlock if dense else SparseBasicBlock)(
+                    ch, norm_cfg, prec))
+
+        add(SparseConvBN(num_input_features, 16, norm_cfg, prec))
+        blocks(16, False)
+        cin = 16
+        for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
+            if i <= self.start:
+                add(SparseConvBN(cin, ch, norm_cfg, prec))
+            else:
+                add(DenseConvBN(cin, ch, kernel=k, stride=s, padding=p,
+                                norm_cfg=norm_cfg, precision=prec))
+            blocks(ch, i >= self.start)
+            cin = ch
+        if self.start < 4:
+            add(DenseConvBN(128, 128, kernel=(3, 1, 1), stride=(2, 1, 1),
+                            padding=0, norm_cfg=norm_cfg, precision=prec))
+        else:
+            add(SparseConvBN(128, 128, norm_cfg, prec, kvol=3))
+
+    def forward(self, voxel_features, coords, input_shape, plan=None):
+        if plan is None:
+            raise ValueError(
+                "SpMiddleResNetFHD serves from a host plan: pass the plan_* "
+                "keys of apis/train.py::host_plan_fn (the device rulebook "
+                "builders are not ported)")
+        nx, ny, nz = (int(s) for s in input_shape)
+        shape = (nz + 1, ny, nx)
+        mods = {cls: iter([getattr(self, n) for n in names])
+                for cls, names in self._names.items()}
+        scb, dcb = mods["SparseConvBN"], mods.get("DenseConvBN")
+
+        x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
+                                    plan)
+        s0 = plan["s0"]
+        x = next(scb)(x, s0, True)
+        for _ in range(2):
+            x = next(mods["SparseBasicBlock"])(x, s0)
+
+        xd = occ = None
+        for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
+            if i <= self.start:
+                co, down, subm, shape = _plan_stage(plan, i, shape, k, s, p)
+                x = next(scb)(x, down, False)
+                if i < self.start:
+                    for _ in range(2):
+                        x = next(mods["SparseBasicBlock"])(x, subm)
+                    continue
+                # transition: densify this stage in the activation dtype
+                occ = _occupancy(co, shape)
+                xd = sp.to_dense(x.to(self.dtype), co, shape)
+            else:
+                occ = _cover_mask(occ, sp._as3(k), sp._as3(s), sp._as3(p))
+                xd = next(dcb)(xd, occ)
+            for _ in range(2):
+                xd = next(mods["DenseBasicBlock"])(xd, occ)
+
+        if xd is not None:
+            occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
+            return _fold_depth(next(dcb)(xd, occ4))
+        co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
+                                           (2, 1, 1), 0)
+        x = next(scb)(x, down, False)
         return _bev_reshape(x, co4, shape4)

@@ -7,7 +7,9 @@ then ``layer_num`` 3x3 convs, each conv + BN + ReLU; each stage from
 
 Input and output keep the reference's NHWC layout. Inside, the tensors are
 NCHW views of channels-last memory (a permute, no copy), which is the
-layout the convolutions take natively.
+layout the convolutions take natively. A 3x3 conv that narrows a map of
+more than CIN_CHUNK channels runs as a sum of convs over CIN_CHUNK-channel
+slices of its input (``stage_conv``).
 """
 
 from __future__ import annotations
@@ -16,10 +18,30 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from det3d_tpu_torch.models.norm import build_norm, check_precision
 from det3d_tpu_torch.models.registry import NECKS
+
+
+# cuDNN 9.22 (PyTorch 2.11) on the H100 takes ~344 ms for CBGS's first RPN
+# conv, fp32 3x3 from 256 to 128 channels at B=2 on 128 x 128 with TF32
+# off; the same conv over two 128-channel input halves, summed, ~0.84 ms
+# (chip_smoke.py phase 18 times both).
+CIN_CHUNK = 128
+
+
+def stage_conv(conv: nn.Conv2d, x):
+    """``conv(x)``; when the conv narrows a map of more than CIN_CHUNK
+    channels, the sum of the convs of CIN_CHUNK-channel input slices."""
+    cin = conv.in_channels
+    if cin <= max(CIN_CHUNK, conv.out_channels):
+        return conv(x)
+    w = conv.weight
+    return sum(F.conv2d(x[:, i:i + CIN_CHUNK], w[:, i:i + CIN_CHUNK],
+                        stride=conv.stride, padding=conv.padding)
+               for i in range(0, cin, CIN_CHUNK))
 
 
 @NECKS.register_module
@@ -83,7 +105,8 @@ class RPN(nn.Module):
         ups = []
         for names, branch in zip(self.stages, self.branches):
             for name in names:
-                x = self._bn_relu(f"{name}_bn", getattr(self, f"{name}_conv")(x))
+                x = self._bn_relu(f"{name}_bn",
+                                  stage_conv(getattr(self, f"{name}_conv"), x))
             if branch is not None:
                 conv_name, bn_name = branch
                 ups.append(self._bn_relu(bn_name, getattr(self, conv_name)(x)))

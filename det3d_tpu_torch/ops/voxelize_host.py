@@ -4,8 +4,9 @@ Port of det3d_tpu/ops/voxelize_host.py for the sorted voxel orders
 ("hashed", "yxz") and the fused-mean path, in numpy. The serving process
 voxelizes on the CPU, beside the rulebook plan (ops/sparse_host.py), and
 the device step takes the voxels as they are (parallel/predict.py's
-build_example passthrough). The "appearance" order and the JAX package's
-native C++ twin are not ported.
+build_example passthrough). The "appearance" order without the fused
+mean (with it, rows come in hashed order) and the JAX package's native
+C++ twin are not ported.
 """
 
 from __future__ import annotations

@@ -3,12 +3,14 @@ that ``Config.fromfile`` needs, copied (the port imports nothing of the
 JAX package).
 
 ``.py`` configs are imported as throwaway modules and their module-level
-globals harvested; ``.json`` files are parsed. Values are wrapped in
-``ConfigDict`` for attribute access.
+globals harvested, their ``det3d_tpu.config_presets`` imports resolved to
+the port's copy (det3d_tpu_torch/config_presets/); ``.json`` files are
+parsed. Values are wrapped in ``ConfigDict`` for attribute access.
 """
 
 from __future__ import annotations
 
+import builtins
 import importlib.util
 import json
 import os
@@ -74,11 +76,31 @@ class Config:
         return self._cfg_dict.keys()
 
 
+# the JAX package's config presets, which a config file may import: the
+# port has its own copy under det3d_tpu_torch
+_PRESETS = "det3d_tpu.config_presets"
+
+
+def _config_import(name, globals=None, locals=None, fromlist=(), level=0):
+    """``__import__`` of a config file: ``det3d_tpu.config_presets[.*]``
+    resolves to the port's copy; any other ``det3d_tpu`` import raises
+    (the port imports nothing of the JAX package)."""
+    if level == 0 and name.split(".")[0] == "det3d_tpu":
+        if name != _PRESETS and not name.startswith(_PRESETS + "."):
+            raise ImportError(f"config imports {name!r}: the port has no "
+                              "copy of it and imports nothing of det3d_tpu")
+        name = "det3d_tpu_torch" + name[len("det3d_tpu"):]
+    return builtins.__import__(name, globals, locals, fromlist, level)
+
+
 def _exec_py_config(path: Path) -> dict:
-    """Import the .py config as a throwaway module and harvest its globals."""
+    """Import the .py config as a throwaway module and harvest its globals.
+    The module runs with its own builtins, whose ``__import__`` is
+    ``_config_import``; ``sys.modules`` gains no alias."""
     mod_name = f"_det3d_tpu_torch_cfg_{abs(hash(str(path)))}"
     spec = importlib.util.spec_from_file_location(mod_name, str(path))
     mod = importlib.util.module_from_spec(spec)
+    mod.__builtins__ = dict(vars(builtins), __import__=_config_import)
     sys.modules[mod_name] = mod
     try:
         spec.loader.exec_module(mod)

@@ -16,8 +16,8 @@ sums in another order: fp32 (the CUDA-core kernel) within rtol = atol =
 1e-4; bf16 (the tensor-core kernel) against the plain version in fp32 on
 the same bf16-rounded operands, within rtol = atol = 1e-3, at SECOND's
 shapes and on edge cases: ragged tiles, taps in one row of a tile, center
-taps at tile edges, windows past V, Cin from 4 to 128, unaligned features.
-TF32 is off.
+taps at tile edges, windows past V, Cin from 4 to 128, unaligned features,
+and at CBGS's stem and transition at 60000 rows. TF32 is off.
 """
 
 import numpy as np
@@ -215,6 +215,76 @@ def test_window_conv_equals_plain(dev, second_plan, prec, name):
     # the CPU plain version agrees too
     cpu = window_conv(x.cpu(), pk.cpu(), w.cpu(), subm)
     torch.testing.assert_close(out.cpu(), cpu, **CONV_TOL[prec])
+
+
+@pytest.fixture(scope="module")
+def cbgs_plan(dev):
+    """CBGS's host plan of one structured scan at full scale (300000
+    points, 60000 voxels)."""
+    from chip_smoke import CBGS_POINTS, cbgs_batch, cbgs_config, plan_builder
+    cfg = cbgs_config()
+    batch = cbgs_batch(1, CBGS_POINTS, cfg["voxel_generator"]["range"])
+    return plan_builder(cfg)(batch["points"], batch["num_points"])
+
+
+@pytest.mark.parametrize("prec", ["fp32", "bf16"])
+@pytest.mark.parametrize("name", ["subm (5,16) s0", "strided (32,64) down2"])
+def test_window_conv_cbgs_equals_plain(dev, cbgs_plan, prec, name):
+    """CBGS's stem (Cin 5, zero-padded in bf16) and its transition into the
+    dense tail, at V = O = 60000 rows."""
+    from chip_smoke import CBGS_LAYERS, CONV_TOL, conv_cases
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    dtype = torch.float32 if prec == "fp32" else torch.bfloat16
+    case = {c[0]: c for c in conv_cases(cbgs_plan, dev, dtype,
+                                        CBGS_LAYERS)}[name]
+    _, x, pk, w, subm = case
+    assert x.shape[1] == pk.shape[1] == 60000
+    out = window_conv(x, pk, w, subm)
+    torch.cuda.synchronize()
+    r0, pres = unpack_windows(pk, 3)
+    ref = window_conv_ref(x.float(), r0, pres, w.float(), subm)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    assert int(pres.sum()) > 60000
+    torch.testing.assert_close(out, ref, **CONV_TOL[prec])
+
+
+def test_cbgs_fused_nms_equals_plain(dev):
+    """CBGS's 6-task head post-processing on the card, fed random head
+    outputs at the shipped (1, 128, 128) map: the tasks fused into N = 2 x
+    6 samples of K = 1000 candidates at thr 0.2 go through the kernel once,
+    whose keep masks equal the plain twin's on those inputs."""
+    from chip_smoke import cbgs_config, step_nms_inputs
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    model, _, asg, cids, test_cfg = build_stack(cbgs_config(), device=dev)
+    head = model.bbox_head
+    r = np.random.RandomState(0)
+    heads = []
+    for nc, na in zip(head.num_classes, head.num_anchor_per_locs):
+        heads.append({
+            "box_preds": r.normal(0, 0.1, (2, 128, 128, na * 10)),
+            "cls_preds": r.normal(-1.0, 1.5, (2, 128, 128, na * nc))})
+    heads = [{k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+              for k, v in h.items()} for h in heads]
+    ex = {"anchors": [a.anchors_on(dev)[None].expand(2, -1, -1)
+                      for a in asg]}
+    before = rotated_nms_keep.launches
+    out = model.predict(ex, heads, test_cfg)
+    torch.cuda.synchronize()
+    assert rotated_nms_keep.launches == before + 1
+    assert out["box3d_lidar"].shape == (2, 6 * 83, 9)
+    assert bool(torch.isfinite(out["box3d_lidar"]).all())
+    assert int(out["valid"].sum()) > 0
+    c, a, v, thr = step_nms_inputs(lambda: model.predict(ex, heads,
+                                                         test_cfg))
+    assert c.shape[:2] == (2 * len(cids), 1000) and thr == 0.2
+    keep = rotated_nms_keep(c, a, v, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, rotated_nms_keep_ref(c, a, v, thr))
+    assert 0 < int(keep.sum()) < int(v.sum())
 
 
 def random_words(o, v, seed, density=0.3, k=9):
