@@ -14,11 +14,12 @@ at DIR (by default this one): run them on two checkouts in turns on one
 card (parent, change, change, parent) to compare two versions of a
 kernel on the same yardsticks.
 
-The first form drives the port's three serving paths through the entry
+The first form drives the port's five serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
 plans, both at KITTI-car scale, then CBGS from host plans at nuScenes
-scale, all at full widths) and prints one line per phase, in the order 1
-to 11, 14 to 18, 12, 19, 13:
+scale, then PointPillars as shipped for KITTI car and nuScenes, all at
+full widths) and prints one line per phase, in the order 1 to 11, 14 to
+18, 20 to 24, 12, 19, 25, 13:
 
   1. device: the card, as nvidia-smi names it, and its power limit;
   2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
@@ -91,26 +92,62 @@ to 11, 14 to 18, 12, 19, 13:
      host plan apart; the bf16 window conv at each CBGS shape and the
      forward's 11 launches, as phase 11 does in bf16; the NMS kernel on
      the step's own inputs against its plain twin (a call);
+ 20. KITTI car PointPillars predict: configs/kitti_car_pointpillars.py as
+     shipped (bf16 reader and neck, 12000 pillars of 100 points, hashed
+     order, the device voxelizer; random weights from
+     torch.Generator().manual_seed(0), BatchNorm statistics calibrated on
+     the card on one scan, box regression scaled as for SECOND), on the
+     flagship's B=8 structured scans: boxes (8, 100, 7), finite, some
+     valid, the NMS kernel launched once and fed N=8 K=1000 at thr 0.5;
+ 21. nuScenes PointPillars host voxels: configs/nusc_pointpillars.py as
+     shipped (0.2 m pillars over +-51.2 m, 30000 pillars of 20 points,
+     appearance order, 5 point features), CBGS's B=2 scans of 300000
+     points: the host voxelization's time, the pillars before and after
+     the cap; the device voxelizer on the card must give the host's
+     voxels, coords, counts and num_voxels exactly;
+ 22. nuScenes PointPillars predict at B=2 from those host voxels (bf16
+     reader and neck, weights as phase 20's): boxes (2, 498, 9), finite,
+     some valid with more than one label, the NMS kernel launched once and
+     fed N=12 K=1000 at thr 0.2;
+ 23. PointPillars card vs CPU at B=1, both configs at full widths on cut
+     ranges (nuScenes +-12.8 m, KITTI car x 0 to 25.6 m, y +-12.8 m; 8000
+     pillars), weights as phase 20's: in bf16 the reader and each conv of
+     the RPN and head, on the CPU's own inputs, within PP_LAYER_REL; with
+     the reader and neck in fp32 on both sides the heads within HEAD_TOL;
+     the bf16 heads closer to the CPU's than the CPU's bf16 heads are to
+     its fp32 heads; the CPU post-processing of the card's bf16 heads
+     gives the card's detections;
+ 24. PointPillars timing, both configs: predict ms per scan and scans/s,
+     peak memory, the stages (the device voxelizer, reader + scatter, RPN +
+     head, decode + NMS); for nuScenes the host voxelization apart and
+     the device-voxelized route of the same step; each conv shape of the
+     RPN and head alone (ms, TFLOP/s, share of the peak); the NMS kernel
+     on the step's own inputs against its plain twin (a call);
  12. SECOND profile: torch.profiler over 5 predict steps, device time by
      kernel (the window-conv kernels summed) and the device's busy share;
  19. CBGS profile, the same over 3 steps;
+ 25. nuScenes PointPillars profile, the same over 5 steps;
  13. the NMS kernel alone at the flagship's and SECOND's shapes, on one
-     cluster, and on the inputs the flagship, SECOND and CBGS predict
-     steps feed it: the share of the pairs past its cull, a call from
-     Python, the device time by graph_ms (the JSON line's device_ms), its
-     two kernels under torch.profiler. Last, so that no profiler session
-     runs before a step is timed.
+     cluster, and on the inputs the flagship, SECOND, CBGS and both
+     PointPillars predict steps feed it: the share of the pairs past its
+     cull, a call from Python, the device time by graph_ms (the JSON
+     line's device_ms), its two kernels under torch.profiler. Last, so
+     that no profiler session runs before a step is timed.
 
 TF32 is off throughout (cuDNN and matmul), so the card computes in full
-fp32 like the CPU. Any failed check raises and the script exits non-zero;
-without a CUDA device it exits 1 before printing anything. The last two
-lines are a JSON object of the kernels (one entry per kernel over every
-path, with the flagship's NMS and SECOND's window-conv times, then one per
-kernel with ``"path": "cbgs"`` at CBGS's shapes; ``ms``: a call from
-Python, interleaved with the plain version; ``device_ms``: graph_ms) and
-the JSON result line. The NMS bound counts the work these inputs need (a
-distance test for every valid pair, a full IoU for the pairs past the
-cull); the all-pairs bound of earlier PRs is printed beside it.
+fp32 like the CPU, and cuBLAS's bf16 GEMMs reduce in fp32
+(allow_bf16_reduced_precision_reduction off), as the CPU's do. Any failed
+check raises and the script exits non-zero; without a CUDA device it
+exits 1 before printing anything. The last two lines are a JSON object of
+the kernels (one entry per kernel over every path, with the flagship's
+NMS and SECOND's window-conv times and the launches of each path, then
+one per kernel with ``"path": "cbgs"`` at CBGS's shapes, then the NMS
+kernel with ``"path": "nusc_pp"`` on the nuScenes PointPillars step's
+inputs; ``ms``: a call from Python, interleaved with the plain version;
+``device_ms``: graph_ms) and the JSON result line. The NMS bound counts
+the work these inputs need (a distance test for every valid pair, a full
+IoU for the pairs past the cull); the all-pairs bound of earlier PRs is
+printed beside it.
 """
 
 from __future__ import annotations
@@ -174,6 +211,21 @@ CBGS_DETS = 6 * 83                      # 6 tasks x nms_post_max_size
 # points scaled down with it; every width as shipped
 CBGS_CUT, CBGS_CUT_VOXELS, CBGS_CUT_POINTS = 12.8, 8000, 40000
 BOX_FIELDS_9 = ("x", "y", "z", "w", "l", "h", "vx", "vy", "yaw")
+
+KITTI_PP_CFG = (Path(__file__).resolve().parent / "configs"
+                / "kitti_car_pointpillars.py")
+NUSC_PP_CFG = (Path(__file__).resolve().parent / "configs"
+               / "nusc_pointpillars.py")
+NUSC_PP_DETS = 6 * 83                   # 6 tasks x nms_post_max_size
+NUSC_PP_NMS_THR = 0.2
+# card vs CPU in bf16 (phase 23), one layer on the same bf16 inputs,
+# relative L2: cuDNN and oneDNN sum in other orders and flip a few bf16
+# roundings (read up to 1.1e-4); a conv whose output the card did not
+# round to bf16 would read ~1.7e-3 (the rounding itself). The ranges are
+# cut around PP_CUT m, PP_CUT_VOXELS pillars of PP_CUT_POINTS-point scans,
+# every width as shipped
+PP_LAYER_REL = 5e-4
+PP_CUT, PP_CUT_VOXELS, PP_CUT_POINTS = 12.8, 8000, 40000
 
 # H100 SXM published peaks: HBM bytes/s, fp32
 # CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s
@@ -390,6 +442,7 @@ def phase_device():
     #                         when the script runs outside the checkout)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -397,7 +450,8 @@ def phase_device():
     log("phase 1 device (nvidia-smi name, power.limit):")
     log(smi)
     log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
-        f"devices {torch.cuda.device_count()}; TF32 off")
+        f"devices {torch.cuda.device_count()}; TF32 off, bf16 GEMMs reduce "
+        f"in fp32")
     return smi
 
 
@@ -888,10 +942,11 @@ def calibrate_norms(model, run):
 
 
 def calibrated_state(cfg, scan, device):
-    """A sparse-middle model's weights: random from
-    torch.Generator().manual_seed(0) (models/builder.py::init_weights),
-    BatchNorm statistics calibrated in fp32 on ``device`` on ``scan`` (its
-    host plan and voxels), and the box-regression convs scaled by BOX_GAIN
+    """A model's weights: random from torch.Generator().manual_seed(0)
+    (models/builder.py::init_weights), BatchNorm statistics calibrated in
+    the config's precision on ``device`` on ``scan`` (its host voxels, and
+    the host plan of a sparse middle), and the box-regression convs scaled
+    by BOX_GAIN
     (every channel: sizes, and CBGS's velocities and vector angles). At unit
     scale the size deltas go through exp() to boxes of 1e8 m and more,
     whose IoUs are rounding noise; scaled, the boxes stay within a car's
@@ -905,9 +960,9 @@ def calibrated_state(cfg, scan, device):
     ex = {k: torch.as_tensor(v, device=device) for k, v in host_plan_fn(
         model, vg, voxelize=True)(scan["points"], scan["num_points"]).items()}
     plan = {k[5:]: v for k, v in ex.items() if k.startswith("plan_")}
+    kw = {"plan": plan} if plan else {}
     calibrate_norms(model, lambda: model(
-        ex["voxels"], ex["num_points_per_voxel"], ex["coordinates"],
-        plan=plan))
+        ex["voxels"], ex["num_points_per_voxel"], ex["coordinates"], **kw))
     with torch.no_grad():
         for name, w in model.named_parameters():
             if name.endswith("conv_box.weight"):
@@ -1039,13 +1094,14 @@ def phase_conv_kernel(dev, plan, layers=SECOND_LAYERS, label="phase 8"):
 
 
 def sparse_predict(dev, stack, batch, plan, shape_expected,
-                   launches_expected, label):
-    """One predict step of a sparse-middle ``stack`` (second_stack or
-    cbgs_stack) on ``batch`` and its host ``plan``, the kernel launch
-    counts set to 0 just before it and read just after. Checks: finite
-    boxes of ``shape_expected``, some valid, exactly ``launches_expected``
-    window-conv launches, the NMS kernel launched. Returns ((model, vg,
-    asg, test_cfg, step, data), launches)."""
+                   launches_expected, label, min_labels=1):
+    """One predict step of a ``stack`` (second_stack, cbgs_stack or
+    pp_stack) on ``batch`` and its host ``plan`` (host voxels, and the
+    rulebooks of a sparse middle), the kernel launch counts set to 0 just
+    before it and read just after. Checks: finite boxes of
+    ``shape_expected``, some valid with at least ``min_labels`` labels,
+    exactly ``launches_expected`` window-conv launches, the NMS kernel
+    launched. Returns ((model, vg, asg, test_cfg, step, data), launches)."""
     from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
     from det3d_tpu_torch.ops.window_conv_cuda import window_conv
     from det3d_tpu_torch.parallel.predict import make_predict_step
@@ -1061,9 +1117,9 @@ def sparse_predict(dev, stack, batch, plan, shape_expected,
     b = batch["points"].shape[0]
     n_valid = out["valid"].sum(dim=1).tolist()
     labels = sorted(set(out["label_preds"][out["valid"]].tolist()))
-    log(f"{label} predict B={b} P={batch['points'].shape[1]} (bf16 "
-        f"middle): boxes {shape}, valid per scan {n_valid}, labels "
-        f"{labels}, kernel launches {launches}")
+    log(f"{label} predict B={b} P={batch['points'].shape[1]}: boxes "
+        f"{shape}, valid per scan {n_valid}, labels {labels}, kernel "
+        f"launches {launches}")
     if shape != shape_expected:
         raise AssertionError(f"box3d_lidar shape {shape}, expected "
                              f"{shape_expected}")
@@ -1072,6 +1128,8 @@ def sparse_predict(dev, stack, batch, plan, shape_expected,
             raise AssertionError(f"{k} not finite")
     if sum(n_valid) < 1:
         raise AssertionError("no valid detection")
+    if len(labels) < min_labels:
+        raise AssertionError(f"labels {labels}: fewer than {min_labels}")
     if launches["window_conv"] != launches_expected:
         raise AssertionError(f"{launches['window_conv']} window-conv "
                              f"launches, expected {launches_expected}")
@@ -1083,18 +1141,19 @@ def sparse_predict(dev, stack, batch, plan, shape_expected,
 def phase_second_predict(dev, batch, plan):
     return sparse_predict(dev, second_stack(dev), batch, plan,
                           (SECOND_B, 100, 7), SECOND_LAUNCHES,
-                          "phase 9 SECOND")
+                          "phase 9 SECOND (bf16 middle)")
 
 
 def heads_on(model, vg, asg, data, device):
-    """(example, head outputs) of a sparse-middle ``model`` on ``data``
-    (scans with their host plan and voxels), on ``device``."""
+    """(example, head outputs) of ``model`` on ``data`` (scans with their
+    host voxels, and the host plan of a sparse middle), on ``device``."""
     from det3d_tpu_torch.parallel.predict import build_example
     t = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
     ex = build_example(t, vg, asg)
     plan = {k[5:]: v for k, v in t.items() if k.startswith("plan_")}
+    kw = {"plan": plan} if plan else {}
     return ex, model(ex["voxels"], ex["num_points_per_voxel"],
-                     ex["coordinates"], plan=plan)
+                     ex["coordinates"], **kw)
 
 
 def card_vs_cpu(dev, card_stack, cpu_stack, one, label):
@@ -1310,8 +1369,9 @@ def phase_profile(stack, dev, smi, steps=5, top=12, label="phase 12 SECOND",
     for t, n, name in sorted(kernels, reverse=True)[:top]:
         log(f"{label}   {t:8.3f} ms/step  x{n:<4d} {name[:90]}")
     conv = [k for k in kernels if "window_conv" in k[2]]
-    log(f"{label} window-conv kernels: {sum(k[0] for k in conv):.3f} "
-        f"ms/step over {sum(k[1] for k in conv)} launches")
+    if conv:
+        log(f"{label} window-conv kernels: {sum(k[0] for k in conv):.3f} "
+            f"ms/step over {sum(k[1] for k in conv)} launches")
 
 
 # ---------------------------------------------------------------------------
@@ -1385,16 +1445,22 @@ def phase_cbgs_predict(dev, batch, plan):
     samples of K=1000 at CBGS_NMS_THR."""
     stack, launches = sparse_predict(
         dev, cbgs_stack(dev), batch, plan, (CBGS_B, CBGS_DETS, 9),
-        CBGS_LAUNCHES, "phase 16 CBGS")
+        CBGS_LAUNCHES, "phase 16 CBGS (bf16 middle)")
+    nms_in = nms_fed(stack, (CBGS_B * 6, 1000, CBGS_NMS_THR), "phase 16 CBGS")
+    return stack, launches, nms_in
+
+
+def nms_fed(stack, expected, label):
+    """What one step of ``stack`` passes to the NMS kernel (step_nms_inputs),
+    which must be ``expected`` = (N, K, thr)."""
     step, data = stack[4], stack[5]
     nms_in = step_nms_inputs(lambda: step(data))
-    log(f"phase 16 CBGS NMS kernel fed N={nms_in[0].shape[0]} "
-        f"K={nms_in[0].shape[1]} thr {nms_in[3]}")
-    if (tuple(nms_in[0].shape[:2]) != (CBGS_B * 6, 1000)
-            or nms_in[3] != CBGS_NMS_THR):
-        raise AssertionError(f"NMS fed N, K = {tuple(nms_in[0].shape[:2])}"
-                             f", thr {nms_in[3]}")
-    return stack, launches, nms_in
+    fed = (*nms_in[0].shape[:2], nms_in[3])
+    log(f"{label} NMS kernel fed N={fed[0]} K={fed[1]} thr {fed[2]}")
+    if fed != tuple(expected):
+        raise AssertionError(f"NMS fed N, K, thr = {fed}, expected "
+                             f"{expected}")
+    return nms_in
 
 
 def phase_cbgs_cpu(dev, stack):
@@ -1457,6 +1523,307 @@ def phase_cbgs_timing(dev, stack, plan_ms, nms_in, smi):
         f"from Python interleaved with the plain twin (device time: phase "
         f"13), plain {nms['plain']:.4f} ms [{smi}]")
     return conv, nms
+
+
+# ---------------------------------------------------------------------------
+# PointPillars as shipped: KITTI car and nuScenes, bf16 reader and neck
+# ---------------------------------------------------------------------------
+
+def pp_config(path, cut=False, precision=None):
+    """A PointPillars config as a dict; ``precision`` overrides the reader's
+    and the neck's; ``cut``: the range (nuScenes: +-PP_CUT m; KITTI car,
+    whose range starts at x = 0: x in [0, 2 PP_CUT], y in +-PP_CUT), the
+    reader's, every anchor generator's and the post-center range, and the
+    pillar cap cut for phase 23 (PP_CUT_VOXELS)."""
+    from det3d_tpu_torch.utils.config import Config
+    cfg = Config.fromfile(path)
+    c = {k: copy.deepcopy(cfg[k]) for k in cfg.keys()}
+    if precision is not None:
+        c["model"]["reader"]["precision"] = precision
+        c["model"]["neck"]["precision"] = precision
+    if cut:
+        rng = c["voxel_generator"]["range"]
+        x0 = 0.0 if rng[0] == 0 else -PP_CUT
+        pc = [x0, -PP_CUT, rng[2], x0 + 2 * PP_CUT, PP_CUT, rng[5]]
+        c["voxel_generator"].update(range=pc, max_voxel_num=PP_CUT_VOXELS)
+        c["model"]["reader"]["pc_range"] = pc
+        for g in c["assigner"]["target_assigner"]["anchor_generators"]:
+            z = g["anchor_ranges"][2]
+            g["anchor_ranges"] = pc[:2] + [z] + pc[3:5] + [z]
+        c["test_cfg"]["post_center_limit_range"] = [
+            pc[0] - 5, pc[1] - 5, -10.0, pc[3] + 5, pc[4] + 5, 10.0]
+    return c
+
+
+def pp_scans(cfg, batch, points):
+    """Structured scans over the config's range (seed SEED); nuScenes' with
+    5 point features (cbgs_batch)."""
+    from det3d_tpu_torch.utils.synth import structured_batch
+    pc = cfg["voxel_generator"]["range"]
+    if cfg["model"]["reader"].get("num_input_features", 4) == 5:
+        return cbgs_batch(batch, points, pc)
+    return structured_batch(batch, points, pc, seed=SEED)
+
+
+@functools.lru_cache(maxsize=None)
+def pp_state(path):
+    """The weights of a PointPillars config (calibrated_state), calibrated
+    on the card in its bf16 on the first scan of its bench batch. Every
+    model of the config loads them, whatever its device and range."""
+    cfg = pp_config(path)
+    points = CBGS_POINTS if path == NUSC_PP_CFG else POINTS
+    return calibrated_state(cfg, pp_scans(cfg, 1, points), "cuda")
+
+
+def pp_stack(path, device, cut=False, precision=None):
+    return load_stack(pp_config(path, cut, precision), pp_state(path),
+                      device)
+
+
+def pp_predict(dev, path, batch, vox, shape, fed, label, min_labels=1):
+    """A PointPillars predict step through build_stack + make_predict_step
+    (sparse_predict: no window-conv launch), from the host voxels ``vox``
+    or, when it is empty, the device voxelizer. The NMS kernel must be
+    launched once, fed ``fed`` = (N, K, thr), and the valid detections
+    carry at least ``min_labels`` labels."""
+    stack, launches = sparse_predict(dev, pp_stack(path, dev), batch, vox,
+                                     shape, 0, label, min_labels)
+    if launches["rotated_nms_keep"] != 1:
+        raise AssertionError(f"{launches['rotated_nms_keep']} NMS launches, "
+                             f"expected 1")
+    return stack, launches, nms_fed(stack, fed, label)
+
+
+def phase_nusc_pp_voxels(dev, batch):
+    """nuScenes PointPillars' host voxels of the bench batch (appearance
+    order) and their time, the pillars before and after the cap, and the
+    device voxelizer on the card against them, array for array."""
+    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    from det3d_tpu_torch.ops import sparse_host as sph
+    model, vg = build_stack(pp_config(NUSC_PP_CFG), device="cpu")[:2]
+    vox_fn = host_plan_fn(model, vg, voxelize=True)
+    t0 = time.perf_counter()
+    vox = vox_fn(batch["points"], batch["num_points"])
+    host_ms = (time.perf_counter() - t0) * 1e3 / CBGS_B
+    occupied = []
+    for pts, n in zip(batch["points"], batch["num_points"]):
+        lin = sph.point_lin(pts, n, vg.voxel_size, vg.point_cloud_range,
+                            vg.grid_size)
+        occupied.append(len(np.unique(lin[lin != sph.SENTINEL])))
+    log(f"phase 21 nuScenes PointPillars host voxels B={CBGS_B} "
+        f"P={CBGS_POINTS} ({vg.order} order): {host_ms:.1f} ms/scan on the "
+        f"host (numpy, one process); pillars per scan {occupied} occupied, "
+        f"{vox['num_voxels'].tolist()} kept under the cap of "
+        f"{vg.max_voxels}; points per pillar capped at {vg.max_num_points} "
+        f"in {int((vox['num_points_per_voxel'] == vg.max_num_points).sum())}"
+        f" pillars")
+    with torch.no_grad():
+        out = vg.generate_batch(torch.as_tensor(batch["points"], device=dev),
+                                torch.as_tensor(batch["num_points"],
+                                                device=dev))
+    torch.cuda.synchronize()
+    for k, hk in (("voxels", "voxels"), ("coords", "coordinates"),
+                  ("num_points_per_voxel", "num_points_per_voxel"),
+                  ("num_voxels", "num_voxels")):
+        if not np.array_equal(out[k].cpu().numpy(), vox[hk]):
+            raise AssertionError(f"device voxelizer {k} differs from the "
+                                 f"host's")
+    log("phase 21 nuScenes PointPillars device voxelizer on the card "
+        "(appearance order): voxels, coords, counts and num_voxels equal "
+        "the host's")
+    return vox, host_ms
+
+
+def rel_l2(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm())
+
+
+def pp_card_vs_cpu(dev, path, label):
+    """Card against CPU at B=1 on one config's cut range (pp_config), full
+    widths, the same host voxels and weights on both sides:
+
+    - bf16 rounds at the same places: the reader, and each conv of the RPN
+      and head on the CPU's own bf16 inputs, within PP_LAYER_REL relative
+      L2 of the CPU's;
+    - the same function: with the reader and neck in fp32 on both sides,
+      every head within HEAD_TOL;
+    - the bf16 heads closer to the CPU's bf16 heads than those are to the
+      CPU's fp32 heads (their relative L2 printed: a rounding that one
+      side flips moves every later layer, so the whole model cannot be
+      held to one layer's limit);
+    - the CPU post-processing of the card's bf16 heads gives the card's
+      detections (check_decode)."""
+    one = pp_scans(pp_config(path, cut=True), 1, PP_CUT_POINTS)
+    card, vg, asg, _, test_cfg, vox_fn = pp_stack(path, dev, cut=True)
+    cpu = pp_stack(path, "cpu", cut=True)[0]
+    data = dict(one, **vox_fn(one["points"], one["num_points"]))
+    with torch.no_grad():
+        ex_d, heads_d = heads_on(card, vg, asg, data, dev)
+        ex_c, heads_c = heads_on(cpu, vg, asg, data, "cpu")
+        args = [ex_c[k] for k in ("voxels", "num_points_per_voxel",
+                                  "coordinates")]
+        feats = cpu.reader(*args)
+        layer = {"reader": rel_l2(card.reader(*[a.to(dev) for a in args]),
+                                  feats)}
+        canvas = cpu.backbone(feats, args[2], cpu.grid_size)
+        for i, (fn, x, w, a, kw) in enumerate(conv_calls(
+                lambda: cpu.bbox_head(cpu.neck(canvas)))):
+            a_d = [t.to(dev) if torch.is_tensor(t) else t for t in a]
+            layer[f"conv {i} {tuple(w.shape)}"] = rel_l2(
+                fn(x.to(dev), w.to(dev), *a_d, **kw), fn(x, w, *a, **kw))
+        worst = max(layer, key=layer.get)
+        log(f"{label} card vs CPU, each layer on the CPU's bf16 inputs: "
+            f"{len(layer)} layers, the largest relative L2 {layer[worst]:.3e}"
+            f" ({worst}; limit {PP_LAYER_REL})")
+        if layer[worst] >= PP_LAYER_REL:
+            raise AssertionError(f"{label} {worst}: card vs CPU relative L2 "
+                                 f"{layer[worst]}")
+        fp32_d = heads_on(pp_stack(path, dev, True, "fp32")[0], vg, asg,
+                          data, dev)[1]
+        fp32_c = heads_on(pp_stack(path, "cpu", True, "fp32")[0], vg, asg,
+                          data, "cpu")[1]
+    err32, bf16, scale = 0.0, 0.0, float("inf")
+    for hd, hc, fd, fc in zip(heads_d, heads_c, fp32_d, fp32_c):
+        for k in hc:
+            err32 = max(err32, float((fd[k].cpu() - fc[k]).abs().max()))
+            if not torch.allclose(fd[k].cpu(), fc[k], **HEAD_TOL):
+                raise AssertionError(f"{label} fp32 head {k}: card vs CPU "
+                                     f"max err {err32}")
+            bf16 = max(bf16, rel_l2(hd[k], hc[k]))
+            scale = min(scale, rel_l2(hc[k], fc[k]))
+    log(f"{label} card vs CPU B=1 ({int(data['num_voxels'][0])} pillars): "
+        f"the fp32 trunk's heads max abs err {err32:.3e} (tolerance "
+        f"rtol={HEAD_TOL['rtol']} atol={HEAD_TOL['atol']}); the bf16 heads "
+        f"relative L2 {bf16:.3e}, below the CPU's bf16 heads' smallest "
+        f"distance from its fp32 heads, {scale:.3e}")
+    if bf16 >= scale:
+        raise AssertionError(f"{label} bf16 heads: card vs CPU {bf16}, "
+                             f"CPU bf16 vs fp32 {scale}")
+    with torch.no_grad():
+        det_d = card.predict(ex_d, heads_d, test_cfg)
+        det_c = cpu.predict(ex_c, [{k: v.cpu() for k, v in h.items()}
+                                   for h in heads_d], test_cfg)
+    log(f"{label} CPU post-processing of the card's bf16 heads: "
+        f"{check_decode(det_d, det_c, label)}")
+
+
+def phase_pp_cpu(dev):
+    """Phase 23: pp_card_vs_cpu for both configs."""
+    for path, name in ((KITTI_PP_CFG, "KITTI car"), (NUSC_PP_CFG,
+                                                     "nuScenes")):
+        rng = pp_config(path, cut=True)["voxel_generator"]["range"]
+        pp_card_vs_cpu(dev, path, f"phase 23 {name} PointPillars over x "
+                       f"{rng[0]:g}..{rng[3]:g}, y {rng[1]:g}..{rng[4]:g} m,")
+
+
+def conv_calls(run):
+    """The 2-D convolutions one ``run()`` issues: [(fn, x, weight, kwargs)],
+    caught at torch.nn.functional (the RPN, the heads)."""
+    F = torch.nn.functional
+    seen, real = [], {n: getattr(F, n) for n in ("conv2d",
+                                                 "conv_transpose2d")}
+
+    def spy(name):
+        def fn(x, w, *args, **kw):
+            seen.append((real[name], x, w, args, kw))
+            return real[name](x, w, *args, **kw)
+        return fn
+    try:
+        for name in real:
+            setattr(F, name, spy(name))
+        run()
+    finally:
+        for name, fn in real.items():
+            setattr(F, name, fn)
+    return seen
+
+
+def conv_table(run, smi, label):
+    """Each distinct 2-D conv shape of ``run()`` timed alone (cuda_ms), its
+    count, achieved TFLOP/s and share of the dtype's peak; the sum."""
+    def plain(v):
+        return tuple(v.shape) if torch.is_tensor(v) else v
+
+    shapes = {}
+    with torch.no_grad():
+        calls = conv_calls(run)
+    for fn, x, w, args, kw in calls:
+        key = (fn.__name__, tuple(x.shape), tuple(w.shape), str(x.dtype),
+               tuple(map(plain, args)), tuple(sorted(kw.items())))
+        shapes.setdefault(key, [fn, x, w, args, kw, 0])[5] += 1
+    total = 0.0
+    for (name, xs, ws, dt, _, _), (fn, x, w, args, kw, n) in shapes.items():
+        with torch.no_grad():
+            y = fn(x, w, *args, **kw)
+            ms = cuda_ms(lambda: fn(x, w, *args, **kw))
+        macs = (x.numel() * w.shape[1] * w[0, 0].numel()
+                if name == "conv_transpose2d"
+                else y.numel() * w.shape[1] * w[0, 0].numel())
+        peak = BF16_FLOPS if x.dtype == torch.bfloat16 else FP32_FLOPS
+        total += n * ms
+        log(f"{label} conv {name} {dt.split('.')[-1]} x{n}: in {xs} weight "
+            f"{ws} out {tuple(y.shape)}: {ms:.4f} ms, "
+            f"{2 * macs / ms / 1e9:.2f} TFLOP/s, "
+            f"{2 * macs / ms / 1e9 / (peak / 1e12):.4f} of peak [{smi}]")
+    log(f"{label} convs of the RPN and head: {total:.3f} ms summed over "
+        f"{sum(v[5] for v in shapes.values())} calls")
+
+
+def pp_timing(dev, stack, host_ms, nms_in, smi, label):
+    """A PointPillars predict step's time (CUDA events, WARMUP warm-ups,
+    median of REPEAT), scans/s, peak memory; its stages (the device
+    voxelizer, reader + scatter, RPN + head, decode + NMS); with host
+    voxels (``host_ms``) the host voxelization apart and the
+    device-voxelized route of the same step; each conv shape of the RPN
+    and head; the NMS kernel on the step's own inputs against its plain
+    twin (a call). Returns the NMS times."""
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    from det3d_tpu_torch.parallel.predict import build_example
+    model, vg, asg, test_cfg, step, data = stack
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    pts = {k: data_d[k] for k in ("points", "num_points")}
+    b = pts["points"].shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    predict_ms = cuda_ms(lambda: step(data_d))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    host = (f"; host voxelization {host_ms:.1f} ms/scan apart"
+            if host_ms else " (the device voxelizer inside)")
+    log(f"{label} predict B={b}: {predict_ms:.3f} ms/batch, "
+        f"{predict_ms / b:.3f} ms/scan, {b * 1e3 / predict_ms:.1f} scans/s, "
+        f"peak memory {peak:.0f} MiB{host} [{smi}]")
+    if host_ms:
+        dev_ms = cuda_ms(lambda: step(pts))
+        log(f"{label} predict B={b}, the device-voxelized route of the same "
+            f"step: {dev_ms:.3f} ms/batch, {dev_ms / b:.3f} ms/scan")
+    with torch.no_grad():
+        ex = build_example(data_d, vg, asg)
+        args = (ex["voxels"], ex["num_points_per_voxel"], ex["coordinates"])
+        canvas = model.backbone(model.reader(*args), ex["coordinates"],
+                                model.grid_size)
+        heads = model.bbox_head(model.neck(canvas))
+        stages = {
+            "voxelize (device)": lambda: vg.generate_batch(
+                pts["points"], pts["num_points"]),
+            "reader+scatter": lambda: model.backbone(
+                model.reader(*args), ex["coordinates"], model.grid_size),
+            "rpn+head": lambda: model.bbox_head(model.neck(canvas)),
+            "decode+nms": lambda: model.predict(ex, heads, test_cfg),
+        }
+        parts = {k: cuda_ms(fn) for k, fn in stages.items()}
+    log(f"{label} stages B={b} (ms/batch): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in parts.items()))
+    conv_table(lambda: model.bbox_head(model.neck(canvas)), smi, label)
+    c, a, v, thr = nms_in
+    nms = interleaved_ms({
+        "plain": lambda: rotated_nms_keep_ref(c, a, v, thr),
+        "kernel": lambda: rotated_nms_keep(c, a, v, thr)})
+    log(f"{label} rotated NMS keep on the step's inputs N={c.shape[0]} "
+        f"K={c.shape[1]} thr {thr}: kernel {nms['kernel']:.4f} ms a call "
+        f"from Python interleaved with the plain twin (device time: phase "
+        f"13), plain {nms['plain']:.4f} ms [{smi}]")
+    return nms
 
 
 def conv_timing_main(tree):
@@ -1536,15 +1903,36 @@ def main():
     cbgs_conv, cbgs_nms = phase_cbgs_timing(dev, cbgs_stack_, cbgs_plan_ms,
                                             cbgs_in, smi)
 
+    # PointPillars as shipped: KITTI car on the flagship's batch through the
+    # device voxelizer, nuScenes on CBGS's batch (the same range and
+    # features) from host voxels
+    kitti_stack, kitti_launches, kitti_in = pp_predict(
+        dev, KITTI_PP_CFG, batch, {}, (B, 100, 7), (B, 1000, IOU_THR),
+        "phase 20 KITTI car PointPillars (bf16)")
+    nusc_vox, nusc_host_ms = phase_nusc_pp_voxels(dev, cbgs_data)
+    nusc_stack, nusc_launches, nusc_in = pp_predict(
+        dev, NUSC_PP_CFG, cbgs_data, nusc_vox, (CBGS_B, NUSC_PP_DETS, 9),
+        (CBGS_B * 6, 1000, NUSC_PP_NMS_THR),
+        "phase 22 nuScenes PointPillars (bf16)", min_labels=2)
+    phase_pp_cpu(dev)
+    pp_timing(dev, kitti_stack, None, kitti_in, smi,
+              "phase 24 KITTI car PointPillars")
+    nusc_nms = pp_timing(dev, nusc_stack, nusc_host_ms, nusc_in, smi,
+                         "phase 24 nuScenes PointPillars")
+
     # torch.profiler after every step is timed; the inputs the three
     # predict steps feed the kernel beside the synthetic cases
     phase_profile(sec_stack, dev, smi)
     phase_profile(cbgs_stack_, dev, smi, steps=3, label="phase 19 CBGS",
                   batch=CBGS_B)
+    phase_profile(nusc_stack, dev, smi, label="phase 25 nuScenes "
+                  "PointPillars", batch=CBGS_B)
     step, data = sec_stack[4], sec_stack[5]
     steps_in = (("flagship step B=8", flagship_in),
                 ("SECOND step B=2", step_nms_inputs(lambda: step(data))),
-                ("CBGS step B=2", cbgs_in))
+                ("CBGS step B=2", cbgs_in),
+                ("KITTI car PointPillars step B=8", kitti_in),
+                ("nuScenes PointPillars step B=2", nusc_in))
     nms_dev = nms_timing(dev, smi, "phase 13", steps_in)
     nms_times["device"] = nms_dev["flagship N=8 K=1000"]["device"]
 
@@ -1557,9 +1945,19 @@ def main():
     log(f"rotated NMS bound on the CBGS step's inputs N=12 K=1000: "
         f"{cbgs_b_ms:.7f} ms ({cbgs_b_by}), {cbgs_all_ms:.7f} ms counting a "
         f"full IoU for every valid pair")
+    bounds = {}
+    for name, nms_in in (("kitti_pp", kitti_in), ("nusc_pp", nusc_in)):
+        bounds[name] = nms_bound(*nms_in[:3])
+        log(f"rotated NMS bound on the {name} step's inputs "
+            f"N={nms_in[0].shape[0]} K={nms_in[0].shape[1]}: "
+            f"{bounds[name][0]:.7f} ms ({bounds[name][1]}), "
+            f"{bounds[name][2]:.7f} ms counting a full IoU for every valid "
+            f"pair")
     by_path = {
         name: {"flagship": flagship[name], "second": launches[name],
-               "cbgs": cbgs_launches[name]}
+               "cbgs": cbgs_launches[name],
+               "kitti_pp": kitti_launches[name],
+               "nusc_pp": nusc_launches[name]}
         for name in ("rotated_nms_keep", "window_conv")}
     nms_src = dict(name="rotated_nms_keep", route="cuda",
                    source="det3d_tpu_torch/csrc/rotated_nms.cu",
@@ -1593,6 +1991,12 @@ def main():
         device_ms=cbgs_conv["device"], plain_ms=cbgs_conv["plain"],
         bound_ms=cbgs_conv["bound_ms"], bound_by=cbgs_conv["bound_by"],
         library_ms=None,
+    ), dict(
+        nms_src, path="nusc_pp", launches=nusc_launches["rotated_nms_keep"],
+        max_abs_err=float(nms_err), ms=nusc_nms["kernel"],
+        device_ms=nms_dev["nuScenes PointPillars step B=2"]["device"],
+        plain_ms=nusc_nms["plain"], bound_ms=bounds["nusc_pp"][0],
+        bound_by=bounds["nusc_pp"][1], library_ms=None,
     )]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,9 +96,10 @@ def build_stack(cfg, device="cuda"):
     asks for the CPU; "cuda" without a card raises) with the modules'
     default initial weights; load a state dict
     (``utils/convert.py::from_jax``) or call
-    ``models/builder.py::init_weights`` before serving. A reader or neck
-    with ``precision="bf16"`` raises NotImplementedError (the sparse
-    middle's ``serve_precision`` is ported).
+    ``models/builder.py::init_weights`` before serving. Readers, middles
+    and necks run in the precision their config gives (fp32 or bf16); the
+    voxelizer in the config's order ("appearance" when it sets none, as in
+    the JAX package).
     """
     vg_cfg = cfg["voxel_generator"]
     # mean readers get the fused-mean voxelizer unless the config opts out

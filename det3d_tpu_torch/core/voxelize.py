@@ -1,19 +1,25 @@
-"""Fixed-shape batched voxelization in torch, hashed voxel order.
+"""Fixed-shape batched voxelization in torch: hashed and appearance voxel
+orders.
 
-Port of det3d_tpu/core/voxelize.py (``VoxelGenerator`` with
-``order="hashed"``): quantize points to linear voxel ids, stable-sort them by
-(mix32(id), id) so each voxel's points are contiguous and keep their
-original order, find segment heads, and scatter points into a
-(max_voxels, max_points, C) buffer, dropping overflow. The reference vmaps
-one cloud at a time; here the batch dimension is written out.
+Port of det3d_tpu/core/voxelize.py (``VoxelGenerator``'s buffer path,
+``voxelize``): quantize points to linear voxel ids, stable-sort them so
+each voxel's points are contiguous and keep their original order, find
+segment heads, and scatter points into a (max_voxels, max_points, C)
+buffer, dropping overflow. The reference vmaps one cloud at a time; here
+the batch dimension is written out.
 
-The device voxelizer covers the hashed order. ``VoxelGenerator`` also
-takes ``order="yxz"`` and ``fuse_mean=True`` (SECOND's configuration):
-those configurations are voxelized on the host (ops/voxelize_host.py,
-through apis/train.py::host_plan_fn), and ``generate_batch`` raises for
-them. "appearance" is taken only with ``fuse_mean`` (CBGS's
-configuration), whose effective order is "hashed", as in the JAX
-package; without the fused mean it raises NotImplementedError.
+- ``order="hashed"`` sorts by (mix32(id), id): voxel rows in hash order,
+  and an overflow keeps a uniform pseudo-random subset of the voxels.
+- ``order="appearance"`` (the JAX package's default) sorts by id and
+  ranks the voxels by their first point: rows in first-come order, and an
+  overflow keeps the voxels that appear first, as the reference's numba
+  voxelizer does.
+
+``VoxelGenerator`` also takes ``order="yxz"`` and ``fuse_mean=True``
+(SECOND's and CBGS's configurations): those are voxelized on the host
+(ops/voxelize_host.py, through apis/train.py::host_plan_fn), and
+``generate_batch`` raises for them. With the fused mean, "appearance"
+voxelizes in hashed order, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -135,6 +141,65 @@ def voxelize_hashed(points, num_points, *, voxel_size, pc_range, grid_size,
     }
 
 
+def voxelize_appearance(points, num_points, *, voxel_size, pc_range,
+                        grid_size, max_voxels: int, max_points: int):
+    """Voxelize a batch of padded clouds in appearance (first-come) voxel
+    order; the same arguments and outputs as ``voxelize_hashed``.
+
+    A stable sort by voxel id keeps each voxel's points in input order, so
+    a segment's head holds its first point. The segments are ranked by
+    that point (a second stable sort; segment ids that no point maps to
+    hold SENTINEL and rank last), and the rank is the voxel's row."""
+    b, p, c = points.shape
+    gx, gy, _ = grid_size
+    dev = points.device
+    v_cap, t_cap = int(max_voxels), int(max_points)
+    lin = quantize(points, num_points, voxel_size, pc_range, grid_size)
+
+    sorted_lin, perm = torch.sort(lin, dim=1, stable=True)
+    pos = torch.arange(p, device=dev).expand(b, p)
+    svalid = sorted_lin != SENTINEL
+    head = svalid.clone()
+    head[:, 1:] &= sorted_lin[:, 1:] != sorted_lin[:, :-1]
+    seg_id = torch.clamp(torch.cumsum(head.to(torch.int64), dim=1) - 1, min=0)
+    start = torch.cummax(torch.where(head, pos, 0), dim=1).values
+    slot_p = pos - start
+
+    # first original point of each segment (column p takes the non-heads)
+    first = torch.full((b, p + 1), SENTINEL, dtype=torch.int64, device=dev)
+    first.scatter_(1, torch.where(head, seg_id, p), perm)
+    appear = torch.sort(first[:, :p], dim=1, stable=True).indices
+    seg_rank = torch.empty_like(appear).scatter_(1, appear, pos)
+    slot_v = torch.gather(seg_rank, 1, seg_id)
+
+    write = svalid & (slot_v < v_cap) & (slot_p < t_cap)
+    row = torch.arange(b, device=dev)[:, None] * v_cap + slot_v   # (B, P)
+    sorted_pts = torch.gather(points, 1, perm[..., None].expand(b, p, c))
+    voxels = scatter_rows(sorted_pts, row * t_cap + slot_p, write,
+                          b * v_cap * t_cap).view(b, v_cap, t_cap, c)
+    counts = torch.zeros(b, v_cap + 1, dtype=torch.int64, device=dev)
+    counts.scatter_add_(1, torch.where(write, slot_v, v_cap),
+                        write.to(torch.int64))
+
+    safe = torch.where(svalid, sorted_lin, 0)
+    zyx = torch.stack([safe // (gx * gy), (safe // gx) % gy, safe % gx], -1)
+    table = scatter_rows(zyx, row, head & (slot_v < v_cap),
+                         b * v_cap).view(b, v_cap, 3)
+    num_voxels = torch.clamp(head.sum(dim=1), max=v_cap)
+    vvalid = torch.arange(v_cap, device=dev)[None, :] < num_voxels[:, None]
+    coords = torch.where(vvalid[..., None], table, -1)
+    return {
+        "voxels": voxels,
+        "coords": coords.to(torch.int32),
+        "num_points_per_voxel": counts[:, :v_cap].to(torch.int32),
+        "num_voxels": num_voxels.to(torch.int32),
+    }
+
+
+_DEVICE_ORDERS = {"hashed": voxelize_hashed,
+                  "appearance": voxelize_appearance}
+
+
 @dataclass(frozen=True)
 class VoxelGenerator:
     """Config-level voxelizer. Port of voxelize.py::VoxelGenerator.
@@ -149,12 +214,9 @@ class VoxelGenerator:
     fuse_mean: bool = False
 
     def __post_init__(self):
-        if self.order not in ("hashed", "yxz") and not (
-                self.order == "appearance" and self.fuse_mean):
-            raise NotImplementedError(
-                f"voxel order {self.order!r} is not ported yet; use "
-                "'hashed' or 'yxz' (or 'appearance' with fuse_mean, "
-                "which voxelizes in hashed order)")
+        if self.order not in ("hashed", "yxz", "appearance"):
+            raise ValueError(f"voxel order {self.order!r}: expected "
+                             "'hashed', 'yxz' or 'appearance'")
 
     @property
     def effective_order(self) -> str:
@@ -181,15 +243,16 @@ class VoxelGenerator:
         return tuple(int(v) for v in g)
 
     def generate_batch(self, points, num_points):
-        """(B, P, C) padded clouds and (B,) counts -> voxelize_hashed's dict.
-        Only the hashed buffer path runs on the device; the others raise
-        (voxelize them on the host, ops/voxelize_host.py)."""
-        if self.order != "hashed" or self.fuse_mean:
+        """(B, P, C) padded clouds and (B,) counts -> voxelize_hashed's
+        dict. The hashed and appearance buffer paths run on the device;
+        yxz and the fused mean raise (voxelize them on the host,
+        ops/voxelize_host.py)."""
+        if self.order not in _DEVICE_ORDERS or self.fuse_mean:
             raise NotImplementedError(
                 f"device voxelization with order={self.order!r}, "
                 f"fuse_mean={self.fuse_mean} is not ported; voxelize on "
                 "the host (apis/train.py::host_plan_fn(voxelize=True))")
-        return voxelize_hashed(
+        return _DEVICE_ORDERS[self.order](
             points, num_points,
             voxel_size=tuple(float(v) for v in self.voxel_size),
             pc_range=tuple(float(v) for v in self.point_cloud_range),

@@ -17,6 +17,7 @@ import math
 from typing import Any, Dict, List, Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from det3d_tpu_torch.models.registry import HEADS
@@ -24,8 +25,23 @@ from det3d_tpu_torch.ops import nms as nms_ops
 from det3d_tpu_torch.core import box_ops
 
 
+def conv1x1(conv: nn.Conv2d, x):
+    """A head's 1x1 conv in x's dtype, its fp32 output. fp32 runs the
+    module's own conv (the bias inside the one call). In bf16 the weight
+    and the bias are cast for the call and the bias adds to the conv's
+    bf16-rounded output, as flax's Conv does; the sum is rounded to bf16,
+    then cast to fp32."""
+    if x.dtype == torch.float32:
+        return conv(x)
+    y = F.conv2d(x, conv.weight.to(x.dtype)) + conv.bias.to(x.dtype)[:, None,
+                                                                    None]
+    return y.float()
+
+
 class TaskHead(nn.Module):
-    """Per-task 1x1 convs for box, class and direction predictions."""
+    """Per-task 1x1 convs for box, class and direction predictions. The
+    convs run in the input's dtype and every prediction leaves in fp32
+    (decode and NMS run in fp32, whatever precision the trunk ran in)."""
 
     def __init__(self, in_channels: int, num_pred: int, num_cls: int,
                  num_dir: int = 0):
@@ -35,11 +51,12 @@ class TaskHead(nn.Module):
         self.conv_dir = nn.Conv2d(in_channels, num_dir, 1) if num_dir else None
 
     def forward(self, x):
-        """x: NCHW view -> dict of NHWC predictions."""
-        ret = {"box_preds": self.conv_box(x).permute(0, 2, 3, 1),
-               "cls_preds": self.conv_cls(x).permute(0, 2, 3, 1)}
+        """x: NCHW view -> dict of NHWC fp32 predictions."""
+        ret = {"box_preds": conv1x1(self.conv_box, x).permute(0, 2, 3, 1),
+               "cls_preds": conv1x1(self.conv_cls, x).permute(0, 2, 3, 1)}
         if self.conv_dir is not None:
-            ret["dir_cls_preds"] = self.conv_dir(x).permute(0, 2, 3, 1)
+            ret["dir_cls_preds"] = conv1x1(self.conv_dir,
+                                           x).permute(0, 2, 3, 1)
         return ret
 
 

@@ -10,6 +10,11 @@ NCHW views of channels-last memory (a permute, no copy), which is the
 layout the convolutions take natively. A 3x3 conv that narrows a map of
 more than CIN_CHUNK channels runs as a sum of convs over CIN_CHUNK-channel
 slices of its input (``stage_conv``).
+
+The trunk runs in the activation dtype of ``precision``, as the JAX
+package's does: the input is cast to it, every conv and transposed conv
+takes its fp32 weight cast to it for the call, every BN rounds its output
+to it, and the branches concatenate in it. In fp32 the casts are no-ops.
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from det3d_tpu_torch.models.norm import build_norm, check_precision
+from det3d_tpu_torch.models.norm import build_norm
+from det3d_tpu_torch.models.precision import act_dtype
 from det3d_tpu_torch.models.registry import NECKS
 
 
@@ -33,12 +39,13 @@ CIN_CHUNK = 128
 
 
 def stage_conv(conv: nn.Conv2d, x):
-    """``conv(x)``; when the conv narrows a map of more than CIN_CHUNK
-    channels, the sum of the convs of CIN_CHUNK-channel input slices."""
+    """``conv(x)`` in x's dtype (the weight cast to it); when the conv
+    narrows a map of more than CIN_CHUNK channels, the sum of the convs of
+    CIN_CHUNK-channel input slices."""
     cin = conv.in_channels
+    w = conv.weight.to(x.dtype)
     if cin <= max(CIN_CHUNK, conv.out_channels):
-        return conv(x)
-    w = conv.weight
+        return F.conv2d(x, w, stride=conv.stride, padding=conv.padding)
     return sum(F.conv2d(x[:, i:i + CIN_CHUNK], w[:, i:i + CIN_CHUNK],
                         stride=conv.stride, padding=conv.padding)
                for i in range(0, cin, CIN_CHUNK))
@@ -56,7 +63,7 @@ class RPN(nn.Module):
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
                  name_str: str = "rpn"):
         super().__init__()
-        check_precision(precision)
+        self.dtype = act_dtype(precision)
         us_start = len(layer_nums) - len(us_layer_strides)
         # (conv, bn) name pairs in call order, per stage, then the branch
         self.stages = []
@@ -71,7 +78,8 @@ class RPN(nn.Module):
                 self.add_module(f"{name}_conv", nn.Conv2d(
                     in_ch if j == 0 else out_ch, out_ch, 3, stride=stride,
                     padding=1, bias=False))
-                self.add_module(f"{name}_bn", build_norm(norm_cfg, out_ch))
+                self.add_module(f"{name}_bn",
+                                build_norm(norm_cfg, out_ch, self.dtype))
             self.stages.append(names)
             in_ch = out_ch
             k = i - us_start
@@ -89,8 +97,8 @@ class RPN(nn.Module):
                 conv = nn.Conv2d(out_ch, us_num_filters[k], s, stride=s,
                                  bias=False)
             self.add_module(name, conv)
-            self.add_module(f"deblock{k}_bn",
-                            build_norm(norm_cfg, us_num_filters[k]))
+            self.add_module(f"deblock{k}_bn", build_norm(
+                norm_cfg, us_num_filters[k], self.dtype))
             self.branches.append((name, f"deblock{k}_bn"))
 
     def _bn_relu(self, bn_name, x):
@@ -98,10 +106,18 @@ class RPN(nn.Module):
         y = getattr(self, bn_name)(x.permute(0, 2, 3, 1))
         return torch.relu(y).permute(0, 3, 1, 2)
 
+    def _branch(self, name, x):
+        conv = getattr(self, name)
+        w = conv.weight.to(x.dtype)
+        if isinstance(conv, nn.ConvTranspose2d):
+            return F.conv_transpose2d(x, w, stride=conv.stride)
+        return F.conv2d(x, w, stride=conv.stride)
+
     def forward(self, x):
-        """x: (B, H, W, C) -> (B, H', W', sum(us_num_filters)). The input
-        is cast to fp32 first (a bf16 middle may feed it)."""
-        x = x.float().permute(0, 3, 1, 2)
+        """x: (B, H, W, C) -> (B, H', W', sum(us_num_filters)), in the
+        activation dtype (the input is cast to it: a bf16 middle may feed
+        an fp32 RPN, a bf16 canvas a bf16 one)."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
         ups = []
         for names, branch in zip(self.stages, self.branches):
             for name in names:
@@ -109,7 +125,7 @@ class RPN(nn.Module):
                                   stage_conv(getattr(self, f"{name}_conv"), x))
             if branch is not None:
                 conv_name, bn_name = branch
-                ups.append(self._bn_relu(bn_name, getattr(self, conv_name)(x)))
+                ups.append(self._bn_relu(bn_name, self._branch(conv_name, x)))
         if ups:
             x = torch.cat(ups, dim=1)
         return x.permute(0, 2, 3, 1)

@@ -3,9 +3,10 @@
 Port of det3d_tpu/models/norm.py::MaskedBatchNorm for serving: it
 normalizes the last axis with the running statistics,
 ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, in the reference's
-order of operations, in fp32, and returns ``dtype`` (fp32 unless a bf16
-epilogue asks for bf16). In eval the mask plays no part. Batch statistics, the
-mask and the synced variant wait for the training port.
+order of operations, in fp32, and returns ``dtype``: the layer's
+activation dtype (bf16 in a bf16 reader, neck or dense epilogue). In eval
+the mask plays no part. Batch statistics, the mask and the synced variant
+wait for the training port.
 """
 
 from __future__ import annotations
@@ -47,9 +48,3 @@ def build_norm(norm_cfg: Optional[dict], num_features: int,
     return MaskedBatchNorm(num_features, eps=float(cfg.get("eps", 1e-3)),
                            dtype=dtype)
 
-
-def check_precision(precision: str) -> None:
-    """Only fp32 is ported; bf16 raises rather than quietly running fp32."""
-    if str(precision).lower() not in ("fp32", "float32"):
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (fp32 only)")

@@ -2,8 +2,14 @@
 (decorated points, linear + BN + ReLU, pillar max).
 
 Port of det3d_tpu/models/readers.py (``paddings_indicator``,
-``VoxelFeatureExtractorV3``, ``PFNLayer``, ``PillarFeatureNet``). Inputs keep the reference's batched, padded layout:
-voxels (B, V, T, C), per-voxel point counts (B, V), zyx coords (B, V, 3).
+``VoxelFeatureExtractorV3``, ``PFNLayer``, ``PillarFeatureNet``). Inputs
+keep the reference's batched, padded layout: voxels (B, V, T, C),
+per-voxel point counts (B, V), zyx coords (B, V, 3). With
+``precision="bf16"`` the decorations are computed in the voxels' fp32 and
+every PFN layer runs in bf16, as the JAX package serves it: the linear's
+input and its fp32 weight are cast to bf16 for the call, the BN rounds its
+output to bf16, and the ReLU, the pillar max and the empty-pillar mask
+stay in bf16.
 """
 
 from __future__ import annotations
@@ -11,9 +17,11 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from det3d_tpu_torch.models.norm import build_norm, check_precision
+from det3d_tpu_torch.models.norm import build_norm
+from det3d_tpu_torch.models.precision import act_dtype
 from det3d_tpu_torch.models.registry import READERS
 
 
@@ -47,15 +55,17 @@ class PFNLayer(nn.Module):
     all but the last layer concatenate that max back onto every point."""
 
     def __init__(self, in_channels: int, units: int, last_layer: bool = False,
-                 norm_cfg: Optional[dict] = None):
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32"):
         super().__init__()
         self.last_layer = last_layer
+        self.dtype = act_dtype(precision)
         out = units if last_layer else units // 2
         self.linear = nn.Linear(in_channels, out, bias=False)
-        self.norm = build_norm(norm_cfg, out)
+        self.norm = build_norm(norm_cfg, out, dtype=self.dtype)
 
     def forward(self, x):
-        x = torch.relu(self.norm(self.linear(x)))           # (B, V, T, U)
+        x = F.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
+        x = torch.relu(self.norm(x))                         # (B, V, T, U)
         x_max = x.amax(dim=2, keepdim=True)                  # (B, V, 1, U)
         if self.last_layer:
             return x_max
@@ -76,7 +86,6 @@ class PillarFeatureNet(nn.Module):
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
                  name_str: str = "PillarFeatureNet"):
         super().__init__()
-        check_precision(precision)
         self.with_distance = with_distance
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.pc_range = tuple(float(v) for v in pc_range)
@@ -85,7 +94,8 @@ class PillarFeatureNet(nn.Module):
         self.num_layers = len(filters)
         for i, units in enumerate(filters):
             last = i == len(filters) - 1
-            self.add_module(f"pfn_{i}", PFNLayer(in_ch, units, last, norm_cfg))
+            self.add_module(f"pfn_{i}", PFNLayer(in_ch, units, last, norm_cfg,
+                                                 precision))
             in_ch = units
 
     def forward(self, voxels, num_points, coors):

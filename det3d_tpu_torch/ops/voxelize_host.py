@@ -1,12 +1,13 @@
 """Host-side (numpy) voxelization, the serving path's data plane.
 
-Port of det3d_tpu/ops/voxelize_host.py for the sorted voxel orders
-("hashed", "yxz") and the fused-mean path, in numpy. The serving process
-voxelizes on the CPU, beside the rulebook plan (ops/sparse_host.py), and
-the device step takes the voxels as they are (parallel/predict.py's
-build_example passthrough). The "appearance" order without the fused
-mean (with it, rows come in hashed order) and the JAX package's native
-C++ twin are not ported.
+Port of det3d_tpu/ops/voxelize_host.py in numpy: the sorted voxel orders
+("hashed", "yxz"), the fused-mean path, and the "appearance" (first-come)
+order of the buffer path (``_appearance``). The serving process voxelizes
+on the CPU, beside the rulebook plan (ops/sparse_host.py), and the device
+step takes the voxels as they are (parallel/predict.py's build_example
+passthrough). Every output equals the device voxelizer's
+(core/voxelize.py) array for array. The JAX package's native C++ twin is
+not ported.
 """
 
 from __future__ import annotations
@@ -36,17 +37,17 @@ def host_voxelize(points, num_points, *, voxel_size, pc_range, grid_size,
     """
     eff = ("yxz" if fuse_mean and order == "yxz" else
            "hashed" if fuse_mean else order)
-    if eff not in ("hashed", "yxz"):
-        raise NotImplementedError(f"host voxelization in order {order!r} "
-                                  "is not ported yet")
     pts = np.asarray(points, np.float32)
     if lin is None or perm is None:
         lin = sph.point_lin(pts, int(num_points), voxel_size, pc_range,
                             grid_size)
-        perm = sph.point_order(lin, grid_size, eff)
+        perm = (np.argsort(lin, kind="stable") if eff == "appearance"
+                else sph.point_order(lin, grid_size, eff))
     P, C = pts.shape
     gx, gy, _ = grid_size
     V, T = int(max_voxels), int(max_points)
+    if eff == "appearance":
+        return _appearance(pts, lin, perm, gx, gy, V, T)
 
     pos = np.arange(P, dtype=np.int64)
     slin = lin[perm].astype(np.int64)
@@ -86,6 +87,41 @@ def host_voxelize(points, num_points, *, voxel_size, pc_range, grid_size,
 
     voxels = np.zeros((V, T, C), np.float32)
     voxels[seg_id[write], slot_p[write]] = pts[perm][write]
+    return {"voxels": voxels, "coords": coords,
+            "num_points_per_voxel": counts, "num_voxels": num_voxels}
+
+
+def _appearance(pts, lin, perm, gx, gy, V, T):
+    """The appearance-ordered buffer path of one cloud, ``perm`` a stable
+    argsort of ``lin``: voxel rows in first-come order, ranked by each
+    segment's first point, which the stable sort puts at its head."""
+    P, C = pts.shape
+    pos = np.arange(P, dtype=np.int64)
+    slin = lin[perm].astype(np.int64)
+    svalid = slin != SENTINEL
+    head = svalid.copy()
+    head[1:] &= slin[1:] != slin[:-1]
+    seg_id = np.maximum(np.cumsum(head) - 1, 0)
+    start = np.maximum.accumulate(np.where(head, pos, 0))
+    slot_p = pos - start
+
+    first_pt = np.full(P, SENTINEL, np.int64)
+    first_pt[seg_id[head]] = perm[head]
+    seg_rank = np.empty(P, np.int64)
+    seg_rank[np.argsort(first_pt, kind="stable")] = pos
+    slot_v = seg_rank[seg_id]
+    write = svalid & (slot_v < V) & (slot_p < T)
+
+    voxels = np.zeros((V, T, C), np.float32)
+    voxels[slot_v[write], slot_p[write]] = pts[perm][write]
+    counts = np.bincount(slot_v[write], minlength=V).astype(np.int32)
+
+    safe = np.where(svalid, slin, 0)
+    hw = head & (slot_v < V)
+    coords = np.full((V, 3), -1, np.int32)
+    coords[slot_v[hw]] = np.stack([safe // (gx * gy), (safe // gx) % gy,
+                                   safe % gx], 1)[hw]
+    num_voxels = np.int32(min(int(head.sum()), V))
     return {"voxels": voxels, "coords": coords,
             "num_points_per_voxel": counts, "num_voxels": num_voxels}
 

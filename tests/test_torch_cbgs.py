@@ -221,8 +221,10 @@ def test_appearance_order_with_fused_mean_is_hashed():
             == JVoxelGenerator(fuse_mean=True, **kw).effective_order
             == "hashed")
     assert ours.host_kwargs()["order"] == "appearance"
-    with pytest.raises(NotImplementedError, match="appearance"):
-        VoxelGenerator(fuse_mean=False, **kw)
+    # without the fused mean the order is appearance itself
+    assert (VoxelGenerator(fuse_mean=False, **kw).effective_order
+            == JVoxelGenerator(fuse_mean=False, **kw).effective_order
+            == "appearance")
     model, vg = build_stack(cbgs_config(), device="cpu")[:2]
     assert vg.order == "appearance" and vg.fuse_mean
     assert not model.backbone.pre_ranked

@@ -17,7 +17,10 @@ sums in another order: fp32 (the CUDA-core kernel) within rtol = atol =
 the same bf16-rounded operands, within rtol = atol = 1e-3, at SECOND's
 shapes and on edge cases: ragged tiles, taps in one row of a tile, center
 taps at tile edges, windows past V, Cin from 4 to 128, unaligned features,
-and at CBGS's stem and transition at 60000 rows. TF32 is off.
+and at CBGS's stem and transition at 60000 rows. The NMS kernel is also
+held on the nuScenes PointPillars step's own inputs, and the appearance-
+order device voxelizer against its host twin at that step's 300000-point
+scans (exact: integer and copy operations). TF32 is off.
 """
 
 import numpy as np
@@ -281,6 +284,53 @@ def test_cbgs_fused_nms_equals_plain(dev):
     c, a, v, thr = step_nms_inputs(lambda: model.predict(ex, heads,
                                                          test_cfg))
     assert c.shape[:2] == (2 * len(cids), 1000) and thr == 0.2
+    keep = rotated_nms_keep(c, a, v, thr)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, rotated_nms_keep_ref(c, a, v, thr))
+    assert 0 < int(keep.sum()) < int(v.sum())
+
+
+def test_appearance_voxelizer_equals_host_twin_at_bench_size(dev):
+    """nuScenes PointPillars' voxelizer (appearance order, 30000 pillars of
+    20 points) on the card, on the bench row's B=2 x 300000 points, which
+    overflow the pillar cap: the host twin's voxels, coords, counts and
+    num_voxels, exactly."""
+    from chip_smoke import (CBGS_B, CBGS_POINTS, NUSC_PP_CFG, pp_config,
+                            pp_scans)
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.ops.voxelize_host import host_voxelize_batch
+    cfg = pp_config(NUSC_PP_CFG)
+    vg = build_stack(cfg, device="cpu")[1]
+    assert vg.order == "appearance" and not vg.fuse_mean
+    batch = pp_scans(cfg, CBGS_B, CBGS_POINTS)
+    out = vg.generate_batch(torch.as_tensor(batch["points"], device=dev),
+                            torch.as_tensor(batch["num_points"], device=dev))
+    torch.cuda.synchronize()
+    host = host_voxelize_batch(batch["points"], batch["num_points"], vg)
+    for k, hk in (("voxels", "voxels"), ("coords", "coordinates"),
+                  ("num_points_per_voxel", "num_points_per_voxel"),
+                  ("num_voxels", "num_voxels")):
+        np.testing.assert_array_equal(out[k].cpu().numpy(), host[hk],
+                                      err_msg=k)
+    assert (host["num_voxels"] == vg.max_voxels).all()
+
+
+def test_nms_on_nusc_pointpillars_step_inputs_equals_plain(dev):
+    """What the nuScenes PointPillars predict step (B=2 x 300000 points,
+    host voxels, bf16 reader and neck) feeds the NMS kernel: N = 2 x 6
+    samples of K = 1000 at thr 0.2, whose keep masks equal the plain
+    twin's."""
+    from chip_smoke import (CBGS_B, CBGS_POINTS, NUSC_PP_CFG, pp_config,
+                            pp_scans, pp_stack, step_nms_inputs)
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    from det3d_tpu_torch.parallel.predict import make_predict_step
+    batch = pp_scans(pp_config(NUSC_PP_CFG), CBGS_B, CBGS_POINTS)
+    model, vg, asg, cids, test_cfg, vox_fn = pp_stack(NUSC_PP_CFG, dev)
+    step = make_predict_step(model, vg, asg, cids, test_cfg)
+    data = dict(batch, **vox_fn(batch["points"], batch["num_points"]))
+    c, a, v, thr = step_nms_inputs(lambda: step(data))
+    assert c.shape[:2] == (CBGS_B * 6, 1000) and thr == 0.2
     keep = rotated_nms_keep(c, a, v, thr)
     torch.cuda.synchronize()
     assert torch.equal(keep, rotated_nms_keep_ref(c, a, v, thr))

@@ -82,8 +82,6 @@ def test_empty_cloud_and_unported_orders():
                              torch.tensor([0, 0], dtype=torch.int32))
     assert out["num_voxels"].tolist() == [0, 0]
     assert not out["voxels"].any() and (out["coords"] == -1).all()
-    with pytest.raises(NotImplementedError):
-        VoxelGenerator(order="appearance", **VG_KW)
     # yxz and the fused mean are voxelized on the host (SECOND's serving
     # path); the device voxelizer refuses them
     for kw in (dict(order="yxz"), dict(order="hashed", fuse_mean=True)):
