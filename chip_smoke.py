@@ -14,12 +14,14 @@ at DIR (by default this one): run them on two checkouts in turns on one
 card (parent, change, change, parent) to compare two versions of a
 kernel on the same yardsticks.
 
-The first form drives the port's five serving paths through the entry
+The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
 plans, both at KITTI-car scale, then CBGS from host plans at nuScenes
-scale, then PointPillars as shipped for KITTI car and nuScenes, all at
-full widths) and prints one line per phase, in the order 1 to 11, 14 to
-18, 20 to 24, 12, 19, 25, 13:
+scale, then PointPillars as shipped for KITTI car and nuScenes, then the
+two configs whose middles serve in fp32, Lyft CBGS and KITTI 3-class
+SECOND, from host plans, all at full widths) and prints one line per
+phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 12, 19, 25,
+36, 37, 13:
 
   1. device: the card, as nvidia-smi names it, and its power limit;
   2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
@@ -64,11 +66,11 @@ full widths) and prints one line per phase, in the order 1 to 11, 14 to
      post-processing of the card's heads gives the card's detections;
  11. SECOND timing: predict ms per scan at B=2 (device step; the host plan
      build printed apart), its stages, peak memory; each conv shape's and
-     the forward's 10 launches' kernel time, a call from Python, against
-     the plain version and the bound, in both precisions; in bf16 also
-     the device time (20 calls replayed from one CUDA graph, without the
-     host's launch overhead) with the achieved TB/s, TFLOP/s and share of
-     the bound, and the yardstick im2col+matmul (an im2col gather and one
+     the forward's 10 launches' kernel time, a call from Python and on the
+     device (20 calls replayed from one CUDA graph, without the host's
+     launch overhead) with the achieved TB/s, TFLOP/s and share of the
+     bound, against the plain version and the bound, in both precisions;
+     in bf16 also the yardstick im2col+matmul (an im2col gather and one
      torch.matmul, which the port never calls) timed both ways;
  14. CBGS host plan: configs/nusc_cbgs_voxelnet.py as shipped (0.1 x 0.1 x
      0.2 m voxels over +-51.2 m, 60000 voxels of 10 points, 5 point
@@ -123,16 +125,61 @@ full widths) and prints one line per phase, in the order 1 to 11, 14 to
      the device-voxelized route of the same step; each conv shape of the
      RPN and head alone (ms, TFLOP/s, share of the peak); the NMS kernel
      on the step's own inputs against its plain twin (a call);
+ 26. Lyft host plan: configs/lyft_cbgs_voxelnet.py as shipped (0.1 x 0.1 x
+     0.15 m voxels over +-100.8 m, 80000 voxels of 10 points, 5 point
+     features, SpMiddleResNetFHD with dense_from=2 and no serve_precision:
+     an fp32 middle; 5 tasks, 7 classes, 9-dim head; random weights from
+     torch.Generator().manual_seed(0), BatchNorm statistics calibrated in
+     fp32 on the card on one scan), the rulebooks and voxels of B=2
+     structured scans of 300000 points over the whole range, their build
+     time, and the voxels each scan occupies before the cap;
+ 27. window-conv kernel against plain on those plans in fp32 at each of
+     the middle's 11 layers, each on its own rows (rtol = atol = 1e-4);
+ 28. Lyft predict at B=2: boxes (2, 415, 9), finite, some valid with more
+     than one label, exactly 11 window-conv launches and 1 NMS launch, fed
+     N=10 K=1000 at thr 0.2; the transition to the dense tail, (2, 11,
+     504, 504, 64) fp32, gathered back at its coords on the card gives its
+     rows exactly and holds no other nonzero;
+ 29. Lyft card vs CPU at B=1 on the range cut to +-12.8 m (8000 voxels,
+     full widths), as phase 17; then the CPU post-processing of the
+     full-size card heads (scan 0 of phase 28's batch) against the card's;
+ 30. Lyft timing: predict ms per scan at B=2, its stages, the middle split
+     into its sparse part and its dense tail, peak memory, the host plan
+     apart; each conv3d of the dense tail and each 2-D conv of the RPN and
+     head alone (ms, TFLOP/s, share of the peak); each conv3d as one
+     cuDNN call, as 64-output-channel chunks (more output channels) and as
+     the port runs it (models/backbones.py::DenseConvBN.conv); each RPN
+     stage conv as one cuDNN call, as 128-channel chunks (more input
+     channels), one map at a time (B > 1) and as the port runs it
+     (models/necks.py::stage_conv); the fp32 window conv at each of Lyft's shapes and the
+     forward's 11 launches, a call from Python and on the device, against
+     the plain version and the bound; the NMS kernel on the step's own
+     inputs against its plain twin (a call);
+ 31. KITTI-all host plan: configs/kitti_all_second.py as shipped (SECOND's
+     grid, 20000 voxels of 5 points, yxz order, SpMiddleFHD with no
+     serve_precision: an fp32 middle; 3 tasks with a direction classifier
+     each; weights as phase 26's), on SECOND's B=2 x 16384-point scans;
+ 32. window-conv kernel against plain on those plans in fp32 at each of
+     the middle's 10 layers, as phase 27;
+ 33. KITTI-all predict at B=2: boxes (2, 100, 7), finite, some valid with
+     more than one label, exactly 10 window-conv launches and 1 NMS
+     launch, fed N=6 K=1000 at thr 0.01; the dense tail's canvas checked
+     as phase 28's;
+ 34. KITTI-all card vs CPU at B=1 over the full range, as phase 10;
+ 35. KITTI-all timing, as phase 30;
  12. SECOND profile: torch.profiler over 5 predict steps, device time by
      kernel (the window-conv kernels summed) and the device's busy share;
  19. CBGS profile, the same over 3 steps;
  25. nuScenes PointPillars profile, the same over 5 steps;
+ 36. Lyft profile, the same over 3 steps;
+ 37. KITTI-all profile, the same over 5 steps;
  13. the NMS kernel alone at the flagship's and SECOND's shapes, on one
-     cluster, and on the inputs the flagship, SECOND, CBGS and both
-     PointPillars predict steps feed it: the share of the pairs past its
-     cull, a call from Python, the device time by graph_ms (the JSON
-     line's device_ms), its two kernels under torch.profiler. Last, so
-     that no profiler session runs before a step is timed.
+     cluster, and on the inputs the flagship, SECOND, CBGS, both
+     PointPillars, Lyft and KITTI-all predict steps feed it: the share of
+     the pairs past its cull, a call from Python, the device time by
+     graph_ms (the JSON line's device_ms), its two kernels under
+     torch.profiler. Last, so that no profiler session runs before a step
+     is timed.
 
 TF32 is off throughout (cuDNN and matmul), so the card computes in full
 fp32 like the CPU, and cuBLAS's bf16 GEMMs reduce in fp32
@@ -143,8 +190,10 @@ the kernels (one entry per kernel over every path, with the flagship's
 NMS and SECOND's window-conv times and the launches of each path, then
 one per kernel with ``"path": "cbgs"`` at CBGS's shapes, then the NMS
 kernel with ``"path": "nusc_pp"`` on the nuScenes PointPillars step's
-inputs; ``ms``: a call from Python, interleaved with the plain version;
-``device_ms``: graph_ms) and the JSON result line. The NMS bound counts
+inputs, then the fp32 window conv and the NMS kernel with ``"path":
+"lyft"`` and ``"path": "kitti_all"``; ``ms``: a call from Python,
+interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
+result line. The NMS bound counts
 the work these inputs need (a distance test for every valid pair, a full
 IoU for the pairs past the cull); the all-pairs bound of earlier PRs is
 printed beside it.
@@ -226,6 +275,15 @@ NUSC_PP_NMS_THR = 0.2
 # every width as shipped
 PP_LAYER_REL = 5e-4
 PP_CUT, PP_CUT_VOXELS, PP_CUT_POINTS = 12.8, 8000, 40000
+
+# the two configs whose middles serve in fp32 (no serve_precision): Lyft
+# CBGS (CBGS's middle and window convs on a (41, 2016, 2016) grid, 80000
+# voxels; 5 tasks) and KITTI 3-class SECOND (SECOND's middle; 3 tasks with
+# direction classifiers)
+LYFT_CFG = (Path(__file__).resolve().parent / "configs"
+            / "lyft_cbgs_voxelnet.py")
+KITTI_ALL_CFG = (Path(__file__).resolve().parent / "configs"
+                 / "kitti_all_second.py")
 
 # H100 SXM published peaks: HBM bytes/s, fp32
 # CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s
@@ -904,15 +962,31 @@ def gather_ms(features, pad):
 # SECOND
 # ---------------------------------------------------------------------------
 
-def second_config(precision=None):
-    """configs/kitti_car_second.py as a dict; ``precision`` overrides the
-    middle's serve_precision."""
+def sparse_config(path, precision=None, cut=None):
+    """A sparse-middle config as a dict; ``precision`` overrides the
+    middle's serve_precision; ``cut`` = (extent, voxels): the range cut to
+    +-extent m in x and y (its z kept), every anchor generator's range
+    likewise, and the voxel cap cut to ``voxels``."""
     from det3d_tpu_torch.utils.config import Config
-    cfg = Config.fromfile(SECOND_CFG)
+    cfg = Config.fromfile(path)
     c = {k: copy.deepcopy(cfg[k]) for k in cfg.keys()}
     if precision is not None:
         c["model"]["backbone"]["serve_precision"] = precision
+    if cut is not None:
+        e, voxels = cut
+        rng = c["voxel_generator"]["range"]
+        c["voxel_generator"].update(range=[-e, -e, rng[2], e, e, rng[5]],
+                                    max_voxel_num=voxels)
+        for g in c["assigner"]["target_assigner"]["anchor_generators"]:
+            z = g["anchor_ranges"][2]
+            g["anchor_ranges"] = [-e, -e, z, e, e, z]
     return c
+
+
+def second_config(precision=None):
+    """configs/kitti_car_second.py as a dict; ``precision`` overrides the
+    middle's serve_precision."""
+    return sparse_config(SECOND_CFG, precision)
 
 
 def calibrate_norms(model, run):
@@ -1047,19 +1121,24 @@ def phase_second_plan(batch):
     return plan, plan_ms
 
 
-def phase_conv_kernel(dev, plan, layers=SECOND_LAYERS, label="phase 8"):
+def phase_conv_kernel(dev, plan, layers=SECOND_LAYERS, label="phase 8",
+                      precisions=("fp32", "bf16"), every_layer=False):
     """The window-conv kernel against its plain twin at every (Cin, Cout,
-    center_shift) of ``layers`` on ``plan``, in fp32 and bf16; SECOND's
-    phase also runs an all-absent plan. Returns the largest error."""
+    center_shift) of ``layers`` on ``plan`` (``every_layer``: at every
+    layer, each on its own rows), in ``precisions``; SECOND's phase also
+    runs an all-absent plan. Returns the largest error."""
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
     from det3d_tpu_torch.ops.sparse import unpack_windows
     worst = 0.0
-    n_shapes = len({layer[1:] for layer in layers})
-    for prec, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+    n_shapes = len(layers) if every_layer else len({layer[1:]
+                                                    for layer in layers})
+    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
+    for prec in precisions:
         seen = set()
-        for name, x, pk, w, subm in conv_cases(plan, dev, dtype, layers):
-            shape = name.split(" ")[1] + str(subm)
+        for i, (name, x, pk, w, subm) in enumerate(
+                conv_cases(plan, dev, dtypes[prec], layers)):
+            shape = i if every_layer else name.split(" ")[1] + str(subm)
             if shape in seen:
                 continue
             seen.add(shape)
@@ -1079,7 +1158,7 @@ def phase_conv_kernel(dev, plan, layers=SECOND_LAYERS, label="phase 8"):
         if len(seen) != n_shapes:
             raise AssertionError(f"expected {n_shapes} conv shapes, got "
                                  f"{seen}")
-    if layers is not SECOND_LAYERS:
+    if label != "phase 8":
         return worst
     x = torch.randn(SECOND_B, 20000, 16, device=dev)
     w = torch.randn(27, 16, 32, device=dev)
@@ -1236,7 +1315,7 @@ def step_timing(dev, stack, plan_ms, smi, label):
         }
         parts = {k: cuda_ms(fn) for k, fn in stages.items()}
     log(f"{label} stages B={b} (ms/batch): " + ", ".join(
-        f"{k} {v:.3f}" for k, v in parts.items()))
+        f"{k} {v:.3f}" for k, v in parts.items()) + f" [{smi}]")
     return mid
 
 
@@ -1251,13 +1330,13 @@ def phase_second_timing(dev, stack, plan_ms, smi):
 def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
                 label="phase 11"):
     """The window-conv timing on a middle's host plan in ``prec`` (phase
-    11: SECOND's; phase 18: CBGS's): at each (Cin, Cout, center_shift) of
-    ``layers`` and for the forward's launches, a call from Python
-    interleaved with the plain version, and the bound. In bf16 (what both
-    serve) also the device time (graph_ms) with the achieved rates and
-    share of the bound, and the yardstick im2col+matmul, timed both ways.
-    Returns the forward's times (``kernel``: a call; ``device``: bf16
-    only) and bound."""
+    11: SECOND's; phase 18: CBGS's; phases 30 and 35: Lyft's and
+    KITTI-all's, fp32): at each (Cin, Cout, center_shift) of ``layers`` and
+    for the forward's launches, a call from Python interleaved with the
+    plain version, the device time (graph_ms) with the achieved rates and
+    share of the bound, and the bound. In bf16 also the yardstick
+    im2col+matmul, timed both ways. Returns the forward's times
+    (``kernel``: a call; ``device``: graph_ms) and bound."""
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
@@ -1285,13 +1364,13 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
             f"{t['plain']:.4f} ms, bound {b_ms:.7f} ms ({b_by}; {rows} of "
             f"{x.shape[0] * x.shape[1]} input rows read, {taps} taps) "
             f"[{smi}]")
-        if not bf16:
-            continue
         dev_ms = graph_ms(fns["kernel"])
         log(f"{label}   kernel on the device {dev_ms:.4f} ms: achieved "
             f"{work[0] / dev_ms / 1e9:.3f} TB/s, "
             f"{work[1] / dev_ms / 1e9:.3f} TFLOP/s, "
-            f"{b_ms / dev_ms:.4f} of the bound")
+            f"{b_ms / dev_ms:.4f} of the bound [{smi}]")
+        if not bf16:
+            continue
         err = float((ys().float() - window_conv(x, pk, w, subm)).abs().max())
         if err > YARD_TOL:
             raise AssertionError(f"im2col+matmul [{prec} {name}] differs "
@@ -1313,11 +1392,10 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
                bound_ms=sum(bound(*wk)[0] for wk in work),
                bound_by="bytes" if all(bound(*wk)[1] == "bytes"
                                        for wk in work) else "operations")
+    fwd["device"] = graph_ms(fns["kernel"])
     line = (f"{label} window conv, the forward's {len(cases)} launches "
-            f"[{prec}]: kernel {t['kernel']:.4f} ms called from Python")
-    if bf16:
-        fwd["device"] = graph_ms(fns["kernel"])
-        line += f" ({fwd['device']:.4f} ms on the device)"
+            f"[{prec}]: kernel {t['kernel']:.4f} ms called from Python "
+            f"({fwd['device']:.4f} ms on the device)")
     line += (f", plain {t['plain']:.4f} ms, bound {fwd['bound_ms']:.7f} ms "
              f"({fwd['bound_by']})")
     if bf16:
@@ -1382,19 +1460,8 @@ def cbgs_config(precision=None, cut=False):
     """configs/nusc_cbgs_voxelnet.py as a dict; ``precision`` overrides the
     middle's serve_precision; ``cut``: the range, every anchor generator's
     range, the voxel cap cut for phase 17 (CBGS_CUT, CBGS_CUT_VOXELS)."""
-    from det3d_tpu_torch.utils.config import Config
-    cfg = Config.fromfile(CBGS_CFG)
-    c = {k: copy.deepcopy(cfg[k]) for k in cfg.keys()}
-    if precision is not None:
-        c["model"]["backbone"]["serve_precision"] = precision
-    if cut:
-        e = CBGS_CUT
-        c["voxel_generator"].update(range=[-e, -e, -5.0, e, e, 3.0],
-                                    max_voxel_num=CBGS_CUT_VOXELS)
-        for g in c["assigner"]["target_assigner"]["anchor_generators"]:
-            z = g["anchor_ranges"][2]
-            g["anchor_ranges"] = [-e, -e, z, e, e, z]
-    return c
+    return sparse_config(CBGS_CFG, precision,
+                         (CBGS_CUT, CBGS_CUT_VOXELS) if cut else None)
 
 
 def cbgs_batch(batch, points, pc_range, seed=SEED):
@@ -1468,12 +1535,19 @@ def phase_cbgs_cpu(dev, stack):
     (card_vs_cpu), then the CPU post-processing of the full-size card
     heads (the bf16 middle as served, scan 0 of the B=2 step's batch)
     against the card's."""
-    from det3d_tpu_torch.parallel.predict import build_example
     cut = cbgs_config(cut=True)["voxel_generator"]["range"]
     cpu_stack = cbgs_stack("cpu", "fp32", cut=True)
     card_vs_cpu(dev, cbgs_stack(dev, "fp32", cut=True), cpu_stack,
                 cbgs_batch(1, CBGS_CUT_POINTS, cut),
                 f"phase 17 CBGS at +-{CBGS_CUT} m, {CBGS_CUT_VOXELS} voxels,")
+    full_size_decode(dev, stack, cpu_stack[0], "phase 17 CBGS",
+                     "scan 0, bf16 middle")
+
+
+def full_size_decode(dev, stack, cpu_model, label, what):
+    """The CPU post-processing of the card's full-size heads on scan 0 of
+    ``stack``'s batch against the card's (check_decode)."""
+    from det3d_tpu_torch.parallel.predict import build_example
     model, vg, asg, test_cfg, _, data = stack
     data = {k: v[:1] for k, v in data.items()}
     with torch.no_grad():
@@ -1481,11 +1555,27 @@ def phase_cbgs_cpu(dev, stack):
         det_d = model.predict(ex_d, heads_d, test_cfg)
         ex_c = build_example({k: torch.as_tensor(v) for k, v in
                               data.items()}, vg, asg)
-        det_c = cpu_stack[0].predict(
+        det_c = cpu_model.predict(
             ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
             test_cfg)
-    log(f"phase 17 CBGS CPU post-processing of the full-size card heads "
-        f"(scan 0, bf16 middle): {check_decode(det_d, det_c, 'CBGS full')}")
+    log(f"{label} CPU post-processing of the full-size card heads ({what}):"
+        f" {check_decode(det_d, det_c, label + ' full')}")
+
+
+def step_nms_timing(nms_in, smi, label):
+    """The NMS kernel on a step's own inputs against its plain twin, a call
+    from Python each, in turns (the device time: phase 13)."""
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    c, a, v, thr = nms_in
+    nms = interleaved_ms({
+        "plain": lambda: rotated_nms_keep_ref(c, a, v, thr),
+        "kernel": lambda: rotated_nms_keep(c, a, v, thr)})
+    log(f"{label} rotated NMS keep on the step's inputs N={c.shape[0]} "
+        f"K={c.shape[1]} thr {thr}: kernel {nms['kernel']:.4f} ms a call "
+        f"from Python interleaved with the plain twin (device time: phase "
+        f"13), plain {nms['plain']:.4f} ms [{smi}]")
+    return nms
 
 
 def phase_cbgs_timing(dev, stack, plan_ms, nms_in, smi):
@@ -1494,8 +1584,6 @@ def phase_cbgs_timing(dev, stack, plan_ms, nms_in, smi):
     CBGS's shapes in bf16; the NMS kernel on the step's own inputs against
     its plain twin (a call)."""
     from det3d_tpu_torch.models.necks import CIN_CHUNK, stage_conv
-    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
-                                              rotated_nms_keep_ref)
     mid = step_timing(dev, stack, plan_ms, smi, "phase 18 CBGS")
     # the RPN's first conv, fp32 256 -> 128 channels on 128 x 128: one
     # cuDNN call against the 128-channel chunks the port runs
@@ -1514,15 +1602,7 @@ def phase_cbgs_timing(dev, stack, plan_ms, nms_in, smi):
 
     host_plan = {k: v for k, v in stack[5].items() if k.startswith("plan_")}
     conv = conv_timing(dev, host_plan, smi, "bf16", CBGS_LAYERS, "phase 18")
-    c, a, v, thr = nms_in
-    nms = interleaved_ms({
-        "plain": lambda: rotated_nms_keep_ref(c, a, v, thr),
-        "kernel": lambda: rotated_nms_keep(c, a, v, thr)})
-    log(f"phase 18 rotated NMS keep on the CBGS step's inputs N={c.shape[0]}"
-        f" K={c.shape[1]} thr {thr}: kernel {nms['kernel']:.4f} ms a call "
-        f"from Python interleaved with the plain twin (device time: phase "
-        f"13), plain {nms['plain']:.4f} ms [{smi}]")
-    return conv, nms
+    return conv, step_nms_timing(nms_in, smi, "phase 18 CBGS")
 
 
 # ---------------------------------------------------------------------------
@@ -1718,11 +1798,13 @@ def phase_pp_cpu(dev):
 
 
 def conv_calls(run):
-    """The 2-D convolutions one ``run()`` issues: [(fn, x, weight, kwargs)],
-    caught at torch.nn.functional (the RPN, the heads)."""
+    """The convolutions one ``run()`` issues: [(fn, x, weight, args,
+    kwargs)], caught at torch.nn.functional (the RPN's and the heads' 2-D
+    convs, the dense tail's conv3d)."""
     F = torch.nn.functional
     seen, real = [], {n: getattr(F, n) for n in ("conv2d",
-                                                 "conv_transpose2d")}
+                                                 "conv_transpose2d",
+                                                 "conv3d")}
 
     def spy(name):
         def fn(x, w, *args, **kw):
@@ -1739,8 +1821,8 @@ def conv_calls(run):
     return seen
 
 
-def conv_table(run, smi, label):
-    """Each distinct 2-D conv shape of ``run()`` timed alone (cuda_ms), its
+def conv_table(run, smi, label, what="convs of the RPN and head"):
+    """Each distinct conv shape of ``run()`` timed alone (cuda_ms), its
     count, achieved TFLOP/s and share of the dtype's peak; the sum."""
     def plain(v):
         return tuple(v.shape) if torch.is_tensor(v) else v
@@ -1766,7 +1848,7 @@ def conv_table(run, smi, label):
             f"{ws} out {tuple(y.shape)}: {ms:.4f} ms, "
             f"{2 * macs / ms / 1e9:.2f} TFLOP/s, "
             f"{2 * macs / ms / 1e9 / (peak / 1e12):.4f} of peak [{smi}]")
-    log(f"{label} convs of the RPN and head: {total:.3f} ms summed over "
+    log(f"{label} {what}: {total:.3f} ms summed over "
         f"{sum(v[5] for v in shapes.values())} calls")
 
 
@@ -1778,8 +1860,6 @@ def pp_timing(dev, stack, host_ms, nms_in, smi, label):
     device-voxelized route of the same step; each conv shape of the RPN
     and head; the NMS kernel on the step's own inputs against its plain
     twin (a call). Returns the NMS times."""
-    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
-                                              rotated_nms_keep_ref)
     from det3d_tpu_torch.parallel.predict import build_example
     model, vg, asg, test_cfg, step, data = stack
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
@@ -1815,15 +1895,351 @@ def pp_timing(dev, stack, host_ms, nms_in, smi, label):
     log(f"{label} stages B={b} (ms/batch): " + ", ".join(
         f"{k} {v:.3f}" for k, v in parts.items()))
     conv_table(lambda: model.bbox_head(model.neck(canvas)), smi, label)
-    c, a, v, thr = nms_in
-    nms = interleaved_ms({
-        "plain": lambda: rotated_nms_keep_ref(c, a, v, thr),
-        "kernel": lambda: rotated_nms_keep(c, a, v, thr)})
-    log(f"{label} rotated NMS keep on the step's inputs N={c.shape[0]} "
-        f"K={c.shape[1]} thr {thr}: kernel {nms['kernel']:.4f} ms a call "
-        f"from Python interleaved with the plain twin (device time: phase "
-        f"13), plain {nms['plain']:.4f} ms [{smi}]")
-    return nms
+    return step_nms_timing(nms_in, smi, label)
+
+
+# ---------------------------------------------------------------------------
+# Lyft CBGS and KITTI 3-class SECOND: fp32 middles
+# ---------------------------------------------------------------------------
+
+class Fp32Path:
+    """One of the two configs whose middle serves in fp32, as chip_smoke
+    drives it: its bench batch (``b`` scans of ``points`` points over the
+    config's range, ``five`` features), the window convs of its middle
+    (``layers``), the detections a step gives (``dets`` a scan), what the
+    step feeds the NMS kernel (``nms``: N, K, thr), the card-vs-CPU cut
+    (``cut``: extent, voxels, points; None: the full range at B=1), and
+    the numbers of its phases (plan, kernels, predict, card vs CPU,
+    timing, profile)."""
+
+    def __init__(self, key, name, cfg, points, five, layers, dets, nms, cut,
+                 phases, b=2):
+        self.key, self.name, self.cfg = key, name, cfg
+        self.points, self.five, self.layers = points, five, layers
+        self.dets, self.nms, self.cut, self.phases, self.b = (
+            dets, nms, cut, phases, b)
+
+    def label(self, i):
+        return f"phase {self.phases[i]} {self.name}"
+
+    def config(self, cut=False):
+        return sparse_config(self.cfg, cut=self.cut[:2] if cut else None)
+
+    def scans(self, batch, points, cut=False):
+        """Structured scans over the (cut) range (seed SEED), with the
+        config's point features (cbgs_batch's fifth, zero)."""
+        from det3d_tpu_torch.utils.synth import structured_batch
+        pc = self.config(cut)["voxel_generator"]["range"]
+        if self.five:
+            return cbgs_batch(batch, points, pc)
+        return structured_batch(batch, points, pc, seed=SEED)
+
+
+LYFT = Fp32Path("lyft", "Lyft CBGS", LYFT_CFG, 300000, True, CBGS_LAYERS,
+                5 * 83, (2 * 5, 1000, 0.2), (12.8, 8000, 40000),
+                (26, 27, 28, 29, 30, 36))
+KITTI_ALL = Fp32Path("kitti_all", "KITTI-all SECOND", KITTI_ALL_CFG, POINTS,
+                     False, SECOND_LAYERS, 100, (2 * 3, 1000, 0.01), None,
+                     (31, 32, 33, 34, 35, 37))
+
+
+@functools.lru_cache(maxsize=None)
+def fp32_state(path):
+    """The weights of ``path``'s config (calibrated_state), calibrated on
+    the card in fp32 (TF32 off) on the first scan of its bench batch. Every
+    model of the config loads them, whatever its device and range."""
+    return calibrated_state(path.config(), path.scans(1, path.points),
+                            "cuda")
+
+
+def fp32_stack(path, device, cut=False):
+    return load_stack(path.config(cut), fp32_state(path), device)
+
+
+def phase_fp32_plan(path, batch):
+    """The host plan and voxels of the bench batch, their build time, and
+    the voxels each scan occupies before the cap."""
+    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    from det3d_tpu_torch.ops import sparse_host as sph
+    model, vg = build_stack(path.config(), device="cpu")[:2]
+    plan_fn = host_plan_fn(model, vg, train=False, voxelize=True)
+    plan_fn(batch["points"][:1], batch["num_points"][:1])         # warm
+    t0 = time.perf_counter()
+    plan = plan_fn(batch["points"], batch["num_points"])
+    plan_ms = (time.perf_counter() - t0) * 1e3 / path.b
+    occupied = []
+    for pts, n in zip(batch["points"], batch["num_points"]):
+        lin = sph.point_lin(pts, n, vg.voxel_size, vg.point_cloud_range,
+                            vg.grid_size)
+        occupied.append(len(np.unique(lin[lin != sph.SENTINEL])))
+    log(f"{path.label(0)} host plan B={path.b} P={path.points}: "
+        f"{plan_ms:.1f} ms/scan on the host (numpy, one process); voxels "
+        f"per scan {occupied} occupied, {plan['num_voxels'].tolist()} kept "
+        f"under the cap of {vg.max_voxels}; stage rows "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in plan.items()
+                    if k.startswith("plan_")))
+    return plan, plan_ms
+
+
+def dense_scatter_check(run, label):
+    """The middle's transition to the dense tail on the card, caught at
+    ops/sparse.py::to_dense during ``run()``: gathered back at its coords,
+    the canvas gives the rows exactly, and it holds no other nonzero (so
+    no linear index wrapped on the way)."""
+    from det3d_tpu_torch.ops import sparse as sp
+    seen, real = [], sp.to_dense
+
+    def spy(features, coords, shape):
+        out = real(features, coords, shape)
+        seen.append((features, coords, out))
+        return out
+    sp.to_dense = spy
+    try:
+        run()
+    finally:
+        sp.to_dense = real
+    (features, coords, dense), = seen
+    keep = (coords >= 0).all(dim=-1)
+    bi = torch.arange(coords.shape[0], device=coords.device)[:, None]
+    bi = bi.expand(coords.shape[:2])[keep]
+    z, y, x = coords[keep].long().unbind(-1)
+    back = dense[bi, z, y, x]
+    nonzero = int((dense != 0).sum())
+    log(f"{label} dense tail canvas {tuple(dense.shape)} "
+        f"{str(dense.dtype).split('.')[-1]} ({dense.numel()} elements): "
+        f"{int(keep.sum())} rows scattered and gathered back exactly, "
+        f"{nonzero} nonzero elements, the rows' own")
+    if not torch.equal(back, features[keep].to(dense.dtype)):
+        raise AssertionError(f"{label} dense scatter: rows differ")
+    if nonzero != int((features[keep] != 0).sum()):
+        raise AssertionError(f"{label} dense scatter: stray nonzeros")
+
+
+def phase_fp32_predict(dev, path, batch, plan):
+    """The predict step at B=2 through build_stack + host_plan_fn +
+    make_predict_step (sparse_predict): the window conv launched once per
+    layer of ``path.layers``, the NMS kernel once, fed ``path.nms``; and
+    the transition to the dense tail checked on the card
+    (dense_scatter_check)."""
+    label = path.label(2)
+    stack, launches = sparse_predict(
+        dev, fp32_stack(path, dev), batch, plan,
+        (path.b, path.dets, 9 if path.five else 7), len(path.layers),
+        f"{label} (fp32 middle)", min_labels=2)
+    if launches["rotated_nms_keep"] != 1:
+        raise AssertionError(f"{launches['rotated_nms_keep']} NMS launches, "
+                             f"expected 1")
+    nms_in = nms_fed(stack, path.nms, label)
+    model, vg, asg, _, _, data = stack
+    with torch.no_grad():
+        dense_scatter_check(lambda: heads_on(model, vg, asg, data, dev),
+                            label)
+    return stack, launches, nms_in
+
+
+def phase_fp32_cpu(dev, path, stack):
+    """Card against CPU (card_vs_cpu): Lyft on the range cut to +-12.8 m,
+    KITTI-all at B=1 over the full range; then Lyft's CPU post-processing
+    of the full-size card heads (scan 0 of the B=2 step's batch) against
+    the card's."""
+    label = path.label(3)
+    if path.cut is None:
+        card_vs_cpu(dev, fp32_stack(path, dev), fp32_stack(path, "cpu"),
+                    {k: stack[5][k][:1] for k in ("points", "num_points")},
+                    label)
+        return
+    extent, voxels, points = path.cut
+    cpu_stack = fp32_stack(path, "cpu", cut=True)
+    card_vs_cpu(dev, fp32_stack(path, dev, cut=True), cpu_stack,
+                path.scans(1, points, cut=True),
+                f"{label} at +-{extent} m, {voxels} voxels,")
+    full_size_decode(dev, stack, cpu_stack[0], label, "scan 0")
+
+
+def middle_split_ms(model, run):
+    """(sparse, dense) ms of the middle's ``run()``: CUDA events at its
+    start, where its first dense module starts, and at its end; medians of
+    REPEAT runs after WARMUP."""
+    firsts = [m for m in model.backbone.modules()
+              if type(m).__name__.startswith("Dense")]
+    marks = []
+
+    def hook(m, args):
+        if len(marks) == 1:
+            marks.append(torch.cuda.Event(enable_timing=True))
+            marks[-1].record()
+    handles = [m.register_forward_pre_hook(hook) for m in firsts]
+    sparse, dense = [], []
+    try:
+        for i in range(WARMUP + REPEAT):
+            marks[:] = [torch.cuda.Event(enable_timing=True)]
+            marks[0].record()
+            run()
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            if i >= WARMUP:
+                sparse.append(marks[0].elapsed_time(marks[1]))
+                dense.append(marks[1].elapsed_time(end))
+    finally:
+        for h in handles:
+            h.remove()
+    return statistics.median(sparse), statistics.median(dense)
+
+
+def cin_chunked_conv2d(x, w, c, **kw):
+    """conv2d as the sum of the convs of ``c``-channel input slices."""
+    return sum(torch.nn.functional.conv2d(x[:, i:i + c], w[:, i:i + c], **kw)
+               for i in range(0, x.shape[1], c))
+
+
+def per_map_conv2d(x, w, **kw):
+    """conv2d one map of the batch at a time."""
+    return torch.cat([torch.nn.functional.conv2d(x[i:i + 1], w, **kw)
+                      for i in range(x.shape[0])])
+
+
+def cout_chunked_conv3d(x, w, c, **kw):
+    """conv3d as ``c``-output-channel convs, concatenated."""
+    return torch.cat([torch.nn.functional.conv3d(x, w[i:i + c], **kw)
+                      for i in range(0, w.shape[0], c)], dim=1)
+
+
+def stage_conv_routes(neck, mid):
+    """{RPN stage conv: {route: fn}} for each distinct stage conv of the RPN
+    on ``mid`` (caught at models/necks.py::stage_conv): one cuDNN call;
+    over CIN_CHUNK-channel input slices, summed, where it has more input
+    channels; one map at a time, where it has more than one; and
+    stage_conv, what the port runs."""
+    from det3d_tpu_torch.models import necks
+    F = torch.nn.functional
+    seen, real = {}, necks.stage_conv
+
+    def spy(conv, x):
+        key = (f"RPN conv in {tuple(x.shape)} weight "
+               f"{tuple(conv.weight.shape)} stride {tuple(conv.stride)}")
+        seen.setdefault(key, (conv, x))
+        return real(conv, x)
+    necks.stage_conv = spy
+    try:
+        with torch.no_grad():
+            neck(mid)
+    finally:
+        necks.stage_conv = real
+    out = {}
+    for key, (conv, x) in seen.items():
+        w = conv.weight.to(x.dtype)
+        kw = dict(stride=conv.stride, padding=conv.padding)
+        c = necks.CIN_CHUNK
+        routes = {"one cuDNN call": functools.partial(F.conv2d, x, w, **kw)}
+        if x.shape[1] > c:
+            routes[f"{c}-channel chunks"] = functools.partial(
+                cin_chunked_conv2d, x, w, c, **kw)
+        if x.shape[0] > 1:
+            routes["one map at a time"] = functools.partial(
+                per_map_conv2d, x, w, **kw)
+        routes["the port (stage_conv)"] = functools.partial(real, conv, x)
+        out[key] = routes
+    return out
+
+
+def dense_conv_routes(model, run):
+    """{dense-tail conv: {route: fn}} for each distinct conv3d of the dense
+    tail in ``run()`` (caught at models/backbones.py::DenseConvBN.conv):
+    one cuDNN call, over COUT_CHUNK output channels where it has more, and
+    DenseConvBN.conv, what the port runs."""
+    from det3d_tpu_torch.models import backbones
+    F = torch.nn.functional
+    seen, real = {}, backbones.DenseConvBN.conv
+
+    def spy(layer, x):
+        key = (f"dense conv3d in {tuple(x.shape)} weight "
+               f"{tuple(layer.weight.shape)} stride {layer.stride}")
+        seen.setdefault(key, (layer, x))
+        return real(layer, x)
+    backbones.DenseConvBN.conv = spy
+    try:
+        with torch.no_grad():
+            run()
+    finally:
+        backbones.DenseConvBN.conv = real
+    out = {}
+    for key, (layer, x) in seen.items():
+        w = layer.weight.to(layer.dtype)
+        kw = dict(stride=layer.stride, padding=layer.padding)
+        c = backbones.COUT_CHUNK
+        routes = {"one cuDNN call": functools.partial(F.conv3d, x, w, **kw)}
+        if w.shape[0] > c:
+            routes[f"{c}-channel output chunks"] = functools.partial(
+                cout_chunked_conv3d, x, w, c, **kw)
+        routes["the port (DenseConvBN.conv)"] = functools.partial(
+            real, layer, x)
+        out[key] = routes
+    return out
+
+
+def route_table(cases, smi, label):
+    """Each conv of ``cases`` ({conv: {route: fn}}) timed in turns by each
+    route, with its TFLOP/s and its largest difference from the first."""
+    for key, routes in cases.items():
+        with torch.no_grad():
+            ref = next(iter(routes.values()))()
+            diff = {k: float((fn() - ref).abs().max())
+                    for k, fn in routes.items()}
+            t = interleaved_ms(routes, rounds=4)
+        x, w = next(iter(routes.values())).args[:2]
+        flops = 2 * ref.numel() * w[0].numel()
+        log(f"{label} {key}, {str(x.dtype).split('.')[-1]}: " + ", ".join(
+            f"{k} {t[k]:.3f} ms ({flops / t[k] / 1e9:.2f} TFLOP/s, max abs "
+            f"diff {diff[k]:.2e})" for k in routes) + f" [{smi}]")
+
+
+def phase_fp32_timing(dev, path, stack, plan_ms, nms_in, smi):
+    """The predict step at B=2 and its stages (step_timing), the middle
+    split into its sparse part and its dense tail (middle_split_ms); each
+    conv3d of the dense tail and each 2-D conv of the RPN and head alone
+    (conv_table), each conv3d and RPN stage conv by each route
+    (route_table); the fp32 window conv at each of the middle's shapes
+    and the forward's launches, with its device time (conv_timing); the
+    NMS kernel on the step's own inputs against its plain twin (a call)."""
+    from det3d_tpu_torch.parallel.predict import build_example
+    label = path.label(4)
+    mid = step_timing(dev, stack, plan_ms, smi, label)
+    model, vg, asg, _, _, data = stack
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    plan = {k[5:]: v for k, v in data_d.items() if k.startswith("plan_")}
+    with torch.no_grad():
+        ex = build_example(data_d, vg, asg)
+        feats = model.reader(ex["voxels"], ex["num_points_per_voxel"])
+
+        def middle():
+            return model.backbone(feats, ex["coordinates"], model.grid_size,
+                                  plan=plan)
+        sparse_ms, dense_ms = middle_split_ms(model, middle)
+        log(f"{label} middle B={path.b} (ms/batch): sparse part (window "
+            f"convs, BN, the transition to dense) {sparse_ms:.3f}, dense "
+            f"tail {dense_ms:.3f} [{smi}]")
+        conv_table(middle, smi, label, "conv3d of the dense tail")
+        conv_table(lambda: model.bbox_head(model.neck(mid)), smi, label)
+        route_table(dense_conv_routes(model, middle), smi, label)
+        route_table(stage_conv_routes(model.neck, mid), smi, label)
+    host_plan = {k: v for k, v in data.items() if k.startswith("plan_")}
+    conv = conv_timing(dev, host_plan, smi, "fp32", path.layers, label)
+    return conv, step_nms_timing(nms_in, smi, label)
+
+
+def run_fp32_path(dev, path, smi):
+    """Phases plan, kernels, predict, card vs CPU and timing of one fp32
+    path. Returns what main() reports: (stack, launches, NMS inputs, the
+    window conv's worst error, its timing, the NMS timing)."""
+    batch = path.scans(path.b, path.points)
+    plan, plan_ms = phase_fp32_plan(path, batch)
+    conv_err = phase_conv_kernel(dev, plan, path.layers, path.label(1),
+                                 precisions=("fp32",), every_layer=True)
+    stack, launches, nms_in = phase_fp32_predict(dev, path, batch, plan)
+    phase_fp32_cpu(dev, path, stack)
+    conv, nms = phase_fp32_timing(dev, path, stack, plan_ms, nms_in, smi)
+    return stack, launches, nms_in, conv_err, conv, nms
 
 
 def conv_timing_main(tree):
@@ -1920,6 +2336,10 @@ def main():
     nusc_nms = pp_timing(dev, nusc_stack, nusc_host_ms, nusc_in, smi,
                          "phase 24 nuScenes PointPillars")
 
+    # the fp32 middles: Lyft on 300000-point scans over +-100.8 m (phases
+    # 26-30), KITTI-all on SECOND's scans (31-35)
+    fp32 = {p.key: run_fp32_path(dev, p, smi) for p in (LYFT, KITTI_ALL)}
+
     # torch.profiler after every step is timed; the inputs the three
     # predict steps feed the kernel beside the synthetic cases
     phase_profile(sec_stack, dev, smi)
@@ -1927,12 +2347,17 @@ def main():
                   batch=CBGS_B)
     phase_profile(nusc_stack, dev, smi, label="phase 25 nuScenes "
                   "PointPillars", batch=CBGS_B)
+    for p, steps in ((LYFT, 3), (KITTI_ALL, 5)):
+        phase_profile(fp32[p.key][0], dev, smi, steps=steps,
+                      label=p.label(5), batch=p.b)
     step, data = sec_stack[4], sec_stack[5]
     steps_in = (("flagship step B=8", flagship_in),
                 ("SECOND step B=2", step_nms_inputs(lambda: step(data))),
                 ("CBGS step B=2", cbgs_in),
                 ("KITTI car PointPillars step B=8", kitti_in),
-                ("nuScenes PointPillars step B=2", nusc_in))
+                ("nuScenes PointPillars step B=2", nusc_in),
+                ("Lyft CBGS step B=2", fp32["lyft"][2]),
+                ("KITTI-all SECOND step B=2", fp32["kitti_all"][2]))
     nms_dev = nms_timing(dev, smi, "phase 13", steps_in)
     nms_times["device"] = nms_dev["flagship N=8 K=1000"]["device"]
 
@@ -1946,7 +2371,9 @@ def main():
         f"{cbgs_b_ms:.7f} ms ({cbgs_b_by}), {cbgs_all_ms:.7f} ms counting a "
         f"full IoU for every valid pair")
     bounds = {}
-    for name, nms_in in (("kitti_pp", kitti_in), ("nusc_pp", nusc_in)):
+    for name, nms_in in (("kitti_pp", kitti_in), ("nusc_pp", nusc_in),
+                         ("lyft", fp32["lyft"][2]),
+                         ("kitti_all", fp32["kitti_all"][2])):
         bounds[name] = nms_bound(*nms_in[:3])
         log(f"rotated NMS bound on the {name} step's inputs "
             f"N={nms_in[0].shape[0]} K={nms_in[0].shape[1]}: "
@@ -1957,7 +2384,9 @@ def main():
         name: {"flagship": flagship[name], "second": launches[name],
                "cbgs": cbgs_launches[name],
                "kitti_pp": kitti_launches[name],
-               "nusc_pp": nusc_launches[name]}
+               "nusc_pp": nusc_launches[name],
+               "lyft": fp32["lyft"][1][name],
+               "kitti_all": fp32["kitti_all"][1][name]}
         for name in ("rotated_nms_keep", "window_conv")}
     nms_src = dict(name="rotated_nms_keep", route="cuda",
                    source="det3d_tpu_torch/csrc/rotated_nms.cu",
@@ -1965,8 +2394,29 @@ def main():
     conv_src = dict(name="window_conv", route="cuda",
                     source="det3d_tpu_torch/csrc/window_conv.cu",
                     replaces="det3d_tpu/ops/band_conv.py:216")
+    # the fp32 paths: the window conv's fp32 kernel and the NMS kernel on
+    # each step's inputs
+    fp32_entries = []
+    for p, step_name in ((LYFT, "Lyft CBGS step B=2"),
+                         (KITTI_ALL, "KITTI-all SECOND step B=2")):
+        _, p_launches, _, p_err, p_conv, p_nms = fp32[p.key]
+        fp32_entries += [dict(
+            conv_src, path=p.key, dtype="fp32",
+            launches=p_launches["window_conv"], max_abs_err=p_err,
+            ms=p_conv["kernel"], device_ms=p_conv["device"],
+            plain_ms=p_conv["plain"], bound_ms=p_conv["bound_ms"],
+            bound_by=p_conv["bound_by"], library_ms=None,
+        ), dict(
+            nms_src, path=p.key, launches=p_launches["rotated_nms_keep"],
+            max_abs_err=float(nms_err), ms=p_nms["kernel"],
+            device_ms=nms_dev[step_name]["device"], plain_ms=p_nms["plain"],
+            bound_ms=bounds[p.key][0], bound_by=bounds[p.key][1],
+            library_ms=None,
+        )]
     # one entry per kernel over every path, with the flagship's (NMS) and
-    # SECOND's (window conv) times, then one per kernel at CBGS's shapes
+    # SECOND's (window conv) times, then one per kernel at CBGS's shapes,
+    # the NMS kernel on the nuScenes PointPillars step's inputs, and the
+    # fp32 paths' entries
     print(json.dumps({"kernels": [dict(
         nms_src, launches=sum(by_path["rotated_nms_keep"].values()),
         launches_by_path=by_path["rotated_nms_keep"],
@@ -1997,7 +2447,7 @@ def main():
         device_ms=nms_dev["nuScenes PointPillars step B=2"]["device"],
         plain_ms=nusc_nms["plain"], bound_ms=bounds["nusc_pp"][0],
         bound_by=bounds["nusc_pp"][1], library_ms=None,
-    )]}), flush=True)
+    )] + fp32_entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -145,14 +145,24 @@ class SparseBasicBlock(nn.Module):
         return torch.relu(x + y)
 
 
+# cuDNN 9.22 (PyTorch 2.11) on the H100, fp32 with TF32 off, runs Lyft's
+# 3x3x3 stride-1 conv from 128 to 128 channels over (2, 5, 252, 252) at 27
+# TFLOP/s (21.0 ms), and as two convs of 64 output channels each at 40
+# (14.1 ms, their concatenation included); its strided convs to 128
+# channels run slower split (chip_smoke.py phase 30 times each both ways).
+COUT_CHUNK = 64
+
+
 class DenseConvBN(nn.Module):
     """Dense-tail twin of SparseConvBN: conv3d, optional bias, BN, optional
     ReLU, re-zeroed off the active sites; evaluation.
 
     Tensors are NDHWC; the conv runs on NCDHW views of them. The conv is
     PyTorch's conv3d (the JAX package leaves this one to XLA, outside any
-    Pallas kernel). With bf16 the whole epilogue (the bias among it) stays
-    in bf16, as the JAX package serves it."""
+    Pallas kernel); an fp32 stride-1 conv to more than COUT_CHUNK channels
+    runs as convs of COUT_CHUNK output channels each, concatenated. With
+    bf16 the whole epilogue (the bias among it) stays in bf16, as the JAX
+    package serves it."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel=(3, 3, 3), stride=(1, 1, 1), padding=(1, 1, 1),
@@ -172,10 +182,20 @@ class DenseConvBN(nn.Module):
                      else None)
         self.norm = build_norm(norm_cfg, out_channels, dtype=self.dtype)
 
+    def conv(self, x):
+        """The conv3d of NCDHW ``x`` in the layer's dtype."""
+        w = self.weight.to(self.dtype)
+        kw = dict(stride=self.stride, padding=self.padding)
+        if (self.dtype == torch.float32 and self.stride == (1, 1, 1)
+                and w.shape[0] > COUT_CHUNK):
+            return torch.cat([F.conv3d(x, w[i:i + COUT_CHUNK], **kw)
+                              for i in range(0, w.shape[0], COUT_CHUNK)],
+                             dim=1)
+        return F.conv3d(x, w, **kw)
+
     def forward(self, x, occ_out):
-        y = F.conv3d(x.to(self.dtype).permute(0, 4, 1, 2, 3),
-                     self.weight.to(self.dtype), stride=self.stride,
-                     padding=self.padding).permute(0, 2, 3, 4, 1)
+        y = self.conv(x.to(self.dtype).permute(0, 4, 1, 2, 3)).permute(
+            0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         y = self.norm(y)

@@ -7,9 +7,11 @@ then ``layer_num`` 3x3 convs, each conv + BN + ReLU; each stage from
 
 Input and output keep the reference's NHWC layout. Inside, the tensors are
 NCHW views of channels-last memory (a permute, no copy), which is the
-layout the convolutions take natively. A 3x3 conv that narrows a map of
-more than CIN_CHUNK channels runs as a sum of convs over CIN_CHUNK-channel
-slices of its input (``stage_conv``).
+layout the convolutions take natively. Two cuDNN faults shape the stage
+convs (``stage_conv``): a 3x3 conv that narrows a map of more than
+CIN_CHUNK channels runs as a sum of convs over CIN_CHUNK-channel slices of
+its input, and an fp32 stride-1 conv over a batch of maps of SPLIT_PIXELS
+or more runs one map at a time.
 
 The trunk runs in the activation dtype of ``precision``, as the JAX
 package's does: the input is cast to it, every conv and transposed conv
@@ -36,12 +38,25 @@ from det3d_tpu_torch.models.registry import NECKS
 # off; the same conv over two 128-channel input halves, summed, ~0.84 ms
 # (chip_smoke.py phase 18 times both).
 CIN_CHUNK = 128
+# The same cuDNN, fp32 with TF32 off, takes 12.5 ms for a 3x3 conv from 128
+# to 128 channels over B=2 maps of 252 x 252 (Lyft's RPN, 3 TFLOP/s), and
+# 1.2 ms as one call per map; at B=2 on 200 x 176 (KITTI-all) and at B=1
+# on 252 x 252 one call runs at 31-34 TFLOP/s (chip_smoke.py phases 30
+# and 35 time both ways).
+SPLIT_PIXELS = 252 * 252
 
 
 def stage_conv(conv: nn.Conv2d, x):
-    """``conv(x)`` in x's dtype (the weight cast to it); when the conv
-    narrows a map of more than CIN_CHUNK channels, the sum of the convs of
-    CIN_CHUNK-channel input slices."""
+    """``conv(x)`` in x's dtype (the weight cast to it). In fp32, a
+    stride-1 conv over more than one map of SPLIT_PIXELS or more runs one
+    map at a time; when the conv narrows a map of more than CIN_CHUNK
+    channels, it is the sum of the convs of CIN_CHUNK-channel input
+    slices."""
+    if (x.dtype == torch.float32 and x.shape[0] > 1
+            and tuple(conv.stride) == (1, 1)
+            and x.shape[2] * x.shape[3] >= SPLIT_PIXELS):
+        return torch.cat([stage_conv(conv, x[i:i + 1])
+                          for i in range(x.shape[0])])
     cin = conv.in_channels
     w = conv.weight.to(x.dtype)
     if cin <= max(CIN_CHUNK, conv.out_channels):
