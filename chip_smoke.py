@@ -1,18 +1,21 @@
 """Smoke run of the PyTorch / CUDA port (det3d_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --conv-timing [--tree DIR]
+    python3 chip_smoke.py --conv-timing [--path second lyft kitti_all]
+                          [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
 
-The second form runs phases 1 and 7 and only the bf16 window-conv timing
-of phase 11, the third phases 1 and 13 without the steps' inputs (the NMS
-kernel at the flagship's N=8 K=1000 at 0.5, SECOND's N=2 K=1000 at 0.01
-and one cluster: a call from Python, the device time by graph_ms, each of
-the tree's NMS kernels by name under torch.profiler); both import
-det3d_tpu_torch from the checkout
-at DIR (by default this one): run them on two checkouts in turns on one
-card (parent, change, change, parent) to compare two versions of a
-kernel on the same yardsticks.
+The second form runs phase 1 and, for each path named (SECOND's by
+default), its host plan and the window-conv timing of phase 11 (30, 35)
+on it: bf16 on SECOND's plan and fp32 on Lyft's and KITTI-all's unless
+--prec says otherwise. The third runs phases 1 and 13 without the steps'
+inputs (the NMS kernel at the flagship's N=8 K=1000 at 0.5, SECOND's N=2
+K=1000 at 0.01 and one cluster: a call from Python, the device time by
+graph_ms, each of the tree's NMS kernels by name under torch.profiler).
+Both import det3d_tpu_torch from the checkout at DIR (by default this
+one): run them on two checkouts in turns on one card (parent, change,
+change, parent) to compare two versions of a kernel on the same
+yardsticks.
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -20,8 +23,8 @@ plans, both at KITTI-car scale, then CBGS from host plans at nuScenes
 scale, then PointPillars as shipped for KITTI car and nuScenes, then the
 two configs whose middles serve in fp32, Lyft CBGS and KITTI 3-class
 SECOND, from host plans, all at full widths) and prints one line per
-phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 12, 19, 25,
-36, 37, 13:
+phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 38, 12, 19,
+25, 36, 37, 13:
 
   1. device: the card, as nvidia-smi names it, and its power limit;
   2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
@@ -69,9 +72,11 @@ phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 12, 19, 25,
      the forward's 10 launches' kernel time, a call from Python and on the
      device (20 calls replayed from one CUDA graph, without the host's
      launch overhead) with the achieved TB/s, TFLOP/s and share of the
-     bound, against the plain version and the bound, in both precisions;
-     in bf16 also the yardstick im2col+matmul (an im2col gather and one
-     torch.matmul, which the port never calls) timed both ways;
+     bound, against the plain version and the bound, in both precisions,
+     and the blocks of the kernel an SM holds; the yardstick
+     im2col+matmul (an im2col gather and one torch.matmul, which the port
+     never calls), held to the kernel and timed both ways; in fp32 the
+     executed / useful products of the kernel's schedule (f32_schedule);
  14. CBGS host plan: configs/nusc_cbgs_voxelnet.py as shipped (0.1 x 0.1 x
      0.2 m voxels over +-51.2 m, 60000 voxels of 10 points, 5 point
      features, SpMiddleResNetFHD with dense_from=2, bf16 middle, 6-task
@@ -167,6 +172,15 @@ phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 12, 19, 25,
      as phase 28's;
  34. KITTI-all card vs CPU at B=1 over the full range, as phase 10;
  35. KITTI-all timing, as phase 30;
+ 38. CBGS's middle with dense_from=3 and with dense_tail=False, whose
+     sparse layers reach 128 channels: on the host plans of phase 14's
+     scans, the window-conv kernel against plain at every 128-channel
+     layer in fp32 and bf16 (as phase 8), each timed on the device; on the
+     range cut to +-12.8 m (8000 voxels, full widths, weights calibrated on
+     the card in fp32), the middle through build_stack on the card
+     against the CPU's, in fp32 within the stated tolerance and in bf16
+     closer to the CPU's bf16 middle than that is to the CPU's fp32 one,
+     the card's window conv launched once per sparse layer (16 and 21);
  12. SECOND profile: torch.profiler over 5 predict steps, device time by
      kernel (the window-conv kernels summed) and the device's busy share;
  19. CBGS profile, the same over 3 steps;
@@ -1071,20 +1085,21 @@ def second_stack(device, precision=None):
 
 
 def conv_cases(plan, dev, dtype, layers=SECOND_LAYERS):
-    """The window convs of a sparse middle (``layers``: SECOND_LAYERS or
-    CBGS_LAYERS) on its host plan, in forward order: (name, features,
-    packed, weights, center_shift) on ``dev``, random features and weights
-    (std 1/sqrt(27 Cin)) in ``dtype``. The cases of one (Cin, Cout,
-    center_shift) repeat with the forward."""
+    """The window convs of a sparse middle (``layers``: SECOND_LAYERS,
+    CBGS_LAYERS or a CBGS variant's) on its host plan, in forward order:
+    (name, features, packed, weights, center_shift) on ``dev``, random
+    features and weights (kz = 3 taps a column, std 1/sqrt(3 K Cin)) in
+    ``dtype``. The cases of one (Cin, Cout, center_shift) repeat with the
+    forward."""
     g = torch.Generator().manual_seed(0)
     b, v = plan["plan_s0"].shape[:2]
 
     def feats(cin, rows):
         return torch.randn(b, rows, cin, generator=g).to(dev, dtype)
 
-    def weights(cin, cout):
-        return (torch.randn(27, cin, cout, generator=g)
-                / (27 * cin) ** 0.5).to(dev, dtype)
+    def weights(kvol, cin, cout):
+        return (torch.randn(kvol, cin, cout, generator=g)
+                / (kvol * cin) ** 0.5).to(dev, dtype)
 
     def packed(key):
         return torch.as_tensor(plan[key], device=dev).contiguous()
@@ -1093,7 +1108,8 @@ def conv_cases(plan, dev, dtype, layers=SECOND_LAYERS):
     for key, cin, cout, subm in layers:
         pk = packed(f"plan_{key}")
         name = f"{'subm' if subm else 'strided'} ({cin},{cout}) {key}"
-        out.append((name, feats(cin, rows), pk, weights(cin, cout), subm))
+        out.append((name, feats(cin, rows), pk,
+                    weights(3 * pk.shape[-1], cin, cout), subm))
         rows = pk.shape[1]
     return out
 
@@ -1121,40 +1137,52 @@ def phase_second_plan(batch):
     return plan, plan_ms
 
 
+def conv_vs_plain(case, prec, label):
+    """The window-conv kernel against its plain twin on one case of
+    conv_cases, on the card, within CONV_TOL[prec] (bf16: the plain version
+    in fp32 on the same bf16-rounded operands). Returns the max abs
+    error."""
+    from det3d_tpu_torch.ops.sparse import unpack_windows
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
+                                                      window_conv_ref)
+    name, x, pk, w, subm = case
+    out = window_conv(x, pk, w, subm)
+    r0, pres = unpack_windows(pk, 3)
+    ref = window_conv_ref(x.float(), r0, pres, w.float(), subm)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    log(f"{label} window conv vs plain [{prec} {name}] B={x.shape[0]} "
+        f"V={x.shape[1]} O={pk.shape[1]} K={pk.shape[2]}: max abs err "
+        f"{err:.3e}, |ref| max {float(ref.abs().max()):.3f} (tolerance "
+        f"{CONV_TOL[prec]})")
+    if not torch.allclose(out, ref, **CONV_TOL[prec]):
+        raise AssertionError(f"window conv {prec} {name} differs")
+    return err
+
+
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
 def phase_conv_kernel(dev, plan, layers=SECOND_LAYERS, label="phase 8",
                       precisions=("fp32", "bf16"), every_layer=False):
     """The window-conv kernel against its plain twin at every (Cin, Cout,
     center_shift) of ``layers`` on ``plan`` (``every_layer``: at every
-    layer, each on its own rows), in ``precisions``; SECOND's phase also
-    runs an all-absent plan. Returns the largest error."""
-    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
-                                                      window_conv_ref)
-    from det3d_tpu_torch.ops.sparse import unpack_windows
+    layer, each on its own rows), in ``precisions`` (conv_vs_plain);
+    SECOND's phase also runs an all-absent plan. Returns the largest
+    error."""
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
     worst = 0.0
     n_shapes = len(layers) if every_layer else len({layer[1:]
                                                     for layer in layers})
-    dtypes = {"fp32": torch.float32, "bf16": torch.bfloat16}
     for prec in precisions:
         seen = set()
-        for i, (name, x, pk, w, subm) in enumerate(
-                conv_cases(plan, dev, dtypes[prec], layers)):
-            shape = i if every_layer else name.split(" ")[1] + str(subm)
+        for i, case in enumerate(conv_cases(plan, dev, DTYPES[prec],
+                                            layers)):
+            shape = i if every_layer else case[0].split(" ")[1] + str(case[4])
             if shape in seen:
                 continue
             seen.add(shape)
-            out = window_conv(x, pk, w, subm)
-            r0, pres = unpack_windows(pk, 3)
-            ref = window_conv_ref(x.float(), r0, pres, w.float(), subm)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            worst = max(worst, err)
-            ok = torch.allclose(out, ref, **CONV_TOL[prec])
-            log(f"{label} window conv vs plain [{prec} {name}] B={x.shape[0]}"
-                f" V={x.shape[1]} O={pk.shape[1]}: max abs err {err:.3e}, "
-                f"|ref| max {float(ref.abs().max()):.3f} (tolerance "
-                f"{CONV_TOL[prec]})")
-            if not ok:
-                raise AssertionError(f"window conv {prec} {name} differs")
+            worst = max(worst, conv_vs_plain(case, prec, label))
         if len(seen) != n_shapes:
             raise AssertionError(f"expected {n_shapes} conv shapes, got "
                                  f"{seen}")
@@ -1327,52 +1355,79 @@ def phase_second_timing(dev, stack, plan_ms, smi):
     return fwd["bf16"]
 
 
+def kernel_model():
+    """(f32_schedule, blocks_per_sm) of the det3d_tpu_torch in use, or
+    (None, None) for a checkout from before them (--tree)."""
+    from det3d_tpu_torch.ops import window_conv_cuda as wc
+    return (getattr(wc, "f32_schedule", None),
+            getattr(wc, "blocks_per_sm", None))
+
+
 def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
                 label="phase 11"):
     """The window-conv timing on a middle's host plan in ``prec`` (phase
     11: SECOND's; phase 18: CBGS's; phases 30 and 35: Lyft's and
     KITTI-all's, fp32): at each (Cin, Cout, center_shift) of ``layers`` and
     for the forward's launches, a call from Python interleaved with the
-    plain version, the device time (graph_ms) with the achieved rates and
-    share of the bound, and the bound. In bf16 also the yardstick
-    im2col+matmul, timed both ways. Returns the forward's times
-    (``kernel``: a call; ``device``: graph_ms) and bound."""
+    plain version and the yardstick im2col+matmul (im2col_matmul, held to
+    the kernel: YARD_TOL in bf16, CONV_TOL in fp32), the device time
+    (graph_ms) of the kernel and the yardstick with the achieved rates and
+    share of the bound, and the bound; the blocks an SM holds, and in fp32
+    the fp32 kernel's executed / useful products (f32_schedule). Returns
+    the forward's times (``kernel``: a call; ``device``: graph_ms;
+    ``yard_device``: the yardstick's graph_ms) and bound."""
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
     bf16 = prec == "bf16"
-    cases = conv_cases(host_plan, dev,
-                       torch.bfloat16 if bf16 else torch.float32, layers)
+    schedule, blocks = kernel_model()
+    cases = conv_cases(host_plan, dev, DTYPES[prec], layers)
     unpacked = [unpack_windows(pk, 3) for _, _, pk, _, _ in cases]
-    yard = ([im2col_matmul(x, pk, w, subm) for _, x, pk, w, subm in cases]
-            if bf16 else [None] * len(cases))
+    yard = [im2col_matmul(x, pk, w, subm) for _, x, pk, w, subm in cases]
+    products = [0, 0]                       # executed, useful (fp32)
     seen = set()
     for (name, x, pk, w, subm), (r0, pres), ys in zip(cases, unpacked, yard):
+        cin, cout = w.shape[1:]
+        if not bf16 and schedule is not None:
+            sch = schedule(pk, x.shape[1], subm, cout)
+            products[0] += sch["executed"] * cin * cout
+            products[1] += sch["useful"] * cin * cout
         if name in seen:
             continue
         seen.add(name)
         fns = {"plain": lambda: window_conv_ref(x, r0, pres, w, subm),
-               "kernel": lambda: window_conv(x, pk, w, subm)}
-        if bf16:
-            fns["im2col+matmul"] = ys
+               "kernel": lambda: window_conv(x, pk, w, subm),
+               "im2col+matmul": ys}
         t = interleaved_ms(fns)
         work = conv_work(x, pk, w, subm)
         b_ms, b_by = bound(*work)
         taps, rows = conv_taps(pk, x.shape[1], subm)
+        occ = ("not in this tree" if blocks is None else
+               blocks(cin, cout, pk.shape[-1], 3, bf16))
         log(f"{label} window conv [{prec} {name}]: kernel "
             f"{t['kernel']:.4f} ms a call from Python, plain "
             f"{t['plain']:.4f} ms, bound {b_ms:.7f} ms ({b_by}; {rows} of "
-            f"{x.shape[0] * x.shape[1]} input rows read, {taps} taps) "
-            f"[{smi}]")
+            f"{x.shape[0] * x.shape[1]} input rows read, {taps} taps); "
+            f"blocks an SM holds: {occ} [{smi}]")
+        if not bf16 and schedule is not None:
+            useful = max(sch["useful"], 1)
+            log(f"{label}   fp32 schedule ({sch['tile']}-row tiles, "
+                f"{sch['band']}-row warp bands): {sch['executed']} rows "
+                f"multiplied for {sch['useful']} taps that read a row, "
+                f"executed / useful products "
+                f"{sch['executed'] / useful:.3f}; with the whole tile "
+                f"multiplying each listed tap "
+                f"{int(sch['listed'].sum()) * sch['tile'] / useful:.3f}")
         dev_ms = graph_ms(fns["kernel"])
         log(f"{label}   kernel on the device {dev_ms:.4f} ms: achieved "
             f"{work[0] / dev_ms / 1e9:.3f} TB/s, "
             f"{work[1] / dev_ms / 1e9:.3f} TFLOP/s, "
             f"{b_ms / dev_ms:.4f} of the bound [{smi}]")
-        if not bf16:
-            continue
-        err = float((ys().float() - window_conv(x, pk, w, subm)).abs().max())
-        if err > YARD_TOL:
+        ref = window_conv(x, pk, w, subm)
+        got = ys().float()
+        err = float((got - ref).abs().max())
+        if (err > YARD_TOL if bf16
+                else not torch.allclose(got, ref, **CONV_TOL["fp32"])):
             raise AssertionError(f"im2col+matmul [{prec} {name}] differs "
                                  f"from the kernel by {err}")
         log(f"{label}   im2col+matmul (yardstick, never called by the "
@@ -1383,9 +1438,8 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
                              for (_, x, _, w, subm), (r0, pres)
                              in zip(cases, unpacked)],
            "kernel": lambda: [window_conv(x, pk, w, subm)
-                              for _, x, pk, w, subm in cases]}
-    if bf16:
-        fns["im2col+matmul"] = lambda: [ys() for ys in yard]
+                              for _, x, pk, w, subm in cases],
+           "im2col+matmul": lambda: [ys() for ys in yard]}
     t = interleaved_ms(fns)
     work = [conv_work(x, pk, w, subm) for _, x, pk, w, subm in cases]
     fwd = dict(kernel=t["kernel"], plain=t["plain"],
@@ -1393,15 +1447,18 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
                bound_by="bytes" if all(bound(*wk)[1] == "bytes"
                                        for wk in work) else "operations")
     fwd["device"] = graph_ms(fns["kernel"])
+    fwd["yard_device"] = graph_ms(fns["im2col+matmul"])
     line = (f"{label} window conv, the forward's {len(cases)} launches "
             f"[{prec}]: kernel {t['kernel']:.4f} ms called from Python "
-            f"({fwd['device']:.4f} ms on the device)")
+            f"({fwd['device']:.4f} ms on the device, "
+            f"{fwd['bound_ms'] / fwd['device']:.4f} of the bound)")
     line += (f", plain {t['plain']:.4f} ms, bound {fwd['bound_ms']:.7f} ms "
              f"({fwd['bound_by']})")
-    if bf16:
-        line += (f", im2col+matmul {t['im2col+matmul']:.4f} ms called from "
-                 f"Python ({graph_ms(fns['im2col+matmul']):.4f} ms on the "
-                 f"device)")
+    line += (f", im2col+matmul {t['im2col+matmul']:.4f} ms called from "
+             f"Python ({fwd['yard_device']:.4f} ms on the device)")
+    if products[1]:
+        line += (f"; fp32 schedule: executed / useful products "
+                 f"{products[0] / products[1]:.3f}")
     log(f"{line} [{smi}]")
     if bf16:
         x = cases[-1][1]
@@ -1941,6 +1998,7 @@ LYFT = Fp32Path("lyft", "Lyft CBGS", LYFT_CFG, 300000, True, CBGS_LAYERS,
 KITTI_ALL = Fp32Path("kitti_all", "KITTI-all SECOND", KITTI_ALL_CFG, POINTS,
                      False, SECOND_LAYERS, 100, (2 * 3, 1000, 0.01), None,
                      (31, 32, 33, 34, 35, 37))
+FP32_PATHS = {p.key: p for p in (LYFT, KITTI_ALL)}
 
 
 @functools.lru_cache(maxsize=None)
@@ -2242,21 +2300,137 @@ def run_fp32_path(dev, path, smi):
     return stack, launches, nms_in, conv_err, conv, nms
 
 
-def conv_timing_main(tree):
-    """--conv-timing: phases 1 and 7, then the bf16 window-conv timing of
-    phase 11, with det3d_tpu_torch imported from ``tree``."""
+# ---------------------------------------------------------------------------
+# CBGS's middle with 128-channel sparse layers
+# ---------------------------------------------------------------------------
+
+# SpMiddleResNetFHD variants whose sparse layers reach 128 channels, as
+# (dense_from, dense_tail); the shipped config has (2, True)
+CBGS_VARIANTS = ((3, True), (2, False))
+
+
+def cbgs_variant(variant, precision=None, cut=False):
+    """cbgs_config with the middle's (dense_from, dense_tail) = variant."""
+    c = cbgs_config(precision, cut)
+    c["model"]["backbone"].update(dense_from=variant[0],
+                                  dense_tail=variant[1])
+    return c
+
+
+def cbgs_variant_layers(variant):
+    """The window convs of SpMiddleResNetFHD at ``variant`` in forward order,
+    as CBGS_LAYERS: with dense_from=3, stage 2's blocks and stage 3's
+    strided conv to 128 channels are sparse too; without the dense tail,
+    also stage 3's two blocks and the (3, 1, 1) z conv (one column, K=1)."""
+    layers = (CBGS_LAYERS + (("subm2", 64, 64, True),) * 4
+              + (("down3", 64, 128, False),))
+    if not variant[1]:
+        layers += ((("subm3", 128, 128, True),) * 4
+                   + (("down4", 128, 128, False),))
+    return layers
+
+
+def middle_on(stack, scan, device):
+    """The middle's output of ``stack`` (load_stack) on ``scan``, from its
+    host voxels and plan, on ``device``."""
+    from det3d_tpu_torch.parallel.predict import build_example
+    model, vg, asg, _, _, plan_fn = stack
+    data = dict(scan, **plan_fn(scan["points"], scan["num_points"]))
+    t = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    with torch.no_grad():
+        ex = build_example(t, vg, asg)
+        feats = model.reader(ex["voxels"], ex["num_points_per_voxel"])
+        plan = {k[5:]: v for k, v in t.items() if k.startswith("plan_")}
+        return model.backbone(feats, ex["coordinates"], model.grid_size,
+                              plan=plan)
+
+
+def phase_cbgs_variants(dev, batch, smi):
+    """Phase 38, each variant of CBGS_VARIANTS: on the host plans of CBGS's
+    B=2 scans ``batch``, the kernel against its plain twin at every
+    128-channel layer in fp32 and bf16 (conv_vs_plain), each also timed on
+    the device; on the range cut to +-CBGS_CUT m (CBGS_CUT_VOXELS voxels,
+    every width as shipped; weights calibrated on the card in fp32), the
+    card's middle through build_stack against the CPU's: in fp32 within
+    HEAD_TOL, in bf16 closer to the CPU's bf16 middle than that is to the
+    CPU's fp32 middle; each card middle launches the window conv once per
+    sparse layer. Returns the largest kernel error."""
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    worst = 0.0
+    for variant in CBGS_VARIANTS:
+        label = (f"phase 38 CBGS dense_from={variant[0]}" if variant[1]
+                 else "phase 38 CBGS dense_tail=False")
+        layers = cbgs_variant_layers(variant)
+        plan = plan_builder(cbgs_variant(variant))(batch["points"],
+                                                   batch["num_points"])
+        for prec in ("fp32", "bf16"):
+            for case, layer in zip(conv_cases(plan, dev, DTYPES[prec],
+                                              layers), layers):
+                if layer[2] != 128:
+                    continue
+                worst = max(worst, conv_vs_plain(case, prec, label))
+                _, x, pk, w, subm = case
+                ms = graph_ms(lambda: window_conv(x, pk, w, subm))
+                log(f"{label}   kernel on the device {ms:.4f} ms [{smi}]")
+        scan = cbgs_batch(1, CBGS_CUT_POINTS, cbgs_variant(
+            variant, cut=True)["voxel_generator"]["range"])
+        state = calibrated_state(cbgs_variant(variant, "fp32", cut=True),
+                                 scan, dev)
+        mids = {}
+        for prec in ("fp32", "bf16"):
+            for device in (dev, "cpu"):
+                stack = load_stack(cbgs_variant(variant, prec, cut=True),
+                                   state, device)
+                window_conv.launches = 0
+                mids[prec, str(device)] = middle_on(stack, scan, device)
+                if device != "cpu" and window_conv.launches != len(layers):
+                    raise AssertionError(
+                        f"{label}: {window_conv.launches} window-conv "
+                        f"launches in the {prec} middle, expected "
+                        f"{len(layers)}")
+        card, cpu = mids["fp32", str(dev)].cpu(), mids["fp32", "cpu"]
+        err = float((card - cpu).abs().max())
+        card16 = rel_l2(mids["bf16", str(dev)], mids["bf16", "cpu"])
+        cpu16 = rel_l2(mids["bf16", "cpu"], cpu)
+        log(f"{label} card vs CPU at +-{CBGS_CUT} m, {CBGS_CUT_VOXELS} "
+            f"voxels: the middle {tuple(cpu.shape)}, {len(layers)} "
+            f"window-conv launches; fp32 max abs err {err:.3e} (|CPU| max "
+            f"{float(cpu.abs().max()):.3f}, tolerance {HEAD_TOL}); bf16 "
+            f"card vs CPU relative L2 {card16:.3e}, CPU bf16 vs fp32 "
+            f"{cpu16:.3e}")
+        if not torch.allclose(card, cpu, **HEAD_TOL):
+            raise AssertionError(f"{label}: fp32 middle card vs CPU {err}")
+        if not (card16 < cpu16 and float(cpu.abs().max()) > 0.1):
+            raise AssertionError(f"{label}: bf16 middle card vs CPU "
+                                 f"{card16}, bf16 vs fp32 {cpu16}")
+    return worst
+
+
+def conv_timing_main(tree, prec, paths):
+    """--conv-timing: phase 1, then for each of ``paths`` its host plan
+    (phase 7, or the fp32 path's plan phase) and the window-conv timing in
+    ``prec`` on it (conv_timing; by default bf16 on SECOND's plan, fp32 on
+    Lyft's and KITTI-all's), with det3d_tpu_torch imported from ``tree``."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     smi = phase_device()
     import det3d_tpu_torch
     from det3d_tpu_torch.utils.synth import structured_batch
     log(f"conv timing of {Path(det3d_tpu_torch.__file__).parent}")
-    sec_range = second_config()["voxel_generator"]["range"]
-    batch = structured_batch(SECOND_B, POINTS, sec_range, seed=SEED)
-    plan = phase_second_plan(batch)[0]
-    conv_timing(torch.device("cuda", 0),
-                {k: v for k, v in plan.items() if k.startswith("plan_")},
-                smi, "bf16")
+    dev = torch.device("cuda", 0)
+    for key in paths:
+        if key == "second":
+            sec_range = second_config()["voxel_generator"]["range"]
+            batch = structured_batch(SECOND_B, POINTS, sec_range, seed=SEED)
+            plan, layers = phase_second_plan(batch)[0], SECOND_LAYERS
+        else:
+            path = FP32_PATHS[key]
+            plan = phase_fp32_plan(path, path.scans(path.b, path.points))[0]
+            layers = path.layers
+        conv_timing(dev, {k: v for k, v in plan.items()
+                          if k.startswith("plan_")},
+                    smi, prec or ("bf16" if key == "second" else "fp32"),
+                    layers, f"conv-timing {key}")
     return 0
 
 
@@ -2275,7 +2449,15 @@ def nms_timing_main(tree):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--conv-timing", action="store_true",
-                    help="time only the bf16 window conv (phase 11)")
+                    help="time only the window conv (conv_timing) on the "
+                    "plans of --path")
+    ap.add_argument("--prec", choices=("bf16", "fp32"),
+                    help="with --conv-timing: the operands' type (default: "
+                    "bf16 on SECOND's plan, fp32 on Lyft's and KITTI-all's)")
+    ap.add_argument("--path", nargs="+", default=["second"],
+                    choices=("second", "lyft", "kitti_all"),
+                    help="with --conv-timing: whose host plans and layers "
+                    "(default: second)")
     ap.add_argument("--nms-timing", action="store_true",
                     help="time only the rotated-NMS kernel (phase 13)")
     ap.add_argument("--tree", help="with --conv-timing or --nms-timing: the "
@@ -2283,7 +2465,7 @@ def main():
                     "one)")
     args = ap.parse_args()
     if args.conv_timing:
-        return conv_timing_main(args.tree)
+        return conv_timing_main(args.tree, args.prec, args.path)
     if args.nms_timing:
         return nms_timing_main(args.tree)
     smi = phase_device()
@@ -2339,6 +2521,8 @@ def main():
     # the fp32 middles: Lyft on 300000-point scans over +-100.8 m (phases
     # 26-30), KITTI-all on SECOND's scans (31-35)
     fp32 = {p.key: run_fp32_path(dev, p, smi) for p in (LYFT, KITTI_ALL)}
+    # CBGS's middle with dense_from=3 and without the dense tail (38)
+    phase_cbgs_variants(dev, cbgs_data, smi)
 
     # torch.profiler after every step is timed; the inputs the three
     # predict steps feed the kernel beside the synthetic cases

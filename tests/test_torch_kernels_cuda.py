@@ -15,9 +15,11 @@ wrapper's limit. The window conv
 sums in another order: fp32 (the CUDA-core kernel) within rtol = atol =
 1e-4; bf16 (the tensor-core kernel) against the plain version in fp32 on
 the same bf16-rounded operands, within rtol = atol = 1e-3, at SECOND's
-shapes and on edge cases: ragged tiles, taps in one row of a tile, center
-taps at tile edges, windows past V, Cin from 4 to 128, unaligned features,
-and at CBGS's stem and transition at 60000 rows. The NMS kernel is also
+shapes, at CBGS's stem and transition at 60000 rows, and on edge cases in
+both precisions: ragged tiles, taps in one row of a tile, center taps at
+tile edges, windows past V, Cin from 4 to 128 and Cout 16 to 128, the
+(3, 1, 1) z conv, unaligned features. The fp32 kernel's geometry equals
+the CPU model of its schedule (ops/window_conv_cuda.py::f32_schedule). The NMS kernel is also
 held on the nuScenes PointPillars step's own inputs, and the appearance-
 order device voxelizer against its host twin at that step's 300000-point
 scans (exact: integer and copy operations). TF32 is off.
@@ -348,11 +350,12 @@ def random_words(o, v, seed, density=0.3, k=9):
     return (r0 | (bits << 24)).astype(np.int32)
 
 
-def conv_bf16_against_plain(dev, packed, v, cin, cout, center_shift, seed=0,
-                            x=None):
-    """The bf16 kernel on ``packed`` against the plain version in fp32 on
-    the same bf16-rounded operands; returns the plain output."""
-    from chip_smoke import CONV_TOL
+def conv_against_plain(dev, packed, v, cin, cout, center_shift, prec,
+                       seed=0, x=None):
+    """The kernel in ``prec`` on ``packed`` against the plain version in
+    fp32 on the same operands (bf16: rounded to bf16), within
+    CONV_TOL[prec]; returns the plain output."""
+    from chip_smoke import CONV_TOL, DTYPES
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
@@ -360,59 +363,70 @@ def conv_bf16_against_plain(dev, packed, v, cin, cout, center_shift, seed=0,
     pk = torch.as_tensor(packed, device=dev)
     if x is None:
         x = torch.as_tensor(r.randn(pk.shape[0], v, cin).astype(np.float32),
-                            device=dev).bfloat16()
+                            device=dev).to(DTYPES[prec])
     kvol = 3 * pk.shape[-1]
     w = torch.as_tensor((r.randn(kvol, cin, cout) / (kvol * cin) ** 0.5)
-                        .astype(np.float32), device=dev).bfloat16()
+                        .astype(np.float32), device=dev).to(DTYPES[prec])
     out = window_conv(x, pk, w, center_shift)
     torch.cuda.synchronize()
     r0, pres = unpack_windows(pk, 3)
     ref = window_conv_ref(x.float(), r0, pres, w.float(), center_shift)
-    torch.testing.assert_close(out, ref, **CONV_TOL["bf16"])
+    torch.testing.assert_close(out, ref, **CONV_TOL[prec])
     return ref
 
 
+# The edge cases below run both kernels: fp32 (the CUDA cores; 128-row
+# tiles, 16-row warp bands, 64 and 8 at Cout 128) and bf16 (the tensor
+# cores; 64-row tiles, 128 at Cout 64).
+PRECS = ["fp32", "bf16"]
+
+
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("center_shift", [True, False])
-@pytest.mark.parametrize("cout", [32, 64])
+@pytest.mark.parametrize("cout", [32, 64, 128])
 @pytest.mark.parametrize("o", [1, 63, 64, 65, 127, 128, 129])
-def test_window_conv_bf16_ragged_tiles(dev, o, cout, center_shift):
-    """O not a multiple of the tile (64 rows below Cout 64, 128 at it): the
-    last tile's rows past O are neither read nor written."""
+def test_window_conv_bf16_ragged_tiles(dev, o, cout, center_shift, prec):
+    """O not a multiple of the tile: the last tile's rows past O are
+    neither read nor written."""
     v = o if center_shift else 97
-    ref = conv_bf16_against_plain(dev, random_words(o, v, o), v, 32, cout,
-                                  center_shift)
+    ref = conv_against_plain(dev, random_words(o, v, o), v, 32, cout,
+                             center_shift, prec)
     assert ref.abs().max() > 0.1
 
 
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("center_shift", [True, False])
-def test_window_conv_bf16_tap_in_one_row(dev, center_shift):
+def test_window_conv_bf16_tap_in_one_row(dev, center_shift, prec):
     """A tap present in exactly one row of a tile (and no other tap in that
-    tile): the tile's tap list holds it alone."""
+    tile): the tile's tap list holds it alone, and in fp32 one warp runs
+    it."""
     o = v = 192
     packed = np.zeros((1, o, 9), np.int32)
     packed[0, 37, 2] = 50 | (0b010 << 24)
     packed[0, 127, 4] = 100 | (0b100 << 24)        # last row of tile 1
     packed[0, 128, 8] = (v - 1) | (0b001 << 24)    # first row of tile 2
-    ref = conv_bf16_against_plain(dev, packed, v, 16, 32, center_shift)
+    ref = conv_against_plain(dev, packed, v, 16, 32, center_shift, prec)
     rows = set(torch.nonzero(ref.abs().sum(-1))[:, 1].tolist())
     assert rows == {37, 127, 128}
 
 
-@pytest.mark.parametrize("cout", [32, 64])
-def test_window_conv_bf16_center_taps_at_tile_edges(dev, cout):
+@pytest.mark.parametrize("prec", PRECS)
+@pytest.mark.parametrize("cout", [32, 64, 128])
+def test_window_conv_bf16_center_taps_at_tile_edges(dev, cout, prec):
     """Submanifold center column at both edges of each tile (64 or 128
-    rows): rows o-1 and o+1 belong to the neighbouring tiles (or lie outside
-    [0, V))."""
+    rows) and warp band: rows o-1 and o+1 belong to the neighbouring tiles
+    (or lie outside [0, V))."""
     o = v = 192
     packed = np.zeros((1, o, 9), np.int32)
     for row in (0, 63, 64, 127, 128, 191):
         packed[0, row, 4] = row | (0b111 << 24)
-    ref = conv_bf16_against_plain(dev, packed, v, 64, cout, True)
+    ref = conv_against_plain(dev, packed, v, 64, cout, True, prec)
     assert float(ref[0, [0, 63, 64, 127, 128, 191]].abs().min()) > 0
 
 
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("center_shift", [True, False])
-def test_window_conv_bf16_windows_past_v(dev, center_shift):
+def test_window_conv_bf16_windows_past_v(dev, center_shift, prec):
     """Present taps on the last rows, windows that clamp at V-1 and run
     past V (those rows read zero)."""
     v = 130
@@ -422,40 +436,81 @@ def test_window_conv_bf16_windows_past_v(dev, center_shift):
         for k in range(9):
             r0 = min(o + k - 4, v + 2) if k != 4 else max(o - 1, 0)
             packed[0, o, k] = max(r0, 0) | (r.randint(1, 8) << 24)
-    ref = conv_bf16_against_plain(dev, packed, v, 32, 32, center_shift)
+    ref = conv_against_plain(dev, packed, v, 32, 32, center_shift, prec)
     assert float(ref[0, -4:].abs().max()) > 0.1
 
 
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("cin,cout", [(4, 16), (5, 16), (12, 32), (24, 64),
-                                      (128, 64)])
+                                      (128, 64), (5, 128), (64, 128),
+                                      (128, 128)])
 @pytest.mark.parametrize("center_shift", [True, False])
-def test_window_conv_bf16_cin(dev, cin, cout, center_shift):
-    """Cin below the MMA depth of 16 (4: the first conv, 8-byte copies),
-    odd (plain copies), not a multiple of 16, and the widest accepted."""
+def test_window_conv_bf16_cin(dev, cin, cout, center_shift, prec):
+    """Cin below the bf16 MMA depth of 16 (4: the first conv, 8-byte copies
+    in bf16), odd (plain copies in bf16, 4-byte cp.async in fp32), not a
+    multiple of 16, and the widest accepted, at every Cout up to 128."""
     o = 300
     v = o if center_shift else 257
-    conv_bf16_against_plain(dev, random_words(o, v, cin), v, cin, cout,
-                            center_shift)
+    conv_against_plain(dev, random_words(o, v, cin), v, cin, cout,
+                       center_shift, prec)
 
 
+@pytest.mark.parametrize("prec", PRECS)
 @pytest.mark.parametrize("center_shift", [True, False])
-def test_window_conv_bf16_wide_window(dev, center_shift):
+def test_window_conv_bf16_wide_window(dev, center_shift, prec):
     """A 5 x 5 BEV window: 75 taps, more than one 64-bit word of tap bits
     per tile."""
     o = v = 200
-    conv_bf16_against_plain(dev, random_words(o, v, 7, k=25), v, 16, 32,
-                            center_shift)
+    conv_against_plain(dev, random_words(o, v, 7, k=25), v, 16, 32,
+                       center_shift, prec)
 
 
-def test_window_conv_bf16_unaligned_features(dev):
-    """Features that start 2 bytes into an allocation (a contiguous view
-    with an offset) take the plain copies and give the same result."""
+@pytest.mark.parametrize("prec", PRECS)
+def test_window_conv_bf16_unaligned_features(dev, prec):
+    """Features that start one element into an allocation (a contiguous
+    view with an offset: 2 bytes in bf16, 4 in fp32) take the narrow
+    copies and give the same result."""
+    from chip_smoke import DTYPES
     o = v = 200
-    buf = torch.randn(1 + v * 16, device=dev).bfloat16()
+    buf = torch.randn(1 + v * 16, device=dev).to(DTYPES[prec])
     x = buf[1:].view(1, v, 16)
     assert x.data_ptr() % 16
-    conv_bf16_against_plain(dev, random_words(o, v, 1), v, 16, 16, True,
-                            x=x)
+    conv_against_plain(dev, random_words(o, v, 1), v, 16, 16, True, prec,
+                       x=x)
+
+
+def test_window_conv_z_conv(dev):
+    """The (3, 1, 1) z conv of SpMiddleResNetFHD without its dense tail:
+    one column (K=1), kz=3, 128 -> 128 channels, in both precisions."""
+    for prec in PRECS:
+        conv_against_plain(dev, random_words(150, 180, 3, k=1), 180, 128,
+                           128, False, prec)
+
+
+def test_window_conv_geometry_matches_schedule_model(dev):
+    """The fp32 kernel's tile rows, warps and warp bands are those
+    f32_schedule models on the CPU."""
+    from det3d_tpu_torch.ops.window_conv_cuda import (F32_GEOMETRY,
+                                                      kernel_geometry)
+    for cout, (tile, band) in F32_GEOMETRY.items():
+        tile_rows, warps, band_rows, stages, rm, rn, ks = kernel_geometry(
+            cout)
+        assert (tile_rows, warps, band_rows) == (tile, tile // band, band)
+        # a warp's lanes cover its band and every channel, ks times over
+        assert band_rows * cout * ks == 32 * rm * rn and stages >= 2
+    with pytest.raises(ValueError):
+        kernel_geometry(24)
+
+
+def test_window_conv_fp32_unaligned_weights_raise(dev):
+    """fp32 weights are staged by 16-byte cp.async: weights off a 16-byte
+    boundary raise, as bf16 ones do."""
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    x = torch.zeros(1, 64, 16, device=dev)
+    pk = torch.zeros(1, 64, 9, dtype=torch.int32, device=dev)
+    wbuf = torch.zeros(1 + 27 * 16 * 32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        window_conv(x, pk, wbuf[1:].view(27, 16, 32), True)
 
 
 def test_window_conv_rejects_bad_inputs(dev):
