@@ -23,14 +23,24 @@ plans, both at KITTI-car scale, then CBGS from host plans at nuScenes
 scale, then PointPillars as shipped for KITTI car and nuScenes, then the
 two configs whose middles serve in fp32, Lyft CBGS and KITTI 3-class
 SECOND, from host plans, all at full widths) and prints one line per
-phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 38, 12, 19,
-25, 36, 37, 13:
+phase, in the order 1 to 11, 39, 40, 14 to 18, 41, 20 to 24, 42, 43, 26
+to 30, 44, 31 to 35, 45, 38, then the profiles 12, 19, 25, 36, 37 each
+with its captured step's (46), then 13.
+
+make_predict_step returns the step a user calls: on the card a
+CapturedStep (parallel/predict.py), one CUDA graph per batch signature.
+The phases that count a step's kernel launches, catch what it feeds the
+NMS kernel, time it against earlier PRs or profile it (4, 6, 9, 11, 12,
+16, 18, 19, 20, 22, 24, 25, 28, 30, 33, 35, 36, 37) call its eager form,
+``step.eager``: a captured step's Python counters move only while it is
+captured. Phases 39-46 drive the captured step itself.
 
   1. device: the card, as nvidia-smi names it, and its power limit;
   2. build: nvcc builds csrc/rotated_nms.cu and csrc/window_conv.cu
-     (sm_90a) from the checkout, one process each, in parallel; prints each
-     kernel's registers and spills (-Xptxas -v) and the HMMA instructions
-     in window_conv's SASS (cuobjdump, where the toolkit has it: a bf16
+     (sm_90a) and g++ csrc/hostplan.cc (the host-plan builders) from the
+     checkout, one process each, in parallel; prints each kernel's
+     registers and spills (-Xptxas -v) and the HMMA instructions in
+     window_conv's SASS (cuobjdump, where the toolkit has it: a bf16
      kernel without one fails);
   3. NMS kernel against plain: the rotated-NMS keep masks of the CUDA
      kernel and of its plain PyTorch twin, on the card, must be equal at
@@ -56,7 +66,11 @@ phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 38, 12, 19,
      voxels, 20000 voxels of 5 points, bf16 middle; random weights from
      torch.Generator().manual_seed(0), BatchNorm statistics calibrated on
      one scan), host_plan_fn builds the rulebooks and voxels of B=2
-     structured scans of 16384 points;
+     structured scans of 16384 points with the native builders
+     (csrc/hostplan.cc), which must equal host_plan_ref_fn's numpy build
+     in every key (dtype, shape, values); both builds' ms/scan on one
+     thread with the host's CPU model (host_build_vs_numpy; phases 14,
+     21, 26 and 31 do the same on their batches);
   8. window-conv kernel against plain: on those plans, at every
      (Cin, Cout, center_shift) the middle launches, with random features
      and weights, in fp32 (rtol = atol = 1e-4) and bf16 (against the plain
@@ -181,12 +195,31 @@ phase, in the order 1 to 11, 14 to 18, 20 to 24, 26 to 35, 38, 12, 19,
      against the CPU's, in fp32 within the stated tolerance and in bf16
      closer to the CPU's bf16 middle than that is to the CPU's fp32 one,
      the card's window conv launched once per sparse layer (16 and 21);
- 12. SECOND profile: torch.profiler over 5 predict steps, device time by
-     kernel (the window-conv kernels summed) and the device's busy share;
+ 39-45. the captured step of each path (phase_captured): the flagship
+     (39), SECOND (40), CBGS (41), KITTI car PointPillars (42), nuScenes
+     PointPillars (43), Lyft (44), KITTI-all (45), each on its bench batch:
+     one eager step on device inputs under
+     torch.cuda.set_sync_debug_mode("error"); the kernel launches counted
+     while the step is captured, equal to the eager step's; the captured
+     detections against the eager step's on the same batch (labels and
+     valid equal, boxes and scores within DET_TOL, the worst element
+     named); a second call replayed without a new capture; ms/batch eager
+     and captured from the numpy batch in turns (e c c e), the copy to the
+     card included and printed apart;
+ 12. SECOND profile: torch.profiler over 5 eager predict steps, device
+     time by kernel (the window-conv kernels summed) and the device's
+     busy share;
  19. CBGS profile, the same over 3 steps;
  25. nuScenes PointPillars profile, the same over 5 steps;
  36. Lyft profile, the same over 3 steps;
  37. KITTI-all profile, the same over 5 steps;
+ 46. each path's captured step under torch.profiler (replays, after the
+     eager profile where there is one): the device's busy share; then
+     REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
+     in the same session, whose window-conv and NMS kernels counted by
+     name must reach, and never pass, the launches counted during the
+     capture (replay_counts: the profiler now and then loses a kernel's
+     record, and never adds one);
  13. the NMS kernel alone at the flagship's and SECOND's shapes, on one
      cluster, and on the inputs the flagship, SECOND, CBGS, both
      PointPillars, Lyft and KITTI-all predict steps feed it: the share of
@@ -584,8 +617,9 @@ def phase_build():
         list(pool.map(csrc.load, csrc.SOURCES))          # one nvcc each
     names = ", ".join(csrc.library_path(n).name for n in csrc.SOURCES)
     log(f"phase 2 build: {names} in "
-        f"{(time.perf_counter() - t0) * 1e3:.0f} ms (parallel nvcc)")
-    for src in csrc.SOURCES:
+        f"{(time.perf_counter() - t0) * 1e3:.0f} ms (one nvcc or g++ each, "
+        f"in parallel)")
+    for src in csrc.CUDA_SOURCES:
         logf = csrc.build_log(src)
         report = ptxas_report(logf.read_text()) if logf.is_file() else {}
         for kern, (regs, st, ld) in sorted(report.items()):
@@ -661,7 +695,7 @@ def phase_predict(dev, batch):
     model = model.to(dev)
     step = make_predict_step(model, vg, asg, cids, test_cfg)
     rotated_nms_keep.launches = window_conv.launches = 0
-    out = step(batch)
+    out = step.eager(batch)
     torch.cuda.synchronize()
     launches = {"rotated_nms_keep": rotated_nms_keep.launches,
                 "window_conv": window_conv.launches}
@@ -819,7 +853,7 @@ def phase_timing(dev, stack, batch, smi):
     model, vg, asg, test_cfg, step = stack
     batch_d = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
     torch.cuda.reset_peak_memory_stats()
-    predict_ms = cuda_ms(lambda: step(batch_d))
+    predict_ms = cuda_ms(lambda: step.eager(batch_d))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"phase 6 predict B={B}: {predict_ms:.3f} ms/batch, "
         f"{predict_ms / B:.3f} ms/scan, {B * 1e3 / predict_ms:.1f} scans/s, "
@@ -849,7 +883,7 @@ def phase_timing(dev, stack, batch, smi):
         f"{nms_ms['plain']:.4f} ms [{smi}]")
 
     torch.backends.cudnn.allow_tf32 = True
-    tf32_ms = cuda_ms(lambda: step(batch_d))
+    tf32_ms = cuda_ms(lambda: step.eager(batch_d))
     torch.backends.cudnn.allow_tf32 = False
     log(f"phase 6 predict B={B} with cuDNN TF32 on (PyTorch's default): "
         f"{tf32_ms:.3f} ms/batch, {tf32_ms / B:.3f} ms/scan")
@@ -1114,6 +1148,66 @@ def conv_cases(plan, dev, dtype, layers=SECOND_LAYERS):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def cpu_model():
+    """The host CPU as /proc/cpuinfo describes it: its model name, or,
+    where the kernel reports none ("unknown"), its vendor, family and
+    model numbers; its logical CPUs and clock."""
+    info, cpus = {}, 0
+    for line in Path("/proc/cpuinfo").read_text().splitlines():
+        key, _, val = (part.strip() for part in line.partition(":"))
+        if key == "processor":
+            cpus += 1
+        info.setdefault(key, val)
+    name = info.get("model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"{info.get('vendor_id', '?')} family "
+                f"{info.get('cpu family', '?')} model "
+                f"{info.get('model', '?')} (no model name reported)")
+    return f"{name}, {cpus} logical CPUs at {info.get('cpu MHz', '?')} MHz"
+
+
+def host_build_vs_numpy(cfg, batch, label, rounds=3):
+    """The host build of ``batch`` as the serving path runs it
+    (apis/train.py::host_plan_fn: csrc/hostplan.cc's native builders)
+    against the numpy plain versions (host_plan_ref_fn): every key equal
+    in dtype, shape and values. Both builds timed warm, in turns, on one
+    thread (median of ``rounds``), printed in ms/scan with the host's CPU
+    model. Returns (the native build, its ms/scan)."""
+    from det3d_tpu_torch.apis.train import (build_stack, host_plan_fn,
+                                            host_plan_ref_fn)
+    model, vg = build_stack(cfg, device="cpu")[:2]
+    fns = {"native": host_plan_fn(model, vg, voxelize=True),
+           "numpy": host_plan_ref_fn(model, vg, voxelize=True)}
+    pts, n = batch["points"], batch["num_points"]
+    out, times = {}, {name: [] for name in fns}
+    for name, fn in fns.items():
+        fn(pts[:1], n[:1])                                  # warm
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            t0 = time.perf_counter()
+            out[name] = fns[name](pts, n)
+            times[name].append((time.perf_counter() - t0) * 1e3
+                               / pts.shape[0])
+    ms = {name: statistics.median(t) for name, t in times.items()}
+    nat, ref = out["native"], out["numpy"]
+    if sorted(nat) != sorted(ref):
+        raise AssertionError(f"{label}: native keys {sorted(nat)}, numpy "
+                             f"{sorted(ref)}")
+    for k in ref:
+        if (nat[k].dtype != ref[k].dtype
+                or not np.array_equal(nat[k], ref[k])):
+            raise AssertionError(f"{label}: the native host build's {k} "
+                                 f"differs from numpy's")
+    log(f"{label} host build B={pts.shape[0]} P={pts.shape[1]}: native "
+        f"(csrc/hostplan.cc) {ms['native']:.1f} ms/scan, numpy "
+        f"{ms['numpy']:.1f} ms/scan ({ms['numpy'] / ms['native']:.2f}x), "
+        f"warm, one thread, median of {rounds} in turns, on the host's "
+        f"{cpu_model()}; all {len(ref)} keys equal (dtype, shape, values): "
+        + ", ".join(f"{k} {tuple(v.shape)}" for k, v in ref.items()))
+    return nat, ms["native"]
+
+
 def plan_builder(cfg):
     """A sparse-middle config's host plan builder (voxels and rulebooks),
     on the CPU; the weights play no part in it."""
@@ -1123,14 +1217,12 @@ def plan_builder(cfg):
 
 
 def phase_second_plan(batch):
-    """The host plan and voxels of B=2 scans, and its build time."""
-    plan_fn = plan_builder(second_config())
-    plan_fn(batch["points"], batch["num_points"])             # warm
-    t0 = time.perf_counter()
-    plan = plan_fn(batch["points"], batch["num_points"])
-    plan_ms = (time.perf_counter() - t0) * 1e3 / SECOND_B
+    """The host plan and voxels of B=2 scans, native against numpy
+    (host_build_vs_numpy), and the native build's time."""
+    plan, plan_ms = host_build_vs_numpy(second_config(), batch,
+                                        "phase 7 SECOND")
     log(f"phase 7 SECOND host plan B={SECOND_B} P={POINTS}: "
-        f"{plan_ms:.1f} ms/scan on the host (numpy, one process); voxels "
+        f"{plan_ms:.1f} ms/scan on the host (native); voxels "
         f"per scan {plan['num_voxels'].tolist()}, stage rows "
         + ", ".join(f"{k} {tuple(v.shape)}" for k, v in plan.items()
                     if k.startswith("plan_")))
@@ -1216,7 +1308,7 @@ def sparse_predict(dev, stack, batch, plan, shape_expected,
     step = make_predict_step(model, vg, asg, cids, test_cfg)
     data = dict(batch, **plan)
     window_conv.launches = rotated_nms_keep.launches = 0
-    out = step(data)
+    out = step.eager(data)
     torch.cuda.synchronize()
     launches = {"window_conv": window_conv.launches,
                 "rotated_nms_keep": rotated_nms_keep.launches}
@@ -1320,7 +1412,7 @@ def step_timing(dev, stack, plan_ms, smi, label):
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
     b = data_d["points"].shape[0]
     torch.cuda.reset_peak_memory_stats()
-    predict_ms = cuda_ms(lambda: step(data_d))
+    predict_ms = cuda_ms(lambda: step.eager(data_d))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     log(f"{label} predict B={b}: {predict_ms:.3f} ms/batch, "
         f"{predict_ms / b:.3f} ms/scan device step, "
@@ -1469,21 +1561,100 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
     return fwd
 
 
-def phase_profile(stack, dev, smi, steps=5, top=12, label="phase 12 SECOND",
-                  batch=SECOND_B):
-    """torch.profiler over ``steps`` predict steps of a sparse-middle stack
-    (phase 12: SECOND's; phase 19: CBGS's): device time by kernel and the
-    device's busy share of the window."""
-    from torch.profiler import ProfilerActivity, profile
-    step, data = stack[4], stack[5]
+def phase_captured(dev, step, data, launches, smi, label):
+    """The predict step as a user calls it: ``step`` (make_predict_step's
+    CapturedStep) on ``data`` (numpy scans, with their host voxels and
+    plan). In order:
+      - one eager step on the batch's device copy under
+        torch.cuda.set_sync_debug_mode("error"): the step waits for the
+        card nowhere (any synchronizing call raises);
+      - the capture (after step.warm_up), the kernels' launch counts set to
+        0 just before it and read just after: the eager step's ``launches``
+        exactly;
+      - the captured step's detections against the eager step's on the
+        same batch: valid masks and labels equal, boxes and scores within
+        DET_TOL absolute, the worst element named (check_decode); a second
+        call replays without a new capture;
+      - ms/batch of the eager and the captured step from the numpy batch,
+        the copy to the card included, in turns (e c c e: interleaved_ms,
+        WARMUP warm-ups, median of REPEAT, CUDA events), and each step's
+        copy alone (the eager step's pageable .to(), the captured step's
+        pinned staging, _Graph.stage).
+    Returns {"launches", "eager", "captured", "copy"}."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
-    step(data_d)
+    step.eager(data_d)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.eager(data_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"{label} eager step on device inputs under "
+        f"set_sync_debug_mode('error'): no synchronizing call")
+
+    step.warm_up(data)
+    window_conv.launches = rotated_nms_keep.launches = 0
+    entry = step.capture(data)
+    torch.cuda.synchronize()
+    captured = {"window_conv": window_conv.launches,
+                "rotated_nms_keep": rotated_nms_keep.launches}
+    if captured != launches:
+        raise AssertionError(f"{label}: the capture launched {captured}, "
+                             f"the eager step {launches}")
+    out = step(data)
+    ref = {k: v.cpu() for k, v in step.eager(data).items()}
+    agree = check_decode(out, ref, f"{label} captured vs eager")
+    step(data)
+    if len(step.graphs) != 1:
+        raise AssertionError(f"{label}: {len(step.graphs)} graphs for one "
+                             f"batch signature")
+    log(f"{label} captured step (one CUDA graph, captured once): kernel "
+        f"launches counted during the capture {captured}; against the "
+        f"eager step on the same batch: {agree}; a second call replayed "
+        f"without a new capture")
+
+    ms = interleaved_ms({"eager": lambda: step.eager(data),
+                         "captured": lambda: step(data)})
+    on_card = interleaved_ms({"eager": lambda: step.eager(data_d),
+                              "captured": lambda: step(data_d)})
+    tensors = step.tensors(data)
+    copy = interleaved_ms({
+        "eager": lambda: {k: v.to(dev) for k, v in tensors.items()},
+        "captured": lambda: entry.stage(tensors)})
+    mib = sum(t.numel() * t.element_size() for t in tensors.values()) / 2**20
+    b = data["points"].shape[0]
+    log(f"{label} ms/batch B={b} from the numpy batch, copy to the card "
+        f"included, in turns (e c c e): eager {ms['eager']:.3f}, captured "
+        f"{ms['captured']:.3f} ({ms['eager'] / ms['captured']:.2f}x; "
+        f"{ms['captured'] / b:.3f} ms/scan, "
+        f"{b * 1e3 / ms['captured']:.1f} scans/s); the copy of the "
+        f"batch's {mib:.1f} MiB alone: eager (pageable) "
+        f"{copy['eager']:.3f} ms, captured (pinned staging) "
+        f"{copy['captured']:.3f} ms [{smi}]")
+    log(f"{label} ms/batch B={b} from the batch already on the card, in "
+        f"turns: eager {on_card['eager']:.3f}, captured "
+        f"{on_card['captured']:.3f} "
+        f"({on_card['eager'] / on_card['captured']:.2f}x); device memory "
+        f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB [{smi}]")
+    return {"launches": captured, "eager": ms["eager"],
+            "captured": ms["captured"], "copy": copy, "on_card": on_card}
+
+
+def profile_steps(run, steps):
+    """torch.profiler over ``steps`` calls of ``run()`` after one outside
+    it: (ms a step on the host's clock, [(device ms a step, launches a
+    step, kernel name)])."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            step(data_d)
+            run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -1491,15 +1662,23 @@ def phase_profile(stack, dev, smi, steps=5, top=12, label="phase 12 SECOND",
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
             t = getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0))
-            kernels.append((t / 1e3 / steps, e.count // steps, e.key))
+            # rounded: the profiler loses a kernel's record now and then
+            kernels.append((t / 1e3 / steps, round(e.count / steps), e.key))
+    return wall / steps, kernels
+
+
+def log_profile(label, wall, kernels, steps, batch, smi, top=12):
+    """Log a profile_steps result: the device's busy share of the window,
+    the ``top`` kernels by device time, the window-conv kernels summed.
+    Returns the busy ms a step (None: the profiler saw no device time)."""
     busy = sum(k[0] for k in kernels)
     if busy <= 0:
         log(f"{label} profile: the profiler saw no device time "
             "(not measured)")
-        return
+        return None
     log(f"{label} profile, {steps} steps B={batch} under "
-        f"torch.profiler: {wall / steps:.3f} ms/step, device busy "
-        f"{busy:.3f} ms/step ({busy / (wall / steps):.2f} of the window), "
+        f"torch.profiler: {wall:.3f} ms/step, device busy "
+        f"{busy:.3f} ms/step ({busy / wall:.2f} of the window), "
         f"{sum(k[1] for k in kernels)} kernels/step [{smi}]")
     for t, n, name in sorted(kernels, reverse=True)[:top]:
         log(f"{label}   {t:8.3f} ms/step  x{n:<4d} {name[:90]}")
@@ -1507,6 +1686,87 @@ def phase_profile(stack, dev, smi, steps=5, top=12, label="phase 12 SECOND",
     if conv:
         log(f"{label} window-conv kernels: {sum(k[0] for k in conv):.3f} "
             f"ms/step over {sum(k[1] for k in conv)} launches")
+    return busy
+
+
+def phase_profile(stack, dev, smi, steps=5, top=12, label="phase 12 SECOND",
+                  batch=SECOND_B):
+    """torch.profiler over ``steps`` eager predict steps of a sparse-middle
+    stack (phase 12: SECOND's; phase 19: CBGS's): device time by kernel
+    and the device's busy share of the window."""
+    step, data = stack[4], stack[5]
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    wall, kernels = profile_steps(lambda: step.eager(data_d), steps)
+    log_profile(label, wall, kernels, steps, batch, smi, top)
+
+
+# single-replay profiles a captured step's kernel count is confirmed over
+REPLAY_WINDOWS = 5
+
+
+def replay_counts(run, windows=REPLAY_WINDOWS):
+    """The window-conv, NMS mask and NMS scan kernels, and all kernels, by
+    name in ``windows`` torch.profiler sessions of one ``run()`` each,
+    after one warm-up ``run()`` in the same session (the profiler's
+    schedule traces it and drops its records). A list of dicts, one a
+    session."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    out = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            for _ in range(2):
+                run()
+                torch.cuda.synchronize()
+                prof.step()
+        c = dict.fromkeys(("window_conv", "rotated_nms_keep", "nms_scan",
+                           "all"), 0)
+        for e in prof.key_averages():
+            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+                continue
+            c["all"] += e.count
+            if "window_conv" in e.key:
+                c["window_conv"] += e.count
+            elif "nms_mask_kernel" in e.key:
+                c["rotated_nms_keep"] += e.count
+            elif "nms_scan_kernel" in e.key:
+                c["nms_scan"] += e.count
+        out.append(c)
+    return out
+
+
+def phase_captured_profile(dev, step, data, launches, smi, label, steps=5):
+    """torch.profiler over ``steps`` replays of the captured step
+    (phase_captured) on its batch's device copy: the device's busy share
+    and the kernels by name. Then the window-conv and NMS kernels of a
+    replay by name (replay_counts) against the launches counted during
+    the capture (the Python counters do not move on replay): in each
+    single-replay profile at most those, and in some profile exactly
+    those, per kernel."""
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+    b = data_d["points"].shape[0]
+    wall, kernels = profile_steps(lambda: step(data_d), steps)
+    busy = log_profile(f"{label} captured", wall, kernels, steps, b, smi)
+    if busy is None:
+        return None
+    windows = replay_counts(lambda: step(data_d))
+    want = dict(launches, nms_scan=launches["rotated_nms_keep"])
+    seen = {k: max(w[k] for w in windows) for k in want}
+    log(f"{label} captured: kernels of one replay by name in "
+        f"{len(windows)} single-replay profiles (window conv, NMS mask, NMS "
+        f"scan, all): "
+        + ", ".join(f"({w['window_conv']}, {w['rotated_nms_keep']}, "
+                    f"{w['nms_scan']}, {w['all']})" for w in windows)
+        + f"; counted during the capture {launches}; profiles with every "
+        f"kernel of a replay recorded: "
+        f"{sum(w['all'] == max(x['all'] for x in windows) for w in windows)}"
+        f" of {len(windows)}")
+    if seen != want:
+        raise AssertionError(f"{label}: one replay ran at most {seen} by "
+                             f"name, the capture counted {want}")
+    return {"busy": busy, "wall": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -1548,14 +1808,13 @@ def cbgs_stack(device, precision=None, cut=False):
 
 
 def phase_cbgs_plan(batch):
-    """The host plan and voxels of CBGS_B scans of CBGS_POINTS points, and
-    its build time."""
-    plan_fn = plan_builder(cbgs_config())
-    t0 = time.perf_counter()
-    plan = plan_fn(batch["points"], batch["num_points"])
-    plan_ms = (time.perf_counter() - t0) * 1e3 / CBGS_B
+    """The host plan and voxels of CBGS_B scans of CBGS_POINTS points,
+    native against numpy (host_build_vs_numpy), and the native build's
+    time."""
+    plan, plan_ms = host_build_vs_numpy(cbgs_config(), batch,
+                                        "phase 14 CBGS")
     log(f"phase 14 CBGS host plan B={CBGS_B} P={CBGS_POINTS}: "
-        f"{plan_ms:.1f} ms/scan on the host (numpy, one process); voxels "
+        f"{plan_ms:.1f} ms/scan on the host (native); voxels "
         f"per scan {plan['num_voxels'].tolist()}, stage rows "
         + ", ".join(f"{k} {tuple(v.shape)}" for k, v in plan.items()
                     if k.startswith("plan_")))
@@ -1578,7 +1837,7 @@ def nms_fed(stack, expected, label):
     """What one step of ``stack`` passes to the NMS kernel (step_nms_inputs),
     which must be ``expected`` = (N, K, thr)."""
     step, data = stack[4], stack[5]
-    nms_in = step_nms_inputs(lambda: step(data))
+    nms_in = step_nms_inputs(lambda: step.eager(data))
     fed = (*nms_in[0].shape[:2], nms_in[3])
     log(f"{label} NMS kernel fed N={fed[0]} K={fed[1]} thr {fed[2]}")
     if fed != tuple(expected):
@@ -1733,15 +1992,14 @@ def pp_predict(dev, path, batch, vox, shape, fed, label, min_labels=1):
 
 def phase_nusc_pp_voxels(dev, batch):
     """nuScenes PointPillars' host voxels of the bench batch (appearance
-    order) and their time, the pillars before and after the cap, and the
-    device voxelizer on the card against them, array for array."""
-    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    order), native against numpy (host_build_vs_numpy), the native
+    build's time, the pillars before and after the cap, and the device
+    voxelizer on the card against them, array for array."""
+    from det3d_tpu_torch.apis.train import build_stack
     from det3d_tpu_torch.ops import sparse_host as sph
-    model, vg = build_stack(pp_config(NUSC_PP_CFG), device="cpu")[:2]
-    vox_fn = host_plan_fn(model, vg, voxelize=True)
-    t0 = time.perf_counter()
-    vox = vox_fn(batch["points"], batch["num_points"])
-    host_ms = (time.perf_counter() - t0) * 1e3 / CBGS_B
+    vg = build_stack(pp_config(NUSC_PP_CFG), device="cpu")[1]
+    vox, host_ms = host_build_vs_numpy(pp_config(NUSC_PP_CFG), batch,
+                                       "phase 21 nuScenes PointPillars")
     occupied = []
     for pts, n in zip(batch["points"], batch["num_points"]):
         lin = sph.point_lin(pts, n, vg.voxel_size, vg.point_cloud_range,
@@ -1749,7 +2007,7 @@ def phase_nusc_pp_voxels(dev, batch):
         occupied.append(len(np.unique(lin[lin != sph.SENTINEL])))
     log(f"phase 21 nuScenes PointPillars host voxels B={CBGS_B} "
         f"P={CBGS_POINTS} ({vg.order} order): {host_ms:.1f} ms/scan on the "
-        f"host (numpy, one process); pillars per scan {occupied} occupied, "
+        f"host (native); pillars per scan {occupied} occupied, "
         f"{vox['num_voxels'].tolist()} kept under the cap of "
         f"{vg.max_voxels}; points per pillar capped at {vg.max_num_points} "
         f"in {int((vox['num_points_per_voxel'] == vg.max_num_points).sum())}"
@@ -1923,7 +2181,7 @@ def pp_timing(dev, stack, host_ms, nms_in, smi, label):
     pts = {k: data_d[k] for k in ("points", "num_points")}
     b = pts["points"].shape[0]
     torch.cuda.reset_peak_memory_stats()
-    predict_ms = cuda_ms(lambda: step(data_d))
+    predict_ms = cuda_ms(lambda: step.eager(data_d))
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     host = (f"; host voxelization {host_ms:.1f} ms/scan apart"
             if host_ms else " (the device voxelizer inside)")
@@ -1931,7 +2189,7 @@ def pp_timing(dev, stack, host_ms, nms_in, smi, label):
         f"{predict_ms / b:.3f} ms/scan, {b * 1e3 / predict_ms:.1f} scans/s, "
         f"peak memory {peak:.0f} MiB{host} [{smi}]")
     if host_ms:
-        dev_ms = cuda_ms(lambda: step(pts))
+        dev_ms = cuda_ms(lambda: step.eager(pts))
         log(f"{label} predict B={b}, the device-voxelized route of the same "
             f"step: {dev_ms:.3f} ms/batch, {dev_ms / b:.3f} ms/scan")
     with torch.no_grad():
@@ -1967,7 +2225,7 @@ class Fp32Path:
     step feeds the NMS kernel (``nms``: N, K, thr), the card-vs-CPU cut
     (``cut``: extent, voxels, points; None: the full range at B=1), and
     the numbers of its phases (plan, kernels, predict, card vs CPU,
-    timing, profile)."""
+    timing, profile, captured step)."""
 
     def __init__(self, key, name, cfg, points, five, layers, dets, nms, cut,
                  phases, b=2):
@@ -1994,11 +2252,17 @@ class Fp32Path:
 
 LYFT = Fp32Path("lyft", "Lyft CBGS", LYFT_CFG, 300000, True, CBGS_LAYERS,
                 5 * 83, (2 * 5, 1000, 0.2), (12.8, 8000, 40000),
-                (26, 27, 28, 29, 30, 36))
+                (26, 27, 28, 29, 30, 36, 44))
 KITTI_ALL = Fp32Path("kitti_all", "KITTI-all SECOND", KITTI_ALL_CFG, POINTS,
                      False, SECOND_LAYERS, 100, (2 * 3, 1000, 0.01), None,
-                     (31, 32, 33, 34, 35, 37))
+                     (31, 32, 33, 34, 35, 37, 45))
 FP32_PATHS = {p.key: p for p in (LYFT, KITTI_ALL)}
+# the seven predict steps as chip_smoke captures them (phases 39-45), in
+# the order of their profiles (phase 46)
+CAPTURED_PATHS = (("flagship", "flagship"), ("second", "SECOND"),
+                  ("cbgs", "CBGS"), ("kitti_pp", "KITTI car PointPillars"),
+                  ("nusc_pp", "nuScenes PointPillars"),
+                  ("lyft", "Lyft CBGS"), ("kitti_all", "KITTI-all SECOND"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -2015,23 +2279,20 @@ def fp32_stack(path, device, cut=False):
 
 
 def phase_fp32_plan(path, batch):
-    """The host plan and voxels of the bench batch, their build time, and
-    the voxels each scan occupies before the cap."""
-    from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+    """The host plan and voxels of the bench batch, native against numpy
+    (host_build_vs_numpy), the native build's time, and the voxels each
+    scan occupies before the cap."""
+    from det3d_tpu_torch.apis.train import build_stack
     from det3d_tpu_torch.ops import sparse_host as sph
-    model, vg = build_stack(path.config(), device="cpu")[:2]
-    plan_fn = host_plan_fn(model, vg, train=False, voxelize=True)
-    plan_fn(batch["points"][:1], batch["num_points"][:1])         # warm
-    t0 = time.perf_counter()
-    plan = plan_fn(batch["points"], batch["num_points"])
-    plan_ms = (time.perf_counter() - t0) * 1e3 / path.b
+    vg = build_stack(path.config(), device="cpu")[1]
+    plan, plan_ms = host_build_vs_numpy(path.config(), batch, path.label(0))
     occupied = []
     for pts, n in zip(batch["points"], batch["num_points"]):
         lin = sph.point_lin(pts, n, vg.voxel_size, vg.point_cloud_range,
                             vg.grid_size)
         occupied.append(len(np.unique(lin[lin != sph.SENTINEL])))
     log(f"{path.label(0)} host plan B={path.b} P={path.points}: "
-        f"{plan_ms:.1f} ms/scan on the host (numpy, one process); voxels "
+        f"{plan_ms:.1f} ms/scan on the host (native); voxels "
         f"per scan {occupied} occupied, {plan['num_voxels'].tolist()} kept "
         f"under the cap of {vg.max_voxels}; stage rows "
         + ", ".join(f"{k} {tuple(v.shape)}" for k, v in plan.items()
@@ -2287,9 +2548,10 @@ def phase_fp32_timing(dev, path, stack, plan_ms, nms_in, smi):
 
 
 def run_fp32_path(dev, path, smi):
-    """Phases plan, kernels, predict, card vs CPU and timing of one fp32
-    path. Returns what main() reports: (stack, launches, NMS inputs, the
-    window conv's worst error, its timing, the NMS timing)."""
+    """Phases plan, kernels, predict, card vs CPU, timing and the captured
+    step of one fp32 path. Returns what main() reports: (stack, launches,
+    NMS inputs, the window conv's worst error, its timing, the NMS timing,
+    the captured step's phase_captured result)."""
     batch = path.scans(path.b, path.points)
     plan, plan_ms = phase_fp32_plan(path, batch)
     conv_err = phase_conv_kernel(dev, plan, path.layers, path.label(1),
@@ -2297,7 +2559,9 @@ def run_fp32_path(dev, path, smi):
     stack, launches, nms_in = phase_fp32_predict(dev, path, batch, plan)
     phase_fp32_cpu(dev, path, stack)
     conv, nms = phase_fp32_timing(dev, path, stack, plan_ms, nms_in, smi)
-    return stack, launches, nms_in, conv_err, conv, nms
+    cap = phase_captured(dev, stack[4], stack[5], launches, smi,
+                         path.label(6))
+    return stack, launches, nms_in, conv_err, conv, nms, cap
 
 
 # ---------------------------------------------------------------------------
@@ -2408,9 +2672,10 @@ def phase_cbgs_variants(dev, batch, smi):
 
 def conv_timing_main(tree, prec, paths):
     """--conv-timing: phase 1, then for each of ``paths`` its host plan
-    (phase 7, or the fp32 path's plan phase) and the window-conv timing in
-    ``prec`` on it (conv_timing; by default bf16 on SECOND's plan, fp32 on
-    Lyft's and KITTI-all's), with det3d_tpu_torch imported from ``tree``."""
+    (plan_builder: the tree's own host_plan_fn) and the window-conv timing
+    in ``prec`` on it (conv_timing; by default bf16 on SECOND's plan, fp32
+    on Lyft's and KITTI-all's), with det3d_tpu_torch imported from
+    ``tree``."""
     if tree:
         sys.path.insert(0, str(Path(tree).resolve()))
     smi = phase_device()
@@ -2420,13 +2685,15 @@ def conv_timing_main(tree, prec, paths):
     dev = torch.device("cuda", 0)
     for key in paths:
         if key == "second":
-            sec_range = second_config()["voxel_generator"]["range"]
-            batch = structured_batch(SECOND_B, POINTS, sec_range, seed=SEED)
-            plan, layers = phase_second_plan(batch)[0], SECOND_LAYERS
+            cfg, layers = second_config(), SECOND_LAYERS
+            batch = structured_batch(SECOND_B, POINTS,
+                                     cfg["voxel_generator"]["range"],
+                                     seed=SEED)
         else:
             path = FP32_PATHS[key]
-            plan = phase_fp32_plan(path, path.scans(path.b, path.points))[0]
-            layers = path.layers
+            cfg, layers = path.config(), path.layers
+            batch = path.scans(path.b, path.points)
+        plan = plan_builder(cfg)(batch["points"], batch["num_points"])
         conv_timing(dev, {k: v for k, v in plan.items()
                           if k.startswith("plan_")},
                     smi, prec or ("bf16" if key == "second" else "fp32"),
@@ -2479,7 +2746,12 @@ def main():
     stack, state, flagship = phase_predict(dev, batch)
     phase_cpu(dev, stack[0], state, batch)
     nms_times = phase_timing(dev, stack, batch, smi)
-    flagship_in = step_nms_inputs(lambda: stack[4](batch))
+    flagship_in = step_nms_inputs(lambda: stack[4].eager(batch))
+    # the captured steps, kept for their profiles at the end, and what
+    # phase_captured measured of each
+    captured = {"flagship": stack[4]}
+    caps = {"flagship": phase_captured(dev, stack[4], batch, flagship, smi,
+                                       "phase 39 flagship")}
     del stack, state
     torch.cuda.empty_cache()
 
@@ -2490,6 +2762,8 @@ def main():
     sec_stack, launches = phase_second_predict(dev, sec_batch, plan)
     phase_second_cpu(dev, sec_batch)
     conv = phase_second_timing(dev, sec_stack, plan_ms, smi)
+    caps["second"] = phase_captured(dev, sec_stack[4], sec_stack[5],
+                                    launches, smi, "phase 40 SECOND")
 
     cbgs_range = cbgs_config()["voxel_generator"]["range"]
     cbgs_data = cbgs_batch(CBGS_B, CBGS_POINTS, cbgs_range)
@@ -2500,6 +2774,8 @@ def main():
     phase_cbgs_cpu(dev, cbgs_stack_)
     cbgs_conv, cbgs_nms = phase_cbgs_timing(dev, cbgs_stack_, cbgs_plan_ms,
                                             cbgs_in, smi)
+    caps["cbgs"] = phase_captured(dev, cbgs_stack_[4], cbgs_stack_[5],
+                                  cbgs_launches, smi, "phase 41 CBGS")
 
     # PointPillars as shipped: KITTI car on the flagship's batch through the
     # device voxelizer, nuScenes on CBGS's batch (the same range and
@@ -2517,26 +2793,64 @@ def main():
               "phase 24 KITTI car PointPillars")
     nusc_nms = pp_timing(dev, nusc_stack, nusc_host_ms, nusc_in, smi,
                          "phase 24 nuScenes PointPillars")
+    caps["kitti_pp"] = phase_captured(dev, kitti_stack[4], kitti_stack[5],
+                                      kitti_launches, smi,
+                                      "phase 42 KITTI car PointPillars")
+    caps["nusc_pp"] = phase_captured(dev, nusc_stack[4], nusc_stack[5],
+                                     nusc_launches, smi,
+                                     "phase 43 nuScenes PointPillars")
 
     # the fp32 middles: Lyft on 300000-point scans over +-100.8 m (phases
     # 26-30), KITTI-all on SECOND's scans (31-35)
     fp32 = {p.key: run_fp32_path(dev, p, smi) for p in (LYFT, KITTI_ALL)}
+    caps.update({k: v[6] for k, v in fp32.items()})
     # CBGS's middle with dense_from=3 and without the dense tail (38)
     phase_cbgs_variants(dev, cbgs_data, smi)
 
-    # torch.profiler after every step is timed; the inputs the three
-    # predict steps feed the kernel beside the synthetic cases
-    phase_profile(sec_stack, dev, smi)
-    phase_profile(cbgs_stack_, dev, smi, steps=3, label="phase 19 CBGS",
-                  batch=CBGS_B)
-    phase_profile(nusc_stack, dev, smi, label="phase 25 nuScenes "
-                  "PointPillars", batch=CBGS_B)
-    for p, steps in ((LYFT, 3), (KITTI_ALL, 5)):
-        phase_profile(fp32[p.key][0], dev, smi, steps=steps,
-                      label=p.label(5), batch=p.b)
+    # torch.profiler after every step is timed: each eager profile, then
+    # the captured step's beside it (phase 46), the flagship's and KITTI
+    # car PointPillars' captured steps alone; then the inputs the predict
+    # steps feed the NMS kernel beside the synthetic cases
+    stacks = {"second": sec_stack, "cbgs": cbgs_stack_,
+              "kitti_pp": kitti_stack, "nusc_pp": nusc_stack,
+              "lyft": fp32["lyft"][0], "kitti_all": fp32["kitti_all"][0]}
+    captured.update({k: v[4] for k, v in stacks.items()})
+    batches = {k: v[5] for k, v in stacks.items()}
+    batches["flagship"] = batch
+    eager_profiles = {
+        "second": lambda: phase_profile(sec_stack, dev, smi),
+        "cbgs": lambda: phase_profile(cbgs_stack_, dev, smi, steps=3,
+                                      label="phase 19 CBGS", batch=CBGS_B),
+        "nusc_pp": lambda: phase_profile(
+            nusc_stack, dev, smi, label="phase 25 nuScenes PointPillars",
+            batch=CBGS_B),
+        "lyft": lambda: phase_profile(fp32["lyft"][0], dev, smi, steps=3,
+                                      label=LYFT.label(5), batch=LYFT.b),
+        "kitti_all": lambda: phase_profile(
+            fp32["kitti_all"][0], dev, smi, steps=5,
+            label=KITTI_ALL.label(5), batch=KITTI_ALL.b)}
+    busy = {}
+    for key, name in CAPTURED_PATHS:
+        if key in eager_profiles:
+            eager_profiles[key]()
+        busy[key] = phase_captured_profile(
+            dev, captured[key], batches[key], caps[key]["launches"], smi,
+            f"phase 46 {name}")
+    for key, name in CAPTURED_PATHS:
+        c, share = caps[key], busy[key]
+        share = (f"{share['busy'] / share['wall']:.2f} of the window "
+                 f"({share['busy']:.3f} ms busy)" if share else
+                 "not measured")
+        log(f"captured steps: {name}: eager {c['eager']:.3f} ms/batch, "
+            f"captured {c['captured']:.3f} ({c['eager'] / c['captured']:.2f}"
+            f"x), copy {c['copy']['captured']:.3f} (eager "
+            f"{c['copy']['eager']:.3f}); from the card: eager "
+            f"{c['on_card']['eager']:.3f}, captured "
+            f"{c['on_card']['captured']:.3f}; captured device busy {share} "
+            f"[{smi}]")
     step, data = sec_stack[4], sec_stack[5]
     steps_in = (("flagship step B=8", flagship_in),
-                ("SECOND step B=2", step_nms_inputs(lambda: step(data))),
+                ("SECOND step B=2", step_nms_inputs(lambda: step.eager(data))),
                 ("CBGS step B=2", cbgs_in),
                 ("KITTI car PointPillars step B=8", kitti_in),
                 ("nuScenes PointPillars step B=2", nusc_in),
@@ -2564,14 +2878,11 @@ def main():
             f"{bounds[name][0]:.7f} ms ({bounds[name][1]}), "
             f"{bounds[name][2]:.7f} ms counting a full IoU for every valid "
             f"pair")
-    by_path = {
-        name: {"flagship": flagship[name], "second": launches[name],
-               "cbgs": cbgs_launches[name],
-               "kitti_pp": kitti_launches[name],
-               "nusc_pp": nusc_launches[name],
-               "lyft": fp32["lyft"][1][name],
-               "kitti_all": fp32["kitti_all"][1][name]}
-        for name in ("rotated_nms_keep", "window_conv")}
+    # launches: counted while each path's step, as a user calls it, was
+    # captured (phases 39-45; equal to its eager step's)
+    by_path = {name: {key: caps[key]["launches"][name]
+                      for key, _ in CAPTURED_PATHS}
+               for name in ("rotated_nms_keep", "window_conv")}
     nms_src = dict(name="rotated_nms_keep", route="cuda",
                    source="det3d_tpu_torch/csrc/rotated_nms.cu",
                    replaces="det3d_tpu/ops/nms_pallas.py:90")
@@ -2583,7 +2894,8 @@ def main():
     fp32_entries = []
     for p, step_name in ((LYFT, "Lyft CBGS step B=2"),
                          (KITTI_ALL, "KITTI-all SECOND step B=2")):
-        _, p_launches, _, p_err, p_conv, p_nms = fp32[p.key]
+        _, _, _, p_err, p_conv, p_nms, p_cap = fp32[p.key]
+        p_launches = p_cap["launches"]
         fp32_entries += [dict(
             conv_src, path=p.key, dtype="fp32",
             launches=p_launches["window_conv"], max_abs_err=p_err,
@@ -2614,19 +2926,22 @@ def main():
         plain_ms=conv["plain"], bound_ms=conv["bound_ms"],
         bound_by=conv["bound_by"], library_ms=None,
     ), dict(
-        nms_src, path="cbgs", launches=cbgs_launches["rotated_nms_keep"],
+        nms_src, path="cbgs",
+        launches=caps["cbgs"]["launches"]["rotated_nms_keep"],
         max_abs_err=float(nms_err), ms=cbgs_nms["kernel"],
         device_ms=nms_dev["CBGS step B=2"]["device"],
         plain_ms=cbgs_nms["plain"], bound_ms=cbgs_b_ms, bound_by=cbgs_b_by,
         library_ms=None,
     ), dict(
-        conv_src, path="cbgs", launches=cbgs_launches["window_conv"],
+        conv_src, path="cbgs",
+        launches=caps["cbgs"]["launches"]["window_conv"],
         max_abs_err=cbgs_conv_err, ms=cbgs_conv["kernel"],
         device_ms=cbgs_conv["device"], plain_ms=cbgs_conv["plain"],
         bound_ms=cbgs_conv["bound_ms"], bound_by=cbgs_conv["bound_by"],
         library_ms=None,
     ), dict(
-        nms_src, path="nusc_pp", launches=nusc_launches["rotated_nms_keep"],
+        nms_src, path="nusc_pp",
+        launches=caps["nusc_pp"]["launches"]["rotated_nms_keep"],
         max_abs_err=float(nms_err), ms=nusc_nms["kernel"],
         device_ms=nms_dev["nuScenes PointPillars step B=2"]["device"],
         plain_ms=nusc_nms["plain"], bound_ms=bounds["nusc_pp"][0],

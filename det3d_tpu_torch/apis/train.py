@@ -22,7 +22,7 @@ from det3d_tpu_torch.models.backbones import middle_plan_spec
 from det3d_tpu_torch.models.builder import build_detector
 from det3d_tpu_torch.ops import sparse_host as sph
 from det3d_tpu_torch.ops.voxelize_host import (host_voxelize,
-                                               host_voxelize_batch,
+                                               host_voxelize_ref,
                                                stack_voxels)
 
 
@@ -37,18 +37,38 @@ def host_plan_fn(model, voxel_gen, train: bool = False,
     the example's ``voxels`` / ``coordinates`` / ... keys, which the
     predict step takes as they are, and no ``point_lin`` / ``point_perm``.
     The serving process calls it in its request pre-processing, outside
-    the device step. ``train=True`` (inverse rulebooks) is not ported."""
+    the device step. The builders are the C++ twins of csrc/hostplan.cc
+    (built with g++ at first use). ``train=True`` (inverse rulebooks) is
+    not ported."""
     if train:
         raise NotImplementedError("training plans are not ported yet")
+    return _plan_fn(model, voxel_gen, voxelize, sph.build_plan,
+                    host_voxelize)
+
+
+def host_plan_ref_fn(model, voxel_gen, voxelize: bool = False):
+    """``host_plan_fn`` with the numpy builders, the plain versions
+    (``ops/sparse_host.py::build_plan_ref``,
+    ``ops/voxelize_host.py::host_voxelize_ref``): the same arrays. The
+    tests and chip_smoke.py hold ``host_plan_fn`` to it."""
+    return _plan_fn(model, voxel_gen, voxelize, sph.build_plan_ref,
+                    host_voxelize_ref)
+
+
+def _plan_fn(model, voxel_gen, voxelize, build_plan, voxelize_one):
     backbone = getattr(model, "backbone", None)
     sparse_mid = ("SpMiddle" in type(backbone).__name__
                   and voxel_gen.effective_order in ("hashed", "yxz"))
+    vkw = voxel_gen.host_kwargs()
     if not sparse_mid:
         if not voxelize:
             return None
 
         def vox_fn(points, num_points):
-            return host_voxelize_batch(points, num_points, voxel_gen)
+            points = np.asarray(points)
+            num_points = np.asarray(num_points)
+            return stack_voxels([voxelize_one(points[i], num_points[i], **vkw)
+                                 for i in range(points.shape[0])])
 
         return vox_fn
     spec = middle_plan_spec(backbone, voxel_gen.grid_size,
@@ -62,15 +82,14 @@ def host_plan_fn(model, voxel_gen, train: bool = False,
     def fn(points, num_points):
         points = np.asarray(points)
         num_points = np.asarray(num_points)
-        plans = [sph.build_plan(points[i], num_points[i], **kw)
+        plans = [build_plan(points[i], num_points[i], **kw)
                  for i in range(points.shape[0])]
         out = {k: np.stack([p[k] for p in plans]) for k in plans[0]}
         if voxelize:
             # the plan already owns lin/perm: voxelize without resorting
             out.update(stack_voxels([
-                host_voxelize(points[i], num_points[i], lin=p["point_lin"],
-                              perm=p["point_perm"],
-                              **voxel_gen.host_kwargs())
+                voxelize_one(points[i], num_points[i], lin=p["point_lin"],
+                             perm=p["point_perm"], **vkw)
                 for i, p in enumerate(plans)]))
             out.pop("point_lin")
             out.pop("point_perm")

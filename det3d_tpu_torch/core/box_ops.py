@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from det3d_tpu_torch.core.voxelize import filled
+
 
 def second_box_decode(box_encodings, anchors, encode_angle_to_vector=False,
                       smooth_dim=False, norm_velo=False):
@@ -72,7 +74,7 @@ def corners_nd(dims, origin=0.5):
     elif ndim == 3:
         corners_norm = corners_norm[[0, 1, 3, 2, 4, 5, 7, 6]]
     corners_norm = corners_norm - np.asarray(origin, dtype=np.float32)
-    norm = torch.as_tensor(corners_norm, dtype=dims.dtype, device=dims.device)
+    norm = filled(corners_norm.ravel().tolist(), dims)
     return dims.reshape(-1, 1, ndim) * norm.reshape(1, 2 ** ndim, ndim)
 
 

@@ -34,13 +34,25 @@ SENTINEL = int(np.iinfo(np.int32).max)
 _U32 = 0xFFFFFFFF
 
 
+def filled(values, like):
+    """``values`` as a 1-D tensor of ``like``'s dtype on its device, each
+    element written by a fill kernel. Unlike ``torch.tensor(values,
+    device=...)``, which copies from pageable host memory and waits for
+    the copy, this neither reads host memory nor waits, so a CUDA graph
+    can capture it."""
+    out = torch.empty(len(values), dtype=like.dtype, device=like.device)
+    for i, v in enumerate(values):
+        out[i].fill_(v)
+    return out
+
+
 def quantize(points, num_points, voxel_size, pc_range, grid_size):
     """(B, P, C) points -> (B, P) int64 xyz-major linear voxel ids; padding
     and out-of-range points get SENTINEL. Port of voxelize.py::_quantize."""
     b, p = points.shape[:2]
     gx, gy, gz = grid_size
-    vsize = torch.tensor(voxel_size, dtype=points.dtype, device=points.device)
-    vmin = torch.tensor(pc_range[:3], dtype=points.dtype, device=points.device)
+    vsize = filled(voxel_size, points)
+    vmin = filled(pc_range[:3], points)
     valid = (torch.arange(p, device=points.device)[None, :]
              < num_points.to(points.device)[:, None])
     coords = torch.floor((points[..., :3] - vmin) / vsize).to(torch.int32)

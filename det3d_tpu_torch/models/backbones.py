@@ -236,7 +236,9 @@ def _occupancy(coords, shape):
     keep = lin != sp._SENTINEL
     flat = torch.arange(b, device=lin.device)[:, None] * n + lin
     occ = torch.zeros(b * n + 1, dtype=torch.bool, device=lin.device)
-    occ[torch.where(keep, flat, b * n)] = True
+    # index_fill_ takes the value as a kernel argument; ``occ[idx] = True``
+    # would copy it from host memory and wait
+    occ.index_fill_(0, torch.where(keep, flat, b * n).reshape(-1), True)
     return occ[:-1].view(b, d, h, w)
 
 

@@ -23,6 +23,7 @@ from torch import nn
 from det3d_tpu_torch.models.registry import HEADS
 from det3d_tpu_torch.ops import nms as nms_ops
 from det3d_tpu_torch.core import box_ops
+from det3d_tpu_torch.core.voxelize import filled
 
 
 def conv1x1(conv: nn.Conv2d, x):
@@ -177,7 +178,10 @@ class MultiGroupHead(nn.Module):
         reg_nms = torch.cat([reg[..., :1] + offsets[..., :1], reg[..., 1:]],
                             dim=-1)
         if use_rotate:
-            boxes_for_nms = reg_nms[..., [0, 1, 3, 4, reg.shape[-1] - 1]]
+            # x, y, w, l, yaw (slices: an index list is copied from host
+            # memory, which a CUDA graph cannot capture)
+            boxes_for_nms = torch.cat([reg_nms[..., 0:2], reg_nms[..., 3:5],
+                                       reg_nms[..., -1:]], dim=-1)
         else:
             n, a = reg.shape[:2]
             corners = box_ops.center_to_corner_box2d(
@@ -200,8 +204,7 @@ class MultiGroupHead(nn.Module):
             yaw = yaw + torch.where(opp, math.pi, 0.0)
             sel_boxes = torch.cat([sel_boxes[..., :-1], yaw[..., None]], -1)
         if post_center_range is not None and len(post_center_range) > 0:
-            pcr = torch.tensor(post_center_range, dtype=sel_boxes.dtype,
-                               device=sel_boxes.device)
+            pcr = filled(post_center_range, sel_boxes)
             inside = ((sel_boxes[..., :3] >= pcr[:3]).all(dim=-1)
                       & (sel_boxes[..., :3] <= pcr[3:]).all(dim=-1))
             valid = valid & inside

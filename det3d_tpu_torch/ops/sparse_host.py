@@ -1,27 +1,38 @@
-"""Host-side (numpy) builders of the sparse middle's packed rulebook plan.
+"""Host-side builders of the sparse middle's packed rulebook plan.
 
-Port of det3d_tpu/ops/sparse_host.py, the evaluation path: a copy in
-numpy (the port imports nothing of the JAX package). Rulebooks are pure
-functions of integer voxel coordinates, so a serving process builds them
-on the CPU, beside its voxelizer, and the device step only reads them.
-Every function is per sample; ``build_plan`` returns one sample's plan
-and the caller stacks the batch.
+Port of det3d_tpu/ops/sparse_host.py, the evaluation path. Rulebooks are
+pure functions of integer voxel coordinates, so a serving process builds
+them on the CPU, beside its voxelizer, and the device step only reads
+them. Every function is per sample; ``build_plan`` returns one sample's
+plan and the caller stacks the batch.
+
+The builders the serving path calls (``point_lin``, ``point_order``,
+``voxel_coords``, ``subm_windows``, ``down_windows``, ``transition``,
+``build_plan``) run the C++ twins of csrc/hostplan.cc, built with g++ at
+first use (csrc/__init__.py); a failed build raises. The numpy versions
+stay beside them as the plain versions, under the same names with a
+``_ref`` suffix, and equal them array for array: the tests and
+chip_smoke.py call them explicitly, nothing on the serving path does.
 
 Packed window words (the layout of ops/sparse.py::unpack_windows): bits
 0..23 hold r0, the rank of the window's first row, and bits 24..24+kz-1
 the presence of the kz taps. Ranks number the active voxels in (y, x, z)
 order. Where no tap is present r0 is 0.
 
-Left out: the JAX package's native C++ twins of these builders (its
-``_hp()`` hook) and the inverse rulebooks of training. Needs numpy >= 2.0
-(``np.bitwise_count``).
+Left out: the inverse rulebooks of training (hostplan.cc builds them
+behind hp_transition's flag; nothing binds that half yet). The numpy
+versions need numpy >= 2.0 (``np.bitwise_count``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Dict, Tuple
 
 import numpy as np
+
+from det3d_tpu_torch import csrc
 
 SENTINEL = np.iinfo(np.int32).max
 
@@ -43,11 +54,222 @@ def out_spatial_shape(shape, kernel, stride, padding):
 
 
 # ---------------------------------------------------------------------------
-# Voxel ids and coordinates
+# The builders: C++ twins (csrc/hostplan.cc)
 # ---------------------------------------------------------------------------
+
+# hostplan.cc's point sorts pack a point's index into 22 bits
+MAX_POINTS = 1 << 22
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """hostplan.cc's library, its functions' argument types declared."""
+    lib = csrc.load("hostplan")
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.hp_point_lin.argtypes = [f32p, i64, i64, i64, f32p, f32p,
+                                 i64, i64, i64, i32p]
+    lib.hp_point_lin.restype = None
+    lib.hp_point_order.argtypes = [i32p, i64, i64, i64, i64, i32, i32p]
+    lib.hp_point_order.restype = None
+    lib.hp_voxel_coords.argtypes = [i32p, i32p, i64, i64, i64, i64, i32p]
+    lib.hp_voxel_coords.restype = None
+    lib.hp_subm_windows.argtypes = [i32p, i64, i64, i64, i64,
+                                    i64, i64, i64, i32p]
+    lib.hp_subm_windows.restype = None
+    lib.hp_down_windows.argtypes = [i32p, i64, i32p, i64, i64, i64, i64,
+                                    i64p, i64p, i64p, i32p]
+    lib.hp_down_windows.restype = None
+    lib.hp_transition.argtypes = [i32p, i64, i64, i64, i64, i64p, i64p,
+                                  i64p, i64, i32, i32p, i32p,
+                                  ctypes.POINTER(i32)]
+    lib.hp_transition.restype = i64
+    lib.hp_voxelize_sorted.argtypes = [f32p, i64, i64, i32p, i32p, i64,
+                                       i64, i64, i64, i32, f32p, i32p, i32p]
+    lib.hp_voxelize_sorted.restype = i64
+    lib.hp_voxelize_appearance.argtypes = [f32p, i64, i64, i32p, i32p, i64,
+                                           i64, i64, i64, f32p, i32p, i32p]
+    lib.hp_voxelize_appearance.restype = i64
+    lib.hp_argsort_lin.argtypes = [i32p, i64, i32p]
+    lib.hp_argsort_lin.restype = None
+    return lib
+
+
+def _i32(a):
+    return np.ascontiguousarray(a, np.int32)
+
+
+def _c3(v):
+    return np.ascontiguousarray(_as3(v), np.int64)
+
+
+def _coords(coords, what):
+    co = _i32(coords)
+    if co.ndim != 2 or co.shape[1] != 3:
+        raise ValueError(f"{what} must be (V, 3) zyx, got {co.shape}")
+    return co
+
+
+def _depth(shape):
+    if not 0 < int(shape[0]) <= 64:
+        raise ValueError(f"the per-column bitmap holds depths 1 to 64, got "
+                         f"{shape[0]}")
+
+
+def _lin(lin):
+    lin = _i32(lin)
+    if lin.ndim != 1 or lin.shape[0] >= MAX_POINTS:
+        raise ValueError(f"voxel ids must be (P,) with P < {MAX_POINTS}, "
+                         f"got {lin.shape}")
+    return lin
 
 
 def point_lin(points, num_points, voxel_size, pc_range, grid_size):
+    """Quantize a padded cloud to xyz-major linear voxel ids (fp32 floor
+    divide). Returns (P,) int32, SENTINEL for padding and out-of-range
+    rows."""
+    pts = np.ascontiguousarray(points, np.float32)
+    if pts.ndim != 2 or pts.shape[1] < 3:
+        raise ValueError(f"points must be (P, C >= 3), got {pts.shape}")
+    gx, gy, gz = grid_size
+    out = np.empty(pts.shape[0], np.int32)
+    _lib().hp_point_lin(pts, pts.shape[0], pts.shape[1], int(num_points),
+                        np.ascontiguousarray(pc_range[:3], np.float32),
+                        np.ascontiguousarray(voxel_size, np.float32),
+                        gx, gy, gz, out)
+    return out
+
+
+def point_order(lin, grid_size, order):
+    """The voxelizer's point sort order: a stable lexsort by (key, lin),
+    the key being the yxz rank key or the mix32 hash of the id."""
+    if order not in ("yxz", "hashed"):
+        raise ValueError(f"host plans need order 'hashed'/'yxz', got {order}")
+    lin = _lin(lin)
+    gx, gy, gz = grid_size
+    out = np.empty(lin.shape[0], np.int32)
+    _lib().hp_point_order(lin, lin.shape[0], gx, gy, gz,
+                          1 if order == "yxz" else 0, out)
+    return out
+
+
+def argsort_lin(lin):
+    """The stable argsort of the voxel ids (the appearance order's point
+    permutation), (P,) int32."""
+    lin = _lin(lin)
+    out = np.empty(lin.shape[0], np.int32)
+    _lib().hp_argsort_lin(lin, lin.shape[0], out)
+    return out
+
+
+def voxel_coords(lin, grid_size, max_voxels, order, perm=None):
+    """Voxel coordinate rows of the sorted voxelizer orders ("hashed",
+    "yxz"). Returns (max_voxels, 3) int32 zyx with -1 padding."""
+    lin = _lin(lin)
+    perm = (point_order(lin, grid_size, order) if perm is None
+            else _i32(perm))
+    if perm.shape != lin.shape:
+        raise ValueError(f"perm {perm.shape} and lin {lin.shape} differ")
+    gx, gy, _ = grid_size
+    out = np.empty((int(max_voxels), 3), np.int32)
+    _lib().hp_voxel_coords(lin, perm, lin.shape[0], gx, gy, int(max_voxels),
+                           out)
+    return out
+
+
+def subm_windows(coords, shape, kernel=3):
+    """Packed submanifold window rulebook; coords in rank order. Returns
+    (V, ky*kx) int32 packed."""
+    k = _as3(kernel)
+    co = _coords(coords, "coords")
+    _depth(shape)
+    out = np.empty((co.shape[0], k[1] * k[2]), np.int32)
+    _lib().hp_subm_windows(co, co.shape[0], shape[0], shape[1], shape[2],
+                           k[0], k[1], k[2], out)
+    return out
+
+
+def down_windows(out_coords, in_coords, in_shape, kernel, stride, padding):
+    """Packed strided-conv window rulebook in INPUT rank space.
+    ``in_coords``: the input resolution's rows, in rank order."""
+    k = _as3(kernel)
+    oc = _coords(out_coords, "out_coords")
+    ic = _coords(in_coords, "in_coords")
+    _depth(in_shape)
+    out = np.empty((oc.shape[0], k[1] * k[2]), np.int32)
+    _lib().hp_down_windows(oc, oc.shape[0], ic, ic.shape[0], in_shape[0],
+                           in_shape[1], in_shape[2], _c3(k), _c3(stride),
+                           _c3(padding), out)
+    return out
+
+
+def transition(coords, shape, kernel, stride, padding, max_out):
+    """Downsample transition: the output coords of a strided conv (every
+    output whose footprint covers an active input), deduplicated, the
+    low-z prefix in zyx cell order kept under the cap, rows emitted in yxz
+    rank order. Returns (out_coords (max_out, 3) int32, oshape)."""
+    co = _coords(coords, "coords")
+    oshape = out_spatial_shape(shape, kernel, stride, padding)
+    out = np.empty((int(max_out), 3), np.int32)
+    built = ctypes.c_int32(0)
+    _lib().hp_transition(co, co.shape[0], shape[0], shape[1], shape[2],
+                         _c3(kernel), _c3(stride), _c3(padding),
+                         int(max_out), 0, out, np.empty((1, 1), np.int32),
+                         ctypes.byref(built))
+    return out, oshape
+
+
+def build_plan(points, num_points, *, voxel_size, pc_range, grid_size,
+               max_voxels, order, spec, train=False) -> Dict[str, np.ndarray]:
+    """Host plan of one sample: point voxel ids and every rulebook the
+    sparse middle reads, packed.
+
+    ``spec`` comes from models/backbones.py::middle_plan_spec. Keys:
+      point_lin, point_perm (P,) int32 — voxel ids and sort order
+      plan_order0      (V,)  int32 — only when the middle is not pre_ranked
+      plan_s0          (V, 9) packed subm windows at res0
+      plan_co{i}       (cap_i,) int32 zyx-linear stage coords
+      plan_down{i}     (cap_i, Kbev) packed down-conv windows
+      plan_subm{i}     (cap_i, 9) packed subm windows (stages that keep one)
+    ``train=True`` (the inverse rulebooks of training) is not ported.
+    """
+    if train:
+        raise NotImplementedError("training plans (inverse rulebooks) are "
+                                  "not ported yet")
+    lin = point_lin(points, num_points, voxel_size, pc_range, grid_size)
+    perm = point_order(lin, grid_size, order)
+    coords = voxel_coords(lin, grid_size, max_voxels, order, perm=perm)
+    out: Dict[str, np.ndarray] = {"point_lin": lin, "point_perm": perm}
+
+    shape0 = tuple(spec["shape0"])
+    if spec["pre_ranked"]:
+        co = coords
+    else:
+        order0 = rank_order(coords, shape0)
+        co = coords[order0]
+        out["plan_order0"] = order0
+    out["plan_s0"] = subm_windows(co, shape0, 3)
+
+    shape = shape0
+    for i, st in enumerate(spec["stages"], start=1):
+        k, s, p, cap = st["kernel"], st["stride"], st["padding"], st["cap"]
+        out_co, oshape = transition(co, shape, k, s, p, cap)
+        out[f"plan_down{i}"] = down_windows(out_co, co, shape, k, s, p)
+        out[f"plan_co{i}"] = linearize(out_co, oshape)
+        if st["subm"]:
+            out[f"plan_subm{i}"] = subm_windows(out_co, oshape, 3)
+        co, shape = out_co, oshape
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (numpy): voxel ids and coordinates
+# ---------------------------------------------------------------------------
+
+
+def point_lin_ref(points, num_points, voxel_size, pc_range, grid_size):
     """Quantize a padded cloud to xyz-major linear voxel ids (fp32 floor
     divide). Returns (P,) int32, SENTINEL for padding and out-of-range
     rows."""
@@ -76,7 +298,7 @@ def _mix32(x):
     return x
 
 
-def point_order(lin, grid_size, order):
+def point_order_ref(lin, grid_size, order):
     """The voxelizer's point sort order: a stable lexsort by (key, lin),
     the key being the yxz rank key or the mix32 hash of the id."""
     gx, gy, gz = grid_size
@@ -95,12 +317,12 @@ def point_order(lin, grid_size, order):
     return np.lexsort((lin, key)).astype(np.int32)
 
 
-def voxel_coords(lin, grid_size, max_voxels, order, perm=None):
+def voxel_coords_ref(lin, grid_size, max_voxels, order, perm=None):
     """Voxel coordinate rows of the sorted voxelizer orders ("hashed",
     "yxz"). Returns (max_voxels, 3) int32 zyx with -1 padding."""
     gx, gy, gz = grid_size
     if perm is None:
-        perm = point_order(lin, grid_size, order)
+        perm = point_order_ref(lin, grid_size, order)
     lin = np.asarray(lin, np.int64)
     slin = lin[perm]
     svalid = slin != SENTINEL
@@ -118,7 +340,7 @@ def voxel_coords(lin, grid_size, max_voxels, order, perm=None):
 
 
 # ---------------------------------------------------------------------------
-# Rank keys and the per-column bitmap
+# Rank keys (both builders); the plain versions' bitmap and rulebooks
 # ---------------------------------------------------------------------------
 
 
@@ -191,7 +413,7 @@ def _column_windows(lookup, qy, qx, z0, kz, shape):
     return r0.astype(np.int32), np.stack(pres, axis=-1)
 
 
-def subm_windows(coords, shape, kernel=3, lookup=None):
+def subm_windows_ref(coords, shape, kernel=3, lookup=None):
     """Packed submanifold window rulebook; coords in rank order. Returns
     (V, ky*kx) int32 packed."""
     k = _as3(kernel)
@@ -209,7 +431,8 @@ def subm_windows(coords, shape, kernel=3, lookup=None):
     return _pack_windows(r0, pres)
 
 
-def down_windows(out_coords, in_lookup, in_shape, kernel, stride, padding):
+def down_windows_ref(out_coords, in_lookup, in_shape, kernel, stride,
+                     padding):
     """Packed strided-conv window rulebook in INPUT rank space.
     ``in_lookup`` is the input resolution's host_bitmap."""
     k, s, p = _as3(kernel), _as3(stride), _as3(padding)
@@ -247,7 +470,7 @@ def _down_candidates(coords, shape, k, s, p, oshape):
     return oz, oy, ox, ok
 
 
-def transition(coords, shape, kernel, stride, padding, max_out):
+def transition_ref(coords, shape, kernel, stride, padding, max_out):
     """Downsample transition: the output coords of a strided conv (every
     output whose footprint covers an active input), deduplicated, the
     low-z prefix in zyx cell order kept under the cap, rows emitted in yxz
@@ -281,30 +504,20 @@ def linearize(coords, shape):
 
 
 # ---------------------------------------------------------------------------
-# Whole-middle plans
+# Plain versions: whole-middle plans
 # ---------------------------------------------------------------------------
 
 
-def build_plan(points, num_points, *, voxel_size, pc_range, grid_size,
-               max_voxels, order, spec, train=False) -> Dict[str, np.ndarray]:
-    """Host plan of one sample: point voxel ids and every rulebook the
-    sparse middle reads, packed.
-
-    ``spec`` comes from models/backbones.py::middle_plan_spec. Keys:
-      point_lin, point_perm (P,) int32 — voxel ids and sort order
-      plan_order0      (V,)  int32 — only when the middle is not pre_ranked
-      plan_s0          (V, 9) packed subm windows at res0
-      plan_co{i}       (cap_i,) int32 zyx-linear stage coords
-      plan_down{i}     (cap_i, Kbev) packed down-conv windows
-      plan_subm{i}     (cap_i, 9) packed subm windows (stages that keep one)
-    ``train=True`` (the inverse rulebooks of training) is not ported.
-    """
+def build_plan_ref(points, num_points, *, voxel_size, pc_range, grid_size,
+                   max_voxels, order, spec,
+                   train=False) -> Dict[str, np.ndarray]:
+    """``build_plan`` in numpy: the same plan, array for array."""
     if train:
         raise NotImplementedError("training plans (inverse rulebooks) are "
                                   "not ported yet")
-    lin = point_lin(points, num_points, voxel_size, pc_range, grid_size)
-    perm = point_order(lin, grid_size, order)
-    coords = voxel_coords(lin, grid_size, max_voxels, order, perm=perm)
+    lin = point_lin_ref(points, num_points, voxel_size, pc_range, grid_size)
+    perm = point_order_ref(lin, grid_size, order)
+    coords = voxel_coords_ref(lin, grid_size, max_voxels, order, perm=perm)
     out: Dict[str, np.ndarray] = {"point_lin": lin, "point_perm": perm}
 
     shape0 = tuple(spec["shape0"])
@@ -315,16 +528,17 @@ def build_plan(points, num_points, *, voxel_size, pc_range, grid_size,
         co = coords[order0]
         out["plan_order0"] = order0
     lk = host_bitmap(yxz_keys(co, shape0), shape0)
-    out["plan_s0"] = subm_windows(co, shape0, 3, lookup=lk)
+    out["plan_s0"] = subm_windows_ref(co, shape0, 3, lookup=lk)
 
     shape = shape0
     for i, st in enumerate(spec["stages"], start=1):
         k, s, p, cap = st["kernel"], st["stride"], st["padding"], st["cap"]
-        out_co, oshape = transition(co, shape, k, s, p, cap)
-        out[f"plan_down{i}"] = down_windows(out_co, lk, shape, k, s, p)
+        out_co, oshape = transition_ref(co, shape, k, s, p, cap)
+        out[f"plan_down{i}"] = down_windows_ref(out_co, lk, shape, k, s, p)
         out[f"plan_co{i}"] = linearize(out_co, oshape)
         lk = host_bitmap(yxz_keys(out_co, oshape), oshape)
         if st["subm"]:
-            out[f"plan_subm{i}"] = subm_windows(out_co, oshape, 3, lookup=lk)
+            out[f"plan_subm{i}"] = subm_windows_ref(out_co, oshape, 3,
+                                                    lookup=lk)
         co, shape = out_co, oshape
     return out

@@ -1,13 +1,18 @@
-"""Host-side (numpy) voxelization, the serving path's data plane.
+"""Host-side voxelization, the serving path's data plane.
 
-Port of det3d_tpu/ops/voxelize_host.py in numpy: the sorted voxel orders
+Port of det3d_tpu/ops/voxelize_host.py: the sorted voxel orders
 ("hashed", "yxz"), the fused-mean path, and the "appearance" (first-come)
-order of the buffer path (``_appearance``). The serving process voxelizes
-on the CPU, beside the rulebook plan (ops/sparse_host.py), and the device
-step takes the voxels as they are (parallel/predict.py's build_example
-passthrough). Every output equals the device voxelizer's
-(core/voxelize.py) array for array. The JAX package's native C++ twin is
-not ported.
+order of the buffer path. The serving process voxelizes on the CPU,
+beside the rulebook plan (ops/sparse_host.py), and the device step takes
+the voxels as they are (parallel/predict.py's build_example passthrough).
+Every output equals the device voxelizer's (core/voxelize.py) array for
+array.
+
+``host_voxelize`` and ``host_voxelize_batch`` run the C++ twins of
+csrc/hostplan.cc (``hp_voxelize_sorted``, ``hp_voxelize_appearance``,
+``hp_argsort_lin``), built with g++ at first use; a failed build raises.
+``host_voxelize_ref`` is the same function in numpy, the plain version
+that the tests and chip_smoke.py hold them to.
 """
 
 from __future__ import annotations
@@ -19,6 +24,12 @@ import numpy as np
 from det3d_tpu_torch.ops import sparse_host as sph
 
 SENTINEL = np.iinfo(np.int32).max
+
+
+def _effective_order(order, fuse_mean):
+    # the fused-mean path always sorts by a fast key
+    return ("yxz" if fuse_mean and order == "yxz" else
+            "hashed" if fuse_mean else order)
 
 
 def host_voxelize(points, num_points, *, voxel_size, pc_range, grid_size,
@@ -35,14 +46,45 @@ def host_voxelize(points, num_points, *, voxel_size, pc_range, grid_size,
     computed (they must match the effective order); passing both skips the
     quantize and sort.
     """
-    eff = ("yxz" if fuse_mean and order == "yxz" else
-           "hashed" if fuse_mean else order)
-    pts = np.asarray(points, np.float32)
+    eff = _effective_order(order, fuse_mean)
+    pts = np.ascontiguousarray(points, np.float32)
     if lin is None or perm is None:
         lin = sph.point_lin(pts, int(num_points), voxel_size, pc_range,
                             grid_size)
-        perm = (np.argsort(lin, kind="stable") if eff == "appearance"
+        perm = (sph.argsort_lin(lin) if eff == "appearance"
                 else sph.point_order(lin, grid_size, eff))
+    lin, perm = sph._lin(lin), sph._i32(perm)
+    P, C = pts.shape
+    if lin.shape[0] != P or perm.shape[0] != P:
+        raise ValueError(f"lin {lin.shape} and perm {perm.shape} must have "
+                         f"the cloud's {P} rows")
+    gx, gy, _ = grid_size
+    V, T = int(max_voxels), int(max_points)
+    voxels = np.empty((V, C) if fuse_mean else (V, T, C), np.float32)
+    coords = np.empty((V, 3), np.int32)
+    counts = np.empty(V, np.int32)
+    if eff == "appearance":
+        nv = sph._lib().hp_voxelize_appearance(pts, P, C, lin, perm, gx, gy,
+                                               V, T, voxels, coords, counts)
+    else:
+        nv = sph._lib().hp_voxelize_sorted(pts, P, C, lin, perm, gx, gy, V,
+                                           T, int(fuse_mean), voxels,
+                                           coords, counts)
+    return {"voxels": voxels, "coords": coords,
+            "num_points_per_voxel": counts, "num_voxels": np.int32(nv)}
+
+
+def host_voxelize_ref(points, num_points, *, voxel_size, pc_range,
+                      grid_size, max_voxels, max_points, order, fuse_mean,
+                      lin=None, perm=None) -> Dict[str, np.ndarray]:
+    """``host_voxelize`` in numpy: the same outputs, array for array."""
+    eff = _effective_order(order, fuse_mean)
+    pts = np.asarray(points, np.float32)
+    if lin is None or perm is None:
+        lin = sph.point_lin_ref(pts, int(num_points), voxel_size, pc_range,
+                                grid_size)
+        perm = (np.argsort(lin, kind="stable") if eff == "appearance"
+                else sph.point_order_ref(lin, grid_size, eff))
     P, C = pts.shape
     gx, gy, _ = grid_size
     V, T = int(max_voxels), int(max_points)

@@ -3,15 +3,21 @@
 Port of det3d_tpu/parallel/train.py::build_example (``with_targets=False``)
 and ``make_predict_step``, without the mesh and without double-flip TTA.
 The JAX step takes its weights in a train state; here the model holds
-them, and the step runs eagerly on the model's device. A batch's
-``plan_*`` keys (apis/train.py::host_plan_fn) go to the model as its
-sparse middle's plan.
+them. A batch's ``plan_*`` keys (apis/train.py::host_plan_fn) go to the
+model as its sparse middle's plan.
+
+On the card the step runs as CUDA graphs (``CapturedStep``), the
+counterpart of the JAX package's ``jax.jit(step_fn)``: every shape of the
+step is fixed by the batch's shapes (the voxel and plan caps, K and
+``max_per_img``), and no operation of the step reads a device value on
+the host, so one captured graph replays the whole step.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Sequence
 
+import numpy as np
 import torch
 
 from det3d_tpu_torch.core.target import TargetAssigner
@@ -45,6 +51,106 @@ def build_example(batch: Dict[str, Any], voxel_generator: VoxelGenerator,
     }
 
 
+class _Graph:
+    """One batch signature's graph: its static device inputs, the pinned
+    host buffers they are copied from, its static outputs, and an event
+    after the last copy out of the pinned buffers."""
+
+    def __init__(self, tensors, device):
+        self.static = {k: torch.empty(t.shape, dtype=t.dtype, device=device)
+                       for k, t in tensors.items()}
+        self.pinned = {k: torch.empty(t.shape, dtype=t.dtype,
+                                      pin_memory=True)
+                       for k, t in tensors.items()}
+        self.copied = torch.cuda.Event()
+        self.graph = torch.cuda.CUDAGraph()
+        self.out: Dict[str, torch.Tensor] = {}
+
+    def stage(self, tensors):
+        """Copy the batch into the static inputs on the current stream:
+        host arrays through the pinned buffers, non-blocking; device
+        tensors directly."""
+        self.copied.synchronize()       # the pinned buffers are free again
+        for k, t in tensors.items():
+            if t.is_cuda:
+                self.static[k].copy_(t)
+            else:
+                self.pinned[k].copy_(t)
+                self.static[k].copy_(self.pinned[k], non_blocking=True)
+        self.copied.record()
+
+
+class CapturedStep:
+    """A step ``run(tensors on the card) -> {name: tensor}`` as CUDA graphs,
+    one per batch signature (sorted keys, shapes and dtypes), as
+    ``jax.jit`` traces one program per signature.
+
+    ``step(batch)`` takes numpy arrays or tensors. It copies them into the
+    signature's static device inputs (``_Graph.stage``: outside the graph,
+    on the current stream), replays the graph on the current stream and
+    returns clones of its outputs, which no later call overwrites. A new
+    signature is first warmed up, then captured; a capture that fails
+    raises.
+
+    ``eager(batch)`` runs the same step eagerly, each operation launched
+    from Python. ``warm_up(batch)`` runs it eagerly once on the capture
+    stream, so that what the step sets up at its first call (the kernels'
+    libraries and attributes, cuDNN's and cuBLAS's handles and workspaces,
+    the anchors' device copy) is set up outside any capture.
+    ``capture(batch)`` captures the batch's signature (after a warm-up) and
+    returns its ``_Graph``; ``graphs`` maps signatures to them. The
+    kernels' Python launch counters move while a graph is captured, once
+    per launch, and not when it replays."""
+
+    def __init__(self, run: Callable, device: torch.device):
+        self._run = run
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: Dict[tuple, _Graph] = {}
+
+    @staticmethod
+    def tensors(batch) -> Dict[str, torch.Tensor]:
+        """The batch as tensors, host arrays as CPU tensors sharing their
+        memory."""
+        return {k: v if isinstance(v, torch.Tensor)
+                else torch.from_numpy(np.ascontiguousarray(v))
+                for k, v in batch.items()}
+
+    @staticmethod
+    def signature(tensors) -> tuple:
+        return tuple(sorted((k, tuple(t.shape), t.dtype)
+                            for k, t in tensors.items()))
+
+    def eager(self, batch):
+        return self._run({k: v.to(self.device) for k, v in
+                          self.tensors(batch).items()})
+
+    def warm_up(self, batch):
+        self.stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(self.stream):
+            self.eager(batch)
+        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+
+    def capture(self, batch) -> _Graph:
+        tensors = self.tensors(batch)
+        entry = _Graph(tensors, self.device)
+        entry.stage(tensors)
+        with torch.cuda.graph(entry.graph, stream=self.stream):
+            entry.out = self._run(entry.static)
+        self.graphs[self.signature(tensors)] = entry
+        return entry
+
+    def __call__(self, batch):
+        tensors = self.tensors(batch)
+        entry = self.graphs.get(self.signature(tensors))
+        if entry is None:
+            self.warm_up(tensors)
+            entry = self.capture(tensors)
+        entry.stage(tensors)
+        entry.graph.replay()
+        return {k: v.clone() for k, v in entry.out.items()}
+
+
 def make_predict_step(model, voxel_generator: VoxelGenerator,
                       assigners: Sequence[TargetAssigner],
                       class_ids_per_task: Sequence[Sequence[int]],
@@ -55,15 +161,18 @@ def make_predict_step(model, voxel_generator: VoxelGenerator,
     or numpy arrays, and for a sparse-middle model the host plan and voxels
     of ``host_plan_fn(..., voxelize=True)``; everything is moved to the
     model's device. Output: the head's ``predict`` dict (box3d_lidar,
-    scores, label_preds, valid)."""
+    scores, label_preds, valid).
+
+    On a CUDA model the step is a ``CapturedStep``: each batch signature is
+    captured once as a CUDA graph and replayed. On a CPU model (the caller
+    asked for the CPU) it runs eagerly. Either way ``predict_step.eager``
+    is the step run eagerly."""
     if test_cfg.get("double_flip", False):
         raise NotImplementedError("double-flip TTA is not ported yet")
     device = next(model.parameters()).device
 
     @torch.no_grad()
-    def predict_step(batch):
-        batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in batch.items()}
+    def run(batch):
         plan = {k[5:]: v for k, v in batch.items() if k.startswith("plan_")}
         example = build_example(batch, voxel_generator, assigners)
         kw = {"plan": plan} if plan else {}
@@ -71,4 +180,12 @@ def make_predict_step(model, voxel_generator: VoxelGenerator,
                       example["coordinates"], **kw)
         return model.predict(example, preds, test_cfg)
 
+    if device.type == "cuda":
+        return CapturedStep(run, device)
+
+    def predict_step(batch):
+        return run({k: torch.as_tensor(v, device=device)
+                    for k, v in batch.items()})
+
+    predict_step.eager = predict_step
     return predict_step

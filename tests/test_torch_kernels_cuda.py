@@ -162,9 +162,11 @@ def test_small_predict_card_post_processing_equals_cpu(dev):
     init_weights(model, torch.Generator().manual_seed(0))
     model = model.to(dev)
     batch = structured_batch(2, 2000, pc, seed=3)
+    step = make_predict_step(model, vg, asg, cids, test_cfg)
     before = rotated_nms_keep.launches
-    out = make_predict_step(model, vg, asg, cids, test_cfg)(batch)
+    out = step.eager(batch)
     assert rotated_nms_keep.launches == before + 1
+    captured = step(batch)
     with torch.no_grad():
         ex = build_example({k: torch.as_tensor(v, device=dev)
                             for k, v in batch.items()}, vg, asg)
@@ -178,6 +180,7 @@ def test_small_predict_card_post_processing_equals_cpu(dev):
     for k in ("valid", "label_preds"):
         assert torch.equal(card[k].cpu(), cpu[k]), k
         assert torch.equal(out[k], card[k]), k
+        assert torch.equal(captured[k], card[k]), k
     torch.testing.assert_close(card["box3d_lidar"].cpu(), cpu["box3d_lidar"],
                                rtol=0, atol=1e-5)
 
@@ -331,7 +334,7 @@ def test_nms_on_nusc_pointpillars_step_inputs_equals_plain(dev):
     model, vg, asg, cids, test_cfg, vox_fn = pp_stack(NUSC_PP_CFG, dev)
     step = make_predict_step(model, vg, asg, cids, test_cfg)
     data = dict(batch, **vox_fn(batch["points"], batch["num_points"]))
-    c, a, v, thr = step_nms_inputs(lambda: step(data))
+    c, a, v, thr = step_nms_inputs(lambda: step.eager(data))
     assert c.shape[:2] == (CBGS_B * 6, 1000) and thr == 0.2
     keep = rotated_nms_keep(c, a, v, thr)
     torch.cuda.synchronize()

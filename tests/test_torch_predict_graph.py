@@ -1,0 +1,268 @@
+"""The predict step as CUDA graphs (parallel/predict.py::CapturedStep), the
+counterpart of the JAX package's ``jax.jit(step_fn)``, and what a capture
+needs of the step.
+
+On the CPU: the eager step of each of the seven serving paths, at cut
+sizes, makes no tensor from host data and reads no device value back
+(checked under a dispatch mode, the kernels' plain versions excepted: on
+the card the kernels replace them); a CPU model gets the eager step.
+
+On the card (marker ``cuda``; they skip elsewhere from a fixture, so that
+every worker collects the same tests; run them with
+``python -m pytest tests/test_torch_predict_graph.py -m cuda -q``): the
+captured step against the eager step on the same batch (valid masks and
+labels equal, boxes and scores within DET_TOL = 1e-5 absolute, as
+chip_smoke.py's decode gate), a second batch of the same signature
+replayed without a new capture, a new signature captured anew, outputs
+that a later call does not overwrite, a capture that fails raising, and
+one eager step on device inputs under
+``torch.cuda.set_sync_debug_mode("error")``.
+"""
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+import chip_smoke as cs
+from det3d_tpu_torch.apis.flagship import flagship_config
+from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
+from det3d_tpu_torch.models import backbones
+from det3d_tpu_torch.models.builder import init_weights
+from det3d_tpu_torch.ops import nms as nms_ops
+from det3d_tpu_torch.parallel.predict import CapturedStep, make_predict_step
+from det3d_tpu_torch.utils.synth import structured_batch
+
+FLAGSHIP_PC = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
+CUT = (6.4, 512)            # sparse middles: +-6.4 m, 512 voxels
+PATHS = ("flagship", "second", "kitti_all", "cbgs", "lyft", "kitti_pp",
+         "nusc_pp")
+
+
+def path_config(name):
+    """A serving path's config at a cut size, every width as shipped."""
+    if name == "flagship":
+        return flagship_config(voxel_size=(0.2, 0.2, 4.0),
+                               pc_range=FLAGSHIP_PC, max_points=8,
+                               max_voxels=600, small=True)
+    if name in ("kitti_pp", "nusc_pp"):
+        c = cs.pp_config(cs.KITTI_PP_CFG if name == "kitti_pp"
+                         else cs.NUSC_PP_CFG, cut=True)
+        c["voxel_generator"]["max_voxel_num"] = 600
+        return c
+    path = {"second": cs.SECOND_CFG, "kitti_all": cs.KITTI_ALL_CFG,
+            "cbgs": cs.CBGS_CFG, "lyft": cs.LYFT_CFG}[name]
+    return cs.sparse_config(path, cut=CUT)
+
+
+def path_step(name, device, points=2000, b=2, seed=3, pre_max=None):
+    """(predict step, batch: the scans with their host voxels and plan) of
+    a path at its cut size on ``device``, weights from
+    torch.Generator().manual_seed(0)."""
+    cfg = path_config(name)
+    if pre_max is not None:
+        cfg["test_cfg"]["nms"]["nms_pre_max_size"] = pre_max
+    model, vg, asg, cids, test_cfg = build_stack(cfg, device="cpu")
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    pc = cfg["voxel_generator"]["range"]
+    five = (cfg["model"]["reader"].get("num_input_features", 4) == 5
+            or name in ("cbgs", "lyft"))
+    batch = (cs.cbgs_batch(b, points, pc, seed=seed) if five
+             else structured_batch(b, points, pc, seed=seed))
+    fn = host_plan_fn(model, vg, voxelize=True)
+    if name not in ("flagship", "kitti_pp"):
+        batch.update(fn(batch["points"], batch["num_points"]))
+    return make_predict_step(model, vg, asg, cids, test_cfg), batch
+
+
+# ---------------------------------------------------------------------------
+# on the CPU
+# ---------------------------------------------------------------------------
+
+# host data made a tensor (on the card: a copy from pageable memory and a
+# wait), a device value read on the host, data-dependent shapes
+HOST_ROUND_TRIPS = ("aten.lift_fresh", "aten._local_scalar_dense",
+                    "aten.nonzero", "aten.masked_select", "aten.equal",
+                    "aten.is_nonzero", "aten.unique", "aten._unique",
+                    "aten.repeat_interleave.Tensor")
+
+
+class HostRoundTrips(TorchDispatchMode):
+    """Records the operations of HOST_ROUND_TRIPS, and indexing by a bool
+    mask (a nonzero inside), except while ``paused``."""
+
+    def __init__(self):
+        super().__init__()
+        self.found, self.paused = [], 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        if not self.paused:
+            if name.startswith(HOST_ROUND_TRIPS):
+                self.found.append(name)
+            if name.startswith("aten.index") and any(
+                    isinstance(t, torch.Tensor) and t.dtype == torch.bool
+                    for a in args if isinstance(a, (list, tuple))
+                    for t in a):
+                self.found.append(name + " (bool mask)")
+        return func(*args, **(kwargs or {}))
+
+
+def pausing(mode, fn):
+    def wrapped(*a, **k):
+        mode.paused += 1
+        try:
+            return fn(*a, **k)
+        finally:
+            mode.paused -= 1
+    return wrapped
+
+
+@pytest.mark.parametrize("name", PATHS)
+def test_step_makes_no_host_round_trip(name, monkeypatch):
+    """After one call (which copies the anchors to the device once), the
+    eager step makes no tensor from host data and reads no device value:
+    what a CUDA graph could not capture. The kernels' plain versions are
+    left out (the NMS twin's greedy loop tests for its fixpoint)."""
+    step, batch = path_step(name, "cpu", pre_max=100)
+    data = {k: torch.as_tensor(v) for k, v in batch.items()}
+    step.eager(data)
+    mode = HostRoundTrips()
+    monkeypatch.setattr(nms_ops, "rotated_nms_keep",
+                        pausing(mode, nms_ops.rotated_nms_keep))
+    monkeypatch.setattr(backbones, "window_conv",
+                        pausing(mode, backbones.window_conv))
+    with mode:
+        out = step.eager(data)
+    assert not mode.found, sorted(set(mode.found))
+    assert bool(torch.isfinite(out["box3d_lidar"]).all())
+
+
+def test_cpu_model_gets_the_eager_step():
+    step, batch = path_step("flagship", "cpu", pre_max=100)
+    assert not isinstance(step, CapturedStep)
+    assert step.eager is step
+    out = step(batch)
+    assert out["box3d_lidar"].shape == (2, 100, 7)
+
+
+def test_signature_keys_shapes_dtypes():
+    a = {"points": np.zeros((2, 5, 4), np.float32),
+         "num_points": np.zeros(2, np.int32)}
+    b = {"num_points": torch.zeros(2, dtype=torch.int32),
+         "points": torch.ones(2, 5, 4)}
+    sig = CapturedStep.signature(CapturedStep.tensors(a))
+    assert sig == CapturedStep.signature(CapturedStep.tensors(b))
+    assert sig != CapturedStep.signature(CapturedStep.tensors(
+        dict(a, points=np.zeros((2, 6, 4), np.float32))))
+    assert sig != CapturedStep.signature(CapturedStep.tensors(
+        dict(a, num_points=np.zeros(2, np.int64))))
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is "
+                    "false)")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    return torch.device("cuda", 0)
+
+
+def assert_detections_agree(out, ref):
+    """Valid masks and labels equal; boxes and scores within cs.DET_TOL."""
+    for k in ("valid", "label_preds"):
+        assert torch.equal(out[k].cpu(), ref[k].cpu()), k
+    for k in ("box3d_lidar", "scores"):
+        torch.testing.assert_close(out[k].cpu(), ref[k].cpu(), rtol=0,
+                                   atol=cs.DET_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PATHS)
+def test_captured_step_equals_eager(dev, name):
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    step, batch = path_step(name, dev)
+    assert isinstance(step, CapturedStep)
+    window_conv.launches = rotated_nms_keep.launches = 0
+    ref = step.eager(batch)
+    eager = (window_conv.launches, rotated_nms_keep.launches)
+    step.warm_up(batch)
+    window_conv.launches = rotated_nms_keep.launches = 0
+    step.capture(batch)
+    assert (window_conv.launches, rotated_nms_keep.launches) == eager
+    out = step(batch)
+    assert (window_conv.launches, rotated_nms_keep.launches) == eager
+    assert_detections_agree(out, ref)
+    assert int(out["valid"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PATHS)
+def test_eager_step_never_synchronizes(dev, name):
+    step, batch = path_step(name, dev)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    step.eager(data)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.eager(data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship", "second"])
+def test_same_signature_replays_new_signature_captures(dev, name):
+    """A second batch of the same shapes replays the graph (its own
+    detections, not the first batch's); a batch of other shapes captures a
+    second graph; host arrays and device tensors share a signature."""
+    step, first = path_step(name, dev, seed=3)
+    second = path_step(name, "cpu", seed=11)[1]
+    out1 = step(first)
+    assert len(step.graphs) == 1
+    out2 = step(second)
+    assert len(step.graphs) == 1
+    assert_detections_agree(out2, step.eager(second))
+    assert not torch.equal(out1["box3d_lidar"], out2["box3d_lidar"])
+    assert_detections_agree(out1, step.eager(first))
+    step({k: torch.as_tensor(v, device=dev) for k, v in first.items()})
+    assert len(step.graphs) == 1
+    other = path_step(name, "cpu", points=1500, seed=5)[1]
+    out3 = step(other)
+    assert len(step.graphs) == 2
+    assert_detections_agree(out3, step.eager(other))
+
+
+@pytest.mark.cuda
+def test_outputs_survive_later_calls(dev):
+    step, first = path_step("flagship", dev, seed=3)
+    second = path_step("flagship", "cpu", seed=11)[1]
+    out1 = step(first)
+    kept = {k: v.clone() for k, v in out1.items()}
+    step(second)
+    for k in kept:
+        assert torch.equal(out1[k], kept[k]), k
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(dev):
+    """A step that reads a device value on the host cannot be captured:
+    the capture raises, and nothing runs eagerly in its place."""
+    def run(batch):
+        x = batch["x"] * 2
+        return {"y": x * float(x.sum())}
+    step = CapturedStep(run, dev)
+    batch = {"x": np.ones(4, np.float32)}
+    step.warm_up(batch)
+    with pytest.raises(RuntimeError):
+        step.capture(batch)
+    assert not step.graphs

@@ -52,9 +52,8 @@ def down_plan(seed, b=2, cap=64):
     out = []
     for _ in range(b):
         co = _coords(r)
-        lk = sph.host_bitmap(sph.yxz_keys(co, SHAPE), SHAPE)
         oc, _ = sph.transition(co, SHAPE, 3, 2, 1, cap)
-        out.append(sph.down_windows(oc, lk, SHAPE, 3, 2, 1))
+        out.append(sph.down_windows(oc, co, SHAPE, 3, 2, 1))
     return np.stack(out)
 
 
@@ -157,19 +156,26 @@ def test_no_fallback_off_the_cpu():
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_host_rulebooks_equal_jax_host(seed):
-    """The port's host window builders give the JAX package's arrays."""
+    """The port's host window builders, native and numpy, give the JAX
+    package's arrays."""
     r = np.random.RandomState(seed)
     co = _coords(r)
-    np.testing.assert_array_equal(sph.subm_windows(co, SHAPE, 3),
-                                  jsph.subm_windows(co, SHAPE, 3))
+    jsubm = jsph.subm_windows(co, SHAPE, 3)
+    np.testing.assert_array_equal(sph.subm_windows(co, SHAPE, 3), jsubm)
+    np.testing.assert_array_equal(sph.subm_windows_ref(co, SHAPE, 3), jsubm)
     lk = sph.host_bitmap(sph.yxz_keys(co, SHAPE), SHAPE)
     jlk = jsph.host_bitmap(jsph.yxz_keys(co, SHAPE), SHAPE)
     oc, osh = sph.transition(co, SHAPE, 3, 2, 1, 64)
     joc, josh = jsph.transition(co, SHAPE, 3, 2, 1, 64)
-    assert osh == josh
+    assert osh == josh == sph.transition_ref(co, SHAPE, 3, 2, 1, 64)[1]
     np.testing.assert_array_equal(oc, joc)
-    np.testing.assert_array_equal(sph.down_windows(oc, lk, SHAPE, 3, 2, 1),
-                                  jsph.down_windows(oc, jlk, SHAPE, 3, 2, 1))
+    np.testing.assert_array_equal(
+        sph.transition_ref(co, SHAPE, 3, 2, 1, 64)[0], joc)
+    jdown = jsph.down_windows(oc, jlk, SHAPE, 3, 2, 1)
+    np.testing.assert_array_equal(sph.down_windows(oc, co, SHAPE, 3, 2, 1),
+                                  jdown)
+    np.testing.assert_array_equal(
+        sph.down_windows_ref(oc, lk, SHAPE, 3, 2, 1), jdown)
 
 
 def test_to_dense_drops_padding_rows():
