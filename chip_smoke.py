@@ -4,6 +4,7 @@
     python3 chip_smoke.py --conv-timing [--path second lyft kitti_all]
                           [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
+    python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -12,7 +13,10 @@ on it: bf16 on SECOND's plan and fp32 on Lyft's and KITTI-all's unless
 inputs (the NMS kernel at the flagship's N=8 K=1000 at 0.5, SECOND's N=2
 K=1000 at 0.01 and one cluster: a call from Python, the device time by
 graph_ms, each of the tree's NMS kernels by name under torch.profiler).
-Both import det3d_tpu_torch from the checkout at DIR (by default this
+The fourth runs phase 1 and phase 47's timing of the device voxels and
+plan on the named paths' bench batches (second, kitti_all, cbgs, lyft),
+with their kernels' device time by name under torch.profiler.
+They import det3d_tpu_torch from the checkout at DIR (by default this
 one): run them on two checkouts in turns on one card (parent, change,
 change, parent) to compare two versions of a kernel on the same
 yardsticks.
@@ -22,9 +26,11 @@ points a user calls (the flagship PointPillars step and SECOND from host
 plans, both at KITTI-car scale, then CBGS from host plans at nuScenes
 scale, then PointPillars as shipped for KITTI car and nuScenes, then the
 two configs whose middles serve in fp32, Lyft CBGS and KITTI 3-class
-SECOND, from host plans, all at full widths) and prints one line per
-phase, in the order 1 to 11, 39, 40, 14 to 18, 41, 20 to 24, 42, 43, 26
-to 30, 44, 31 to 35, 45, 38, then the profiles 12, 19, 25, 36, 37 each
+SECOND, from host plans, all at full widths), then the steps fed points
+alone (SECOND and CBGS with device voxels and plans, CBGS and nuScenes
+PointPillars under double-flip TTA) and prints one line per phase, in
+the order 1 to 11, 39, 40, 14 to 18, 41, 20 to 24, 42, 43, 26 to 30, 44,
+31 to 35, 45, 38, 47 to 50, then the profiles 12, 19, 25, 36, 37 each
 with its captured step's (46), then 13.
 
 make_predict_step returns the step a user calls: on the card a
@@ -213,6 +219,33 @@ captured. Phases 39-46 drive the captured step itself.
  25. nuScenes PointPillars profile, the same over 5 steps;
  36. Lyft profile, the same over 3 steps;
  37. KITTI-all profile, the same over 5 steps;
+ 47. device voxels and plans: on the bench batches of SECOND, KITTI-all,
+     CBGS and Lyft, the device voxelizer (yxz or hashed order, fused
+     mean) and models/backbones.py::build_plan_device on the card give
+     host_plan_fn's coords, counts and num_voxels and every plan key
+     exactly, the fused means within rtol = atol = 1e-5; their time a
+     batch launched from Python and on the device (one CUDA graph),
+     beside the native host build's ms/scan of phases 7, 14, 26 and 31;
+ 48. SECOND and CBGS from points alone at B=2, full widths: the middle
+     builds its plan on the card and computes in fp32 (``precision``; the
+     configs serve bf16 from host plans); the eager step's checks as
+     phases 9 and 16 (10 / 11 window-conv launches, 1 NMS launch fed N=2
+     / 12, K=1000), then the captured step as phases 40 and 41
+     (phase_captured); card vs CPU at B=1 from points (SECOND over its
+     full range, CBGS on phase 17's cut): device voxels and plans equal,
+     heads within the stated tolerance, the CPU post-processing of the
+     card's heads gives the card's detections; the fp32 window conv on
+     the step's device plan against the plain version at every layer,
+     timed as phase 11; the NMS kernel on the step's inputs;
+ 49. double-flip TTA on CBGS at B=2 (4B = 8 scans through the fp32
+     middle): as phase 48, the card vs CPU run on the four flips of a cut
+     scan with the CPU's predict_tta, and the CPU's predict_tta of the
+     card's full-size heads (scan 0) against the card's; 11 window-conv
+     launches at 4B rows and 1 NMS launch over the merged candidates
+     (N=12, K=1000);
+ 50. double-flip TTA on nuScenes PointPillars at B=2 (the device
+     appearance voxelizer on 8 scans): as phase 49 without a window conv,
+     card vs CPU with the reader and neck in fp32 on both sides;
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -238,7 +271,11 @@ NMS and SECOND's window-conv times and the launches of each path, then
 one per kernel with ``"path": "cbgs"`` at CBGS's shapes, then the NMS
 kernel with ``"path": "nusc_pp"`` on the nuScenes PointPillars step's
 inputs, then the fp32 window conv and the NMS kernel with ``"path":
-"lyft"`` and ``"path": "kitti_all"``; ``ms``: a call from Python,
+"lyft"`` and ``"path": "kitti_all"``, then those of the steps fed points
+alone, ``"path"`` ``"second_points"``, ``"cbgs_points"``, ``"cbgs_tta"``
+(the fp32 window conv on each step's device plan and the NMS kernel on
+its inputs) and ``"nusc_pp_tta"`` (the NMS kernel); ``ms``: a call from
+Python,
 interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
 result line. The NMS bound counts
 the work these inputs need (a distance test for every valid pair, a full
@@ -2257,12 +2294,16 @@ KITTI_ALL = Fp32Path("kitti_all", "KITTI-all SECOND", KITTI_ALL_CFG, POINTS,
                      False, SECOND_LAYERS, 100, (2 * 3, 1000, 0.01), None,
                      (31, 32, 33, 34, 35, 37, 45))
 FP32_PATHS = {p.key: p for p in (LYFT, KITTI_ALL)}
-# the seven predict steps as chip_smoke captures them (phases 39-45), in
-# the order of their profiles (phase 46)
+# the predict steps as chip_smoke captures them (phases 39-45 from host
+# data, 48-50 from points alone), in the order of their profiles (phase 46)
 CAPTURED_PATHS = (("flagship", "flagship"), ("second", "SECOND"),
                   ("cbgs", "CBGS"), ("kitti_pp", "KITTI car PointPillars"),
                   ("nusc_pp", "nuScenes PointPillars"),
-                  ("lyft", "Lyft CBGS"), ("kitti_all", "KITTI-all SECOND"))
+                  ("lyft", "Lyft CBGS"), ("kitti_all", "KITTI-all SECOND"),
+                  ("second_points", "SECOND from points"),
+                  ("cbgs_points", "CBGS from points"),
+                  ("cbgs_tta", "CBGS double-flip TTA"),
+                  ("nusc_pp_tta", "nuScenes PointPillars double-flip TTA"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -2471,11 +2512,11 @@ def dense_conv_routes(model, run):
     F = torch.nn.functional
     seen, real = {}, backbones.DenseConvBN.conv
 
-    def spy(layer, x):
+    def spy(layer, x, dtype=None):
         key = (f"dense conv3d in {tuple(x.shape)} weight "
                f"{tuple(layer.weight.shape)} stride {layer.stride}")
-        seen.setdefault(key, (layer, x))
-        return real(layer, x)
+        seen.setdefault(key, (layer, x, dtype or layer.dtype))
+        return real(layer, x, dtype)
     backbones.DenseConvBN.conv = spy
     try:
         with torch.no_grad():
@@ -2483,8 +2524,8 @@ def dense_conv_routes(model, run):
     finally:
         backbones.DenseConvBN.conv = real
     out = {}
-    for key, (layer, x) in seen.items():
-        w = layer.weight.to(layer.dtype)
+    for key, (layer, x, dtype) in seen.items():
+        w = layer.weight.to(dtype)
         kw = dict(stride=layer.stride, padding=layer.padding)
         c = backbones.COUT_CHUNK
         routes = {"one cuDNN call": functools.partial(F.conv3d, x, w, **kw)}
@@ -2492,7 +2533,7 @@ def dense_conv_routes(model, run):
             routes[f"{c}-channel output chunks"] = functools.partial(
                 cout_chunked_conv3d, x, w, c, **kw)
         routes["the port (DenseConvBN.conv)"] = functools.partial(
-            real, layer, x)
+            real, layer, x, dtype)
         out[key] = routes
     return out
 
@@ -2551,7 +2592,8 @@ def run_fp32_path(dev, path, smi):
     """Phases plan, kernels, predict, card vs CPU, timing and the captured
     step of one fp32 path. Returns what main() reports: (stack, launches,
     NMS inputs, the window conv's worst error, its timing, the NMS timing,
-    the captured step's phase_captured result)."""
+    the captured step's phase_captured result, the host build's
+    ms/scan)."""
     batch = path.scans(path.b, path.points)
     plan, plan_ms = phase_fp32_plan(path, batch)
     conv_err = phase_conv_kernel(dev, plan, path.layers, path.label(1),
@@ -2561,7 +2603,281 @@ def run_fp32_path(dev, path, smi):
     conv, nms = phase_fp32_timing(dev, path, stack, plan_ms, nms_in, smi)
     cap = phase_captured(dev, stack[4], stack[5], launches, smi,
                          path.label(6))
-    return stack, launches, nms_in, conv_err, conv, nms, cap
+    return stack, launches, nms_in, conv_err, conv, nms, cap, plan_ms
+
+
+# ---------------------------------------------------------------------------
+# Points alone: device voxels and plans (47), the sparse steps from points
+# (48), double-flip TTA (49, 50)
+# ---------------------------------------------------------------------------
+
+MEAN_TOL = dict(rtol=1e-5, atol=1e-5)   # fused means, card vs host
+
+
+def tta_config(cfg):
+    """``cfg`` with double-flip TTA switched on."""
+    return dict(cfg, test_cfg=dict(cfg["test_cfg"], double_flip=True))
+
+
+def device_build(model, vg):
+    """fn(points, num_points) -> (voxels, plan): the device voxelizer and
+    models/backbones.py::build_plan_device, as a sparse middle runs them
+    without a host plan."""
+    from det3d_tpu_torch.models.backbones import (build_plan_device,
+                                                  middle_plan_spec)
+    spec = middle_plan_spec(model.backbone, vg.grid_size, vg.max_voxels)
+
+    def fn(points, num_points):
+        vox = vg.generate_batch(points, num_points)
+        return vox, build_plan_device(vox["coords"], spec)
+    return fn, spec
+
+
+def check_voxels(vox, host, label):
+    """Device voxels against host ones: coords, counts and num_voxels
+    equal, (fused-mean) voxels within MEAN_TOL. Returns the voxels' max
+    abs difference."""
+    for k, hk in (("coords", "coordinates"),
+                  ("num_points_per_voxel", "num_points_per_voxel"),
+                  ("num_voxels", "num_voxels")):
+        if not np.array_equal(vox[k].cpu().numpy(), np.asarray(host[hk])):
+            raise AssertionError(f"{label}: device {k} differs from the "
+                                 f"host's")
+    got = vox["voxels"].cpu()
+    ref = torch.as_tensor(np.asarray(host["voxels"]))
+    if not torch.allclose(got, ref, **MEAN_TOL):
+        raise AssertionError(f"{label}: device voxels differ from the "
+                             f"host's by {float((got - ref).abs().max())}")
+    return float((got - ref).abs().max())
+
+
+def build_times(vg, fn, spec, pts, n):
+    """The device voxels and plan of (pts, n) timed: voxelizer, plan and
+    both launched from Python (cuda_ms), both on the device (graph_ms,
+    one CUDA graph). ms a batch."""
+    from det3d_tpu_torch.models.backbones import build_plan_device
+    coords = vg.generate_batch(pts, n)["coords"]
+    return {"voxelize": cuda_ms(lambda: vg.generate_batch(pts, n)),
+            "plan": cuda_ms(lambda: build_plan_device(coords, spec)),
+            "both": cuda_ms(lambda: fn(pts, n)),
+            "device": graph_ms(lambda: fn(pts, n), reps=1)}
+
+
+def phase_device_plans(dev, paths, smi):
+    """Phase 47: on each sparse path's bench batch (``paths``: key -> (label,
+    config, the batch with its host voxels and plan, the native host
+    build's ms/scan)), the device voxelizer and build_plan_device on the
+    card: coords, counts and num_voxels equal to host_plan_fn's, the fused
+    means within MEAN_TOL, every plan key equal (int32, shape, values).
+    Then their time a batch by CUDA events (cuda_ms: launched from Python,
+    as the eager step runs them) and on the device (graph_ms: as the
+    captured step replays them), voxelizer and plan apart, beside the host
+    build. Returns {key: {"voxelize", "plan", "both", "device"} ms}."""
+    from det3d_tpu_torch.apis.train import build_stack
+    out = {}
+    for key, (label, cfg, data, host_ms) in paths.items():
+        model, vg = build_stack(cfg, device="cpu")[:2]
+        fn, spec = device_build(model, vg)
+        pts = torch.as_tensor(data["points"], device=dev)
+        n = torch.as_tensor(data["num_points"], device=dev)
+        vox, plan = fn(pts, n)
+        torch.cuda.synchronize()
+        err = check_voxels(vox, data, label)
+        want = sorted(k[5:] for k in data if k.startswith("plan_"))
+        if sorted(plan) != want:
+            raise AssertionError(f"{label}: device plan keys {sorted(plan)}"
+                                 f", host {want}")
+        for k, v in plan.items():
+            if (v.dtype != torch.int32 or not np.array_equal(
+                    v.cpu().numpy(), data[f"plan_{k}"])):
+                raise AssertionError(f"{label}: device plan {k} differs "
+                                     f"from the host's")
+        t = build_times(vg, fn, spec, pts, n)
+        b = pts.shape[0]
+        log(f"{label} device voxels and plan B={b} P={pts.shape[1]}: "
+            f"coords, counts and num_voxels equal to the host's, voxels "
+            f"within {err:.2e} (tolerance {MEAN_TOL}), all {len(plan)} plan "
+            f"keys equal; {t['both']:.3f} ms/batch launched from Python "
+            f"(voxelize {t['voxelize']:.3f}, plan {t['plan']:.3f}), "
+            f"{t['device']:.3f} ms/batch on the device (one CUDA graph), "
+            f"{t['device'] / b:.3f} ms/scan, against the native host build's "
+            f"{host_ms:.1f} ms/scan on one thread of the host's "
+            f"{cpu_model()} ({host_ms * b / t['device']:.1f}x) [{smi}]")
+        out[key] = t
+    return out
+
+
+def card_vs_cpu_points(dev, card_stack, cpu_stack, one, label, tta=False):
+    """Card against CPU on the scan ``one`` (B=1) from points alone, with
+    ``tta`` its four flips: the device voxels equal (means within
+    MEAN_TOL), for a sparse middle the device plans equal, every task's
+    head outputs within SECOND_HEAD_TOL, class logits not degenerate, and
+    the CPU post-processing (``predict``, or with ``tta`` ``predict_tta``)
+    of the card's heads gives the card's detections (check_decode)."""
+    from det3d_tpu_torch.models.backbones import (build_plan_device,
+                                                  middle_plan_spec)
+    from det3d_tpu_torch.parallel.predict import double_flip_batch
+    card, vg, asg, _, test_cfg, _ = card_stack
+    cpu = cpu_stack[0]
+    data = {k: torch.as_tensor(v) for k, v in one.items()}
+    if tta:
+        data = double_flip_batch(data)
+    with torch.no_grad():
+        ex_d, heads_d = heads_on(card, vg, asg, data, dev)
+        ex_c, heads_c = heads_on(cpu, vg, asg, data, "cpu")
+        check_voxels(dict(ex_d, coords=ex_d["coordinates"]),
+                     {k: v.numpy() for k, v in ex_c.items()
+                      if k != "anchors"}, label)
+        planned = ""
+        if "SpMiddle" in type(card.backbone).__name__:
+            spec = middle_plan_spec(card.backbone, vg.grid_size,
+                                    vg.max_voxels)
+            plan_d = build_plan_device(ex_d["coordinates"], spec)
+            plan_c = build_plan_device(ex_c["coordinates"], spec)
+            for k in plan_c:
+                if not torch.equal(plan_d[k].cpu(), plan_c[k]):
+                    raise AssertionError(f"{label}: device plan {k}, card "
+                                         f"vs CPU, differs")
+            planned = f", the {len(plan_c)} device plan keys equal"
+        worst = 0.0
+        for t, (hd, hc) in enumerate(zip(heads_d, heads_c)):
+            for k in hc:
+                err = float((hd[k].cpu() - hc[k]).abs().max())
+                worst = max(worst, err)
+                if not torch.allclose(hd[k].cpu(), hc[k], **SECOND_HEAD_TOL):
+                    raise AssertionError(f"{label} task {t} head {k}: card "
+                                         f"vs CPU max err {err}")
+        spread = min(float(h["cls_preds"].std()) for h in heads_c)
+        if spread < 0.1:
+            raise AssertionError(f"degenerate head outputs (class logits std "
+                                 f"{spread})")
+        predict = "predict_tta" if tta else "predict"
+        det_d = getattr(card, predict)(ex_d, heads_d, test_cfg)
+        det_c = getattr(cpu, predict)(
+            ex_c, [{k: v.cpu() for k, v in h.items()} for h in heads_d],
+            test_cfg)
+    log(f"{label} card vs CPU B=1{' (4 flips)' if tta else ''} from points "
+        f"alone: device voxels equal ({int(ex_c['num_voxels'][0])} "
+        f"voxels){planned}; {len(heads_c)} task(s)' head outputs max abs "
+        f"err {worst:.3e} (tolerance rtol={SECOND_HEAD_TOL['rtol']} "
+        f"atol={SECOND_HEAD_TOL['atol']}), class logits std >= "
+        f"{spread:.3f}; the CPU's {predict} of the card's heads: "
+        f"{check_decode(det_d, det_c, label)}")
+
+
+def points_step(dev, stack, batch, shape, launches_expected, nms_expected,
+                label, smi, min_labels=1):
+    """A predict step fed points alone (no host voxels, no plan): the eager
+    step's checks of sparse_predict, exactly one NMS launch fed
+    ``nms_expected`` = (N, K, thr), then phase_captured. Returns (stack,
+    launches, NMS inputs, phase_captured's result)."""
+    data = {k: batch[k] for k in ("points", "num_points")}
+    st, launches = sparse_predict(dev, stack, data, {}, shape,
+                                  launches_expected, label, min_labels)
+    if launches["rotated_nms_keep"] != 1:
+        raise AssertionError(f"{label}: {launches['rotated_nms_keep']} NMS "
+                             f"launches, expected 1")
+    nms_in = nms_fed(st, nms_expected, label)
+    cap = phase_captured(dev, st[4], st[5], launches, smi, label)
+    return st, launches, nms_in, cap
+
+
+def device_plan_kernels(dev, stack, layers, label, smi):
+    """The fp32 window conv on the plan the card builds from the step's own
+    voxels (4B scans under TTA): against the plain version at every layer
+    (phase_conv_kernel), then timed (conv_timing). Returns (worst error,
+    conv_timing's forward)."""
+    from det3d_tpu_torch.parallel.predict import double_flip_batch
+    model, vg, _, test_cfg, _, data = stack
+    d = {k: torch.as_tensor(data[k], device=dev)
+         for k in ("points", "num_points")}
+    if test_cfg.get("double_flip"):
+        d = double_flip_batch(d)
+    fn, _ = device_build(model, vg)
+    with torch.no_grad():
+        plan = {f"plan_{k}": v for k, v in fn(d["points"],
+                                              d["num_points"])[1].items()}
+    err = phase_conv_kernel(dev, plan, layers, label, precisions=("fp32",),
+                            every_layer=True)
+    return err, conv_timing(dev, plan, smi, "fp32", layers, label)
+
+
+def phase_points_and_tta(dev, sec_batch, cbgs_data, smi):
+    """Phases 48-50: SECOND and CBGS from points alone (48), CBGS (49) and
+    nuScenes PointPillars (50) under double-flip TTA, each at B=2 at full
+    widths through build_stack and make_predict_step: the eager step's
+    checks and the captured step (points_step), card vs CPU at B=1
+    (card_vs_cpu_points: SECOND over its full range as phase 10, CBGS and
+    nuScenes PointPillars on the cut ranges of phases 17 and 23, the
+    PointPillars reader and neck in fp32 on both sides), under TTA the
+    CPU's predict_tta of the card's full-size heads (full_size_tta); the
+    fp32 window conv on each sparse step's device plan
+    (device_plan_kernels), and the NMS kernel on each step's inputs.
+    Returns {key: (stack, launches, NMS inputs, captured, conv (err,
+    timing) or None, NMS timing)}."""
+    cut = cbgs_config(cut=True)["voxel_generator"]["range"]
+    cbgs_one = cbgs_batch(1, CBGS_CUT_POINTS, cut)
+    pp_cut = tta_config(pp_config(NUSC_PP_CFG, cut=True, precision="fp32"))
+    cbgs_cut = tta_config(cbgs_config(cut=True))
+    second = (SECOND_B, 100, 7), (SECOND_B, 1000, SECOND_NMS_THR)
+    nusc = (CBGS_B, CBGS_DETS, 9), (CBGS_B * 6, 1000, CBGS_NMS_THR)
+    # (key, label, the step's stack, its batch, its outputs and NMS inputs,
+    # window-conv launches and layers, the card's and the CPU's B=1
+    # stacks and scan, TTA)
+    paths = (
+        ("second_points", "phase 48 SECOND from points (fp32 middle)",
+         second_stack(dev), sec_batch, second, SECOND_LAUNCHES,
+         SECOND_LAYERS, second_stack(dev), second_stack("cpu"),
+         {k: v[:1] for k, v in sec_batch.items()}, False),
+        ("cbgs_points", "phase 48 CBGS from points (fp32 middle)",
+         cbgs_stack(dev), cbgs_data, nusc, CBGS_LAUNCHES, CBGS_LAYERS,
+         cbgs_stack(dev, cut=True), cbgs_stack("cpu", cut=True), cbgs_one,
+         False),
+        ("cbgs_tta", "phase 49 CBGS double-flip TTA (fp32 middle)",
+         load_stack(tta_config(cbgs_config()), cbgs_state(), dev),
+         cbgs_data, nusc, CBGS_LAUNCHES, CBGS_LAYERS,
+         load_stack(cbgs_cut, cbgs_state(), dev),
+         load_stack(cbgs_cut, cbgs_state(), "cpu"), cbgs_one, True),
+        ("nusc_pp_tta", "phase 50 nuScenes PointPillars double-flip TTA",
+         load_stack(tta_config(pp_config(NUSC_PP_CFG)),
+                    pp_state(NUSC_PP_CFG), dev),
+         cbgs_data, nusc, 0, None,
+         load_stack(pp_cut, pp_state(NUSC_PP_CFG), dev),
+         load_stack(pp_cut, pp_state(NUSC_PP_CFG), "cpu"),
+         pp_scans(pp_cut, 1, PP_CUT_POINTS), True))
+    out = {}
+    for (key, label, stack, batch, (shape, nms), n_conv, layers, card, cpu,
+         one, tta) in paths:
+        st, launches, nms_in, cap = points_step(
+            dev, stack, batch, shape, n_conv, nms, label, smi,
+            min_labels=2 if tta else 1)
+        card_vs_cpu_points(dev, card, cpu, one, label, tta)
+        if tta:
+            full_size_tta(dev, st, cpu[0], label)
+        conv = (device_plan_kernels(dev, st, layers, label, smi)
+                if layers else None)
+        out[key] = (st, launches, nms_in, cap, conv,
+                    step_nms_timing(nms_in, smi, label))
+    return out
+
+
+def full_size_tta(dev, stack, cpu_model, label):
+    """The CPU's predict_tta of the card's full-size heads of scan 0's four
+    flips against the card's (check_decode)."""
+    from det3d_tpu_torch.parallel.predict import double_flip_batch
+    model, vg, asg, test_cfg, _, data = stack
+    one = double_flip_batch({k: torch.as_tensor(data[k][:1]) for k in
+                             ("points", "num_points")})
+    with torch.no_grad():
+        ex_d, heads_d = heads_on(model, vg, asg, one, dev)
+        det_d = model.predict_tta(ex_d, heads_d, test_cfg)
+        anchors = [a.anchors_on("cpu")[None].expand(4, *a.anchors_flat.shape)
+                   for a in asg]
+        det_c = cpu_model.predict_tta(
+            {"anchors": anchors},
+            [{k: v.cpu() for k, v in h.items()} for h in heads_d], test_cfg)
+    log(f"{label} the CPU's predict_tta of the full-size card heads (scan "
+        f"0, 4 flips): {check_decode(det_d, det_c, label + ' full')}")
 
 
 # ---------------------------------------------------------------------------
@@ -2701,6 +3017,45 @@ def conv_timing_main(tree, prec, paths):
     return 0
 
 
+def build_timing_main(tree, paths):
+    """--build-timing: phase 1, then phase 47's timing of the device voxels
+    and plan (build_times) on each path's bench batch, with
+    det3d_tpu_torch imported from ``tree``."""
+    if tree:
+        sys.path.insert(0, str(Path(tree).resolve()))
+    smi = phase_device()
+    import det3d_tpu_torch
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.utils.synth import structured_batch
+    log(f"device build timing of {Path(det3d_tpu_torch.__file__).parent}")
+    dev = torch.device("cuda", 0)
+    sec_range = second_config()["voxel_generator"]["range"]
+    batches = {
+        "second": (second_config(), structured_batch(
+            SECOND_B, POINTS, sec_range, seed=SEED)),
+        "kitti_all": (KITTI_ALL.config(), KITTI_ALL.scans(KITTI_ALL.b,
+                                                          KITTI_ALL.points)),
+        "cbgs": (cbgs_config(), cbgs_batch(
+            CBGS_B, CBGS_POINTS, cbgs_config()["voxel_generator"]["range"])),
+        "lyft": (LYFT.config(), LYFT.scans(LYFT.b, LYFT.points))}
+    for key in paths:
+        cfg, batch = batches[key]
+        model, vg = build_stack(cfg, device="cpu")[:2]
+        fn, spec = device_build(model, vg)
+        pts = torch.as_tensor(batch["points"], device=dev)
+        n = torch.as_tensor(batch["num_points"], device=dev)
+        with torch.no_grad():
+            t = build_times(vg, fn, spec, pts, n)
+            split = kernel_split_ms(lambda: fn(pts, n), calls=5)
+        log(f"build-timing {key} B={pts.shape[0]} P={pts.shape[1]}: "
+            f"{t['device']:.3f} ms/batch on the device (one CUDA graph), "
+            f"{t['both']:.3f} launched from Python (voxelize "
+            f"{t['voxelize']:.3f}, plan {t['plan']:.3f}) [{smi}]")
+        for name, ms in sorted(split.items(), key=lambda x: -x[1])[:8]:
+            log(f"build-timing {key}   {ms:8.3f} ms a batch  {name[:90]}")
+    return 0
+
+
 def nms_timing_main(tree):
     """--nms-timing: phases 1 and 13, with det3d_tpu_torch imported from
     ``tree``."""
@@ -2727,14 +3082,20 @@ def main():
                     "(default: second)")
     ap.add_argument("--nms-timing", action="store_true",
                     help="time only the rotated-NMS kernel (phase 13)")
-    ap.add_argument("--tree", help="with --conv-timing or --nms-timing: the "
-                    "checkout whose det3d_tpu_torch to time (default: this "
-                    "one)")
+    ap.add_argument("--build-timing", nargs="+",
+                    choices=("second", "kitti_all", "cbgs", "lyft"),
+                    help="time only the device voxels and plan (phase 47) "
+                    "on these paths' bench batches")
+    ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
+                    "--build-timing: the checkout whose det3d_tpu_torch to "
+                    "time (default: this one)")
     args = ap.parse_args()
     if args.conv_timing:
         return conv_timing_main(args.tree, args.prec, args.path)
     if args.nms_timing:
         return nms_timing_main(args.tree)
+    if args.build_timing:
+        return build_timing_main(args.tree, args.build_timing)
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -2807,6 +3168,31 @@ def main():
     # CBGS's middle with dense_from=3 and without the dense tail (38)
     phase_cbgs_variants(dev, cbgs_data, smi)
 
+    # points alone: the device voxels and plans of the four sparse paths
+    # against their host builds (47), SECOND and CBGS from points (48),
+    # double-flip TTA on CBGS (49) and nuScenes PointPillars (50)
+    builds = phase_device_plans(dev, {
+        "second": ("phase 47 SECOND", second_config(), dict(
+            sec_batch, **plan), plan_ms),
+        "kitti_all": ("phase 47 KITTI-all SECOND", KITTI_ALL.config(),
+                      fp32["kitti_all"][0][5], fp32["kitti_all"][7]),
+        "cbgs": ("phase 47 CBGS", cbgs_config(), dict(cbgs_data,
+                                                      **cbgs_plan),
+                 cbgs_plan_ms),
+        "lyft": ("phase 47 Lyft CBGS", LYFT.config(), fp32["lyft"][0][5],
+                 fp32["lyft"][7])}, smi)
+    points = phase_points_and_tta(dev, sec_batch, cbgs_data, smi)
+    caps.update({k: v[3] for k, v in points.items()})
+    for key, base in (("second_points", "second"), ("cbgs_points", "cbgs")):
+        log(f"phase 48 {key}: captured step from points "
+            f"{caps[key]['captured']:.3f} ms/batch (eager "
+            f"{caps[key]['eager']:.3f}; from the card "
+            f"{caps[key]['on_card']['captured']:.3f}) against the captured "
+            f"step from host data {caps[base]['captured']:.3f} (from the "
+            f"card {caps[base]['on_card']['captured']:.3f}), whose plan "
+            f"the card builds in {builds[base]['device']:.3f} ms/batch "
+            f"(phase 47) [{smi}]")
+
     # torch.profiler after every step is timed: each eager profile, then
     # the captured step's beside it (phase 46), the flagship's and KITTI
     # car PointPillars' captured steps alone; then the inputs the predict
@@ -2814,6 +3200,7 @@ def main():
     stacks = {"second": sec_stack, "cbgs": cbgs_stack_,
               "kitti_pp": kitti_stack, "nusc_pp": nusc_stack,
               "lyft": fp32["lyft"][0], "kitti_all": fp32["kitti_all"][0]}
+    stacks.update({k: v[0] for k, v in points.items()})
     captured.update({k: v[4] for k, v in stacks.items()})
     batches = {k: v[5] for k, v in stacks.items()}
     batches["flagship"] = batch
@@ -2855,7 +3242,8 @@ def main():
                 ("KITTI car PointPillars step B=8", kitti_in),
                 ("nuScenes PointPillars step B=2", nusc_in),
                 ("Lyft CBGS step B=2", fp32["lyft"][2]),
-                ("KITTI-all SECOND step B=2", fp32["kitti_all"][2]))
+                ("KITTI-all SECOND step B=2", fp32["kitti_all"][2])) + tuple(
+                    (f"{k} step B=2", v[2]) for k, v in points.items())
     nms_dev = nms_timing(dev, smi, "phase 13", steps_in)
     nms_times["device"] = nms_dev["flagship N=8 K=1000"]["device"]
 
@@ -2871,7 +3259,8 @@ def main():
     bounds = {}
     for name, nms_in in (("kitti_pp", kitti_in), ("nusc_pp", nusc_in),
                          ("lyft", fp32["lyft"][2]),
-                         ("kitti_all", fp32["kitti_all"][2])):
+                         ("kitti_all", fp32["kitti_all"][2])) + tuple(
+                             (k, v[2]) for k, v in points.items()):
         bounds[name] = nms_bound(*nms_in[:3])
         log(f"rotated NMS bound on the {name} step's inputs "
             f"N={nms_in[0].shape[0]} K={nms_in[0].shape[1]}: "
@@ -2894,7 +3283,7 @@ def main():
     fp32_entries = []
     for p, step_name in ((LYFT, "Lyft CBGS step B=2"),
                          (KITTI_ALL, "KITTI-all SECOND step B=2")):
-        _, _, _, p_err, p_conv, p_nms, p_cap = fp32[p.key]
+        _, _, _, p_err, p_conv, p_nms, p_cap, _ = fp32[p.key]
         p_launches = p_cap["launches"]
         fp32_entries += [dict(
             conv_src, path=p.key, dtype="fp32",
@@ -2909,10 +3298,28 @@ def main():
             bound_ms=bounds[p.key][0], bound_by=bounds[p.key][1],
             library_ms=None,
         )]
+    # the steps fed points alone (48-50): the fp32 window conv on each
+    # sparse step's device plan, the NMS kernel on each step's inputs
+    for key, (_, _, _, _, p_conv_err, p_nms) in points.items():
+        launches = caps[key]["launches"]
+        if p_conv_err is not None:
+            p_err, p_conv = p_conv_err
+            fp32_entries.append(dict(
+                conv_src, path=key, dtype="fp32",
+                launches=launches["window_conv"], max_abs_err=p_err,
+                ms=p_conv["kernel"], device_ms=p_conv["device"],
+                plain_ms=p_conv["plain"], bound_ms=p_conv["bound_ms"],
+                bound_by=p_conv["bound_by"], library_ms=None))
+        fp32_entries.append(dict(
+            nms_src, path=key, launches=launches["rotated_nms_keep"],
+            max_abs_err=float(nms_err), ms=p_nms["kernel"],
+            device_ms=nms_dev[f"{key} step B=2"]["device"],
+            plain_ms=p_nms["plain"], bound_ms=bounds[key][0],
+            bound_by=bounds[key][1], library_ms=None))
     # one entry per kernel over every path, with the flagship's (NMS) and
     # SECOND's (window conv) times, then one per kernel at CBGS's shapes,
-    # the NMS kernel on the nuScenes PointPillars step's inputs, and the
-    # fp32 paths' entries
+    # the NMS kernel on the nuScenes PointPillars step's inputs, the fp32
+    # paths' entries and those of the steps fed points alone
     print(json.dumps({"kernels": [dict(
         nms_src, launches=sum(by_path["rotated_nms_keep"].values()),
         launches_by_path=by_path["rotated_nms_keep"],

@@ -1,5 +1,5 @@
-"""Fixed-shape batched voxelization in torch: hashed and appearance voxel
-orders.
+"""Fixed-shape batched voxelization in torch: hashed, yxz and appearance
+voxel orders, and the fused voxel mean.
 
 Port of det3d_tpu/core/voxelize.py (``VoxelGenerator``'s buffer path,
 ``voxelize``): quantize points to linear voxel ids, stable-sort them so
@@ -10,16 +10,18 @@ the batch dimension is written out.
 
 - ``order="hashed"`` sorts by (mix32(id), id): voxel rows in hash order,
   and an overflow keeps a uniform pseudo-random subset of the voxels.
+- ``order="yxz"`` sorts by ((y * gx + x) * gz + z, id): voxel rows in
+  the sparse middles' rank order (their ``pre_ranked``), and an overflow
+  keeps a (y, x) scan-line prefix.
 - ``order="appearance"`` (the JAX package's default) sorts by id and
   ranks the voxels by their first point: rows in first-come order, and an
   overflow keeps the voxels that appear first, as the reference's numba
   voxelizer does.
 
-``VoxelGenerator`` also takes ``order="yxz"`` and ``fuse_mean=True``
-(SECOND's and CBGS's configurations): those are voxelized on the host
-(ops/voxelize_host.py, through apis/train.py::host_plan_fn), and
-``generate_batch`` raises for them. With the fused mean, "appearance"
-voxelizes in hashed order, as in the JAX package.
+``fuse_mean=True`` (the mean readers of SECOND and CBGS) emits each
+voxel's feature mean, (B, V, C), in the hashed or yxz order;
+"appearance" then voxelizes in hashed order, as in the JAX package. The
+host twins are ops/voxelize_host.py's.
 """
 
 from __future__ import annotations
@@ -78,6 +80,20 @@ def mix32(x):
     return x
 
 
+def row_cumsum(x):
+    """Inclusive cumsum of a (B, N) tensor along dim 1, as one scan of the
+    flattened tensor less the totals of the earlier rows. torch scans a
+    long last dim of few rows slowly and a single row with a device-wide
+    scan: SECOND's device plan (bitmap rows of 2.25M columns) took 11.2 ms
+    with row scans and 5.4 ms so (H100 80GB HBM3, chip_smoke.py
+    --build-timing)."""
+    c = x.reshape(-1).cumsum(0).view(x.shape)
+    if x.shape[1] == 0:
+        return c
+    before = torch.cat([c.new_zeros(1), c[:-1, -1]])
+    return c - before[:, None]
+
+
 def scatter_rows(values, index, keep, n_rows: int):
     """Scatter (..., D) rows of ``values`` to rows ``index`` of a zeroed
     (n_rows, D) table, dropping rows where ``keep`` is False (the
@@ -93,9 +109,27 @@ def scatter_rows(values, index, keep, n_rows: int):
     return out[:n_rows]
 
 
+def sort_key(lin, grid_size, key_mode: str):
+    """The voxel sort key of the sorted orders. "hashed": mix32 of the id,
+    so an overflow drops a uniform pseudo-random voxel subset. "yxz": the
+    rank key (y * gx + x) * gz + z, so rows come out in the sparse
+    middles' rank order and an overflow drops a scan-line suffix. Padding
+    sorts last. Port of voxelize.py::_sort_key."""
+    gx, gy, gz = grid_size
+    if key_mode == "yxz":
+        key = ((lin // gx) % gy * gx + lin % gx) * gz + lin // (gx * gy)
+        return torch.where(lin == SENTINEL, SENTINEL, key)
+    if key_mode != "hashed":
+        raise ValueError(f"sorted voxel order {key_mode!r}: expected "
+                         "'hashed' or 'yxz'")
+    return torch.where(lin == SENTINEL, _U32, mix32(lin))
+
+
 def voxelize_hashed(points, num_points, *, voxel_size, pc_range, grid_size,
-                    max_voxels: int, max_points: int):
-    """Voxelize a batch of padded clouds in hashed voxel order.
+                    max_voxels: int, max_points: int,
+                    key_mode: str = "hashed"):
+    """Voxelize a batch of padded clouds in a sorted voxel order: hashed,
+    or yxz with ``key_mode="yxz"``.
 
     points: (B, P, C) float; num_points: (B,) int.
     Returns dict with voxels (B, V, T, C), coords (B, V, 3) int32 zyx (-1
@@ -107,9 +141,9 @@ def voxelize_hashed(points, num_points, *, voxel_size, pc_range, grid_size,
     v_cap, t_cap = int(max_voxels), int(max_points)
     lin = quantize(points, num_points, voxel_size, pc_range, grid_size)
 
-    # sort by (key, lin): one int64 key with the 32-bit hash above the
+    # sort by (key, lin): one int64 key with the 32-bit key above the
     # 31-bit id; the stable sort keeps each voxel's points in input order
-    key = torch.where(lin == SENTINEL, _U32, mix32(lin))
+    key = sort_key(lin, grid_size, key_mode)
     sorted_key, perm = torch.sort((key << 31) | lin, dim=1, stable=True)
     sorted_lin = sorted_key & SENTINEL
     pos = torch.arange(p, device=dev).expand(b, p)
@@ -117,7 +151,7 @@ def voxelize_hashed(points, num_points, *, voxel_size, pc_range, grid_size,
     svalid = sorted_lin != SENTINEL
     head = svalid.clone()
     head[:, 1:] &= sorted_lin[:, 1:] != sorted_lin[:, :-1]
-    seg_id = torch.clamp(torch.cumsum(head.to(torch.int64), dim=1) - 1, min=0)
+    seg_id = torch.clamp(row_cumsum(head.to(torch.int64)) - 1, min=0)
     start = torch.cummax(torch.where(head, pos, 0), dim=1).values
     slot_p = pos - start
 
@@ -153,6 +187,29 @@ def voxelize_hashed(points, num_points, *, voxel_size, pc_range, grid_size,
     }
 
 
+def voxelize_mean(points, num_points, *, voxel_size, pc_range, grid_size,
+                  max_voxels: int, max_points: int, order: str = "hashed"):
+    """Fused voxelize + mean: each voxel's mean over its first
+    ``max_points`` points, (B, V, C), in the hashed or yxz order, with the
+    coords and counts of ``voxelize_hashed``. Port of
+    voxelize.py::voxelize_mean.
+
+    The sums run in slot order, one slot after another, as the reference's
+    scatter-add sums a voxel's sorted points: no float atomics, so the
+    result is the same on every run and in a captured graph."""
+    out = voxelize_hashed(points, num_points, voxel_size=voxel_size,
+                          pc_range=pc_range, grid_size=grid_size,
+                          max_voxels=max_voxels, max_points=max_points,
+                          key_mode=order)
+    buf = out["voxels"]                                 # empty slots zero
+    sums = buf[:, :, 0]
+    for t in range(1, buf.shape[2]):
+        sums = sums + buf[:, :, t]
+    counts = out["num_points_per_voxel"]
+    out["voxels"] = sums / torch.clamp(counts, min=1).to(sums.dtype)[..., None]
+    return out
+
+
 def voxelize_appearance(points, num_points, *, voxel_size, pc_range,
                         grid_size, max_voxels: int, max_points: int):
     """Voxelize a batch of padded clouds in appearance (first-come) voxel
@@ -173,7 +230,7 @@ def voxelize_appearance(points, num_points, *, voxel_size, pc_range,
     svalid = sorted_lin != SENTINEL
     head = svalid.clone()
     head[:, 1:] &= sorted_lin[:, 1:] != sorted_lin[:, :-1]
-    seg_id = torch.clamp(torch.cumsum(head.to(torch.int64), dim=1) - 1, min=0)
+    seg_id = torch.clamp(row_cumsum(head.to(torch.int64)) - 1, min=0)
     start = torch.cummax(torch.where(head, pos, 0), dim=1).values
     slot_p = pos - start
 
@@ -206,10 +263,6 @@ def voxelize_appearance(points, num_points, *, voxel_size, pc_range,
         "num_points_per_voxel": counts[:, :v_cap].to(torch.int32),
         "num_voxels": num_voxels.to(torch.int32),
     }
-
-
-_DEVICE_ORDERS = {"hashed": voxelize_hashed,
-                  "appearance": voxelize_appearance}
 
 
 @dataclass(frozen=True)
@@ -256,18 +309,16 @@ class VoxelGenerator:
 
     def generate_batch(self, points, num_points):
         """(B, P, C) padded clouds and (B,) counts -> voxelize_hashed's
-        dict. The hashed and appearance buffer paths run on the device;
-        yxz and the fused mean raise (voxelize them on the host,
-        ops/voxelize_host.py)."""
-        if self.order not in _DEVICE_ORDERS or self.fuse_mean:
-            raise NotImplementedError(
-                f"device voxelization with order={self.order!r}, "
-                f"fuse_mean={self.fuse_mean} is not ported; voxelize on "
-                "the host (apis/train.py::host_plan_fn(voxelize=True))")
-        return _DEVICE_ORDERS[self.order](
-            points, num_points,
-            voxel_size=tuple(float(v) for v in self.voxel_size),
-            pc_range=tuple(float(v) for v in self.point_cloud_range),
-            grid_size=self.grid_size,
-            max_voxels=int(self.max_voxels),
-            max_points=int(self.max_num_points))
+        dict, on the clouds' device: the fused mean in the effective
+        order, else the (V, T, C) buffer in ``order``."""
+        kw = dict(voxel_size=tuple(float(v) for v in self.voxel_size),
+                  pc_range=tuple(float(v) for v in self.point_cloud_range),
+                  grid_size=self.grid_size,
+                  max_voxels=int(self.max_voxels),
+                  max_points=int(self.max_num_points))
+        if self.fuse_mean:
+            return voxelize_mean(points, num_points,
+                                 order=self.effective_order, **kw)
+        if self.order == "appearance":
+            return voxelize_appearance(points, num_points, **kw)
+        return voxelize_hashed(points, num_points, key_mode=self.order, **kw)

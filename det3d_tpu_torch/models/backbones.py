@@ -4,7 +4,8 @@ CBGS sparse middles.
 Port of det3d_tpu/models/backbones.py: ``PointPillarsScatter``, and
 ``SpMiddleFHD`` and ``SpMiddleResNetFHD`` with their layers
 (``SparseConvBN``, ``DenseConvBN``, ``SparseBasicBlock``,
-``DenseBasicBlock``) for plan-fed serving. The canvas keeps the
+``DenseBasicBlock``) for serving, from a host plan or, without one, from
+the plan ``build_plan_device`` builds on the device. The canvas keeps the
 reference's NHWC layout, (B, ny, nx, C). Padded rows (coords -1) are
 dropped before every scatter, where the reference sends them to an
 out-of-bounds index that XLA drops.
@@ -73,7 +74,7 @@ def middle_plan_spec(middle, input_shape, max_voxels):
 
     nx, ny, nz = (int(s) for s in input_shape)
     shape0 = (nz + 1, ny, nx)
-    assert shape0[0] <= 64, "host plans need the bitmap regime (depth <= 64)"
+    sp.check_depth(shape0[0])
     v = int(max_voxels)
     caps = [max(64, int(v * f)) for f in get("stage_caps", (1.0,) * 4)]
     dense_tail = bool(get("dense_tail", False))
@@ -94,11 +95,12 @@ class SparseConvBN(nn.Module):
     """Sparse conv over a packed window rulebook, optional bias, BN and
     optional ReLU; evaluation.
 
-    The conv runs in ``precision`` (its operands cast to it, fp32 sums,
-    fp32 output): the CUDA kernel for card tensors, its plain twin for CPU
-    tensors (ops/window_conv_cuda.py). Bias (added before the BN, as the
-    JAX package does), BN and ReLU run in fp32. The weight keeps the JAX
-    package's (kz*ky*kx, Cin, Cout) z-major layout."""
+    The conv runs in ``precision``, or in the ``dtype`` a call passes (its
+    operands cast to it, fp32 sums, fp32 output): the CUDA kernel for card
+    tensors, its plain twin for CPU tensors (ops/window_conv_cuda.py).
+    Bias (added before the BN, as the JAX package does), BN and ReLU run
+    in fp32. The weight keeps the JAX package's (kz*ky*kx, Cin, Cout)
+    z-major layout."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
@@ -114,10 +116,10 @@ class SparseConvBN(nn.Module):
                      else None)
         self.norm = build_norm(norm_cfg, out_channels)
 
-    def forward(self, x, packed, center_shift: bool):
-        y = window_conv(x.to(self.dtype).contiguous(), packed.contiguous(),
-                        self.weight.to(self.dtype).contiguous(),
-                        center_shift)
+    def forward(self, x, packed, center_shift: bool, dtype=None):
+        dt = dtype or self.dtype
+        y = window_conv(x.to(dt).contiguous(), packed.contiguous(),
+                        self.weight.to(dt).contiguous(), center_shift)
         if self.bias is not None:
             y = y + self.bias
         y = self.norm(y)
@@ -139,9 +141,9 @@ class SparseBasicBlock(nn.Module):
                                            precision, use_bias=True,
                                            relu=False)
 
-    def forward(self, x, packed):
-        y = self.SparseConvBN_0(x, packed, True)
-        y = self.SparseConvBN_1(y, packed, True)
+    def forward(self, x, packed, dtype=None):
+        y = self.SparseConvBN_0(x, packed, True, dtype)
+        y = self.SparseConvBN_1(y, packed, True, dtype)
         return torch.relu(x + y)
 
 
@@ -162,7 +164,7 @@ class DenseConvBN(nn.Module):
     Pallas kernel); an fp32 stride-1 conv to more than COUT_CHUNK channels
     runs as convs of COUT_CHUNK output channels each, concatenated. With
     bf16 the whole epilogue (the bias among it) stays in bf16, as the JAX
-    package serves it."""
+    package serves it. A call's ``dtype`` overrides ``precision``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel=(3, 3, 3), stride=(1, 1, 1), padding=(1, 1, 1),
@@ -182,23 +184,25 @@ class DenseConvBN(nn.Module):
                      else None)
         self.norm = build_norm(norm_cfg, out_channels, dtype=self.dtype)
 
-    def conv(self, x):
-        """The conv3d of NCDHW ``x`` in the layer's dtype."""
-        w = self.weight.to(self.dtype)
+    def conv(self, x, dtype=None):
+        """The conv3d of NCDHW ``x`` in ``dtype`` (default: the layer's)."""
+        dt = dtype or self.dtype
+        w = self.weight.to(dt)
         kw = dict(stride=self.stride, padding=self.padding)
-        if (self.dtype == torch.float32 and self.stride == (1, 1, 1)
+        if (dt == torch.float32 and self.stride == (1, 1, 1)
                 and w.shape[0] > COUT_CHUNK):
             return torch.cat([F.conv3d(x, w[i:i + COUT_CHUNK], **kw)
                               for i in range(0, w.shape[0], COUT_CHUNK)],
                              dim=1)
         return F.conv3d(x, w, **kw)
 
-    def forward(self, x, occ_out):
-        y = self.conv(x.to(self.dtype).permute(0, 4, 1, 2, 3)).permute(
+    def forward(self, x, occ_out, dtype=None):
+        dt = dtype or self.dtype
+        y = self.conv(x.to(dt).permute(0, 4, 1, 2, 3), dt).permute(
             0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        y = self.norm(y)
+        y = self.norm(y, dtype)
         if self.relu:
             y = torch.relu(y)
         return y * occ_out[..., None].to(y.dtype)
@@ -221,9 +225,9 @@ class DenseBasicBlock(nn.Module):
                                          precision=precision, use_bias=True,
                                          relu=False)
 
-    def forward(self, x, occ):
-        y = self.DenseConvBN_0(x, occ)
-        y = self.DenseConvBN_1(y, occ)
+    def forward(self, x, occ, dtype=None):
+        y = self.DenseConvBN_0(x, occ, dtype)
+        y = self.DenseConvBN_1(y, occ, dtype)
         return torch.relu(x + y) * occ[..., None].to(x.dtype)
 
 
@@ -261,6 +265,82 @@ def _bev_reshape(features, coords, shape):
     return _fold_depth(sp.to_dense(features, coords, shape))
 
 
+def _res0_lookup(coords, shape0, pre_ranked):
+    """Rank-order the res0 rows and build their bitmap. Returns (order0 or
+    None when the voxelizer already emitted rank order, coords in rank
+    order, bitmap). Port of backbones.py::_res0_lookup, without the
+    feature gather: the plan carries order0 to _res0_with_plan."""
+    if pre_ranked:
+        return None, coords, sp.build_bitmap_batch(coords, shape0)
+    return sp.stage_lookup_batch(coords, shape0)
+
+
+def _stage_rulebooks(coords, shape, kernel, stride, padding, max_out,
+                     in_lookup, build_subm):
+    """One downsample stage on the device: the output coords
+    (conv_out_coords, the low-z prefix kept under ``max_out``), reordered
+    into the new resolution's rank order, its bitmap and subm window
+    rulebook when ``build_subm``, and the down conv's window rulebook over
+    the input bitmap. Port of backbones.py::_stage_rulebooks, its sorted
+    branch without the inverse rulebook.
+
+    Rows go into rank order at every stage, also at one that builds no
+    lookup (the dense tail's transition, the sparse z conv), where the
+    JAX package's evaluation keeps conv_out_coords' zyx order: the host
+    plan's order, which that stage's consumers (to_dense, the BEV scatter)
+    do not see. Returns (coords, (r0, pres) down, (r0, pres) subm or None,
+    out shape, bitmap or None)."""
+    out_co, oshape = sp.conv_out_coords(coords, shape, kernel, stride,
+                                        padding, max_out)
+    order = sp.yxz_order(out_co, oshape)
+    out_co = torch.gather(out_co, 1, order[..., None].expand(-1, -1, 3))
+    lookup = subm = None
+    if build_subm:
+        lookup = sp.build_bitmap_batch(out_co, oshape)
+        subm = sp.subm_window_rulebook_batch(out_co, oshape, 3, lookup)
+    down = sp.conv_window_rulebook_batch(shape, out_co, kernel, stride,
+                                         padding, in_lookup)
+    return out_co, down, subm, oshape, lookup
+
+
+def build_plan_device(coords, spec):
+    """The packed rulebook plan of (B, V, 3) voxel coords, built on the
+    device: the keys of ops/sparse_host.py::build_plan without ``plan_``
+    (order0 when not pre_ranked, s0, co{i}, down{i}, subm{i}), int32, equal
+    to the host plan array for array. Plain PyTorch with fixed shapes and
+    no host round trip, so a captured step holds it. Port of
+    backbones.py::build_plan_device for evaluation (no inverse
+    rulebooks)."""
+    shape0 = tuple(spec["shape0"])
+    plan = {}
+    order0, co, lookup = _res0_lookup(coords, shape0, spec["pre_ranked"])
+    if order0 is not None:
+        plan["order0"] = order0.to(torch.int32)
+    plan["s0"] = sp.pack_windows(
+        *sp.subm_window_rulebook_batch(co, shape0, 3, lookup))
+    shape = shape0
+    for i, st in enumerate(spec["stages"], start=1):
+        co, down, subm, shape, lookup = _stage_rulebooks(
+            co, shape, st["kernel"], st["stride"], st["padding"], st["cap"],
+            lookup, st["subm"])
+        plan[f"co{i}"] = sp.linearize(co, shape).to(torch.int32)
+        plan[f"down{i}"] = sp.pack_windows(*down)
+        if st["subm"]:
+            plan[f"subm{i}"] = sp.pack_windows(*subm)
+    return plan
+
+
+def _serving_plan(middle, coords, input_shape, plan):
+    """(plan, dtype of the call): the host plan with the layers' own dtype
+    (``serve_precision`` when set), or without one the device-built plan
+    and ``precision``'s dtype, as the JAX package computes its middles in
+    ``serve_precision`` only when a plan is given."""
+    if plan is not None:
+        return plan, None
+    spec = middle_plan_spec(middle, input_shape, coords.shape[1])
+    return build_plan_device(coords, spec), middle.plain_dtype
+
+
 def _res0_with_plan(voxel_features, coords, pre_ranked, plan):
     """Rank-order the res0 rows from the plan's order0 (unless the
     voxelizer already emitted them in rank order). Returns (features,
@@ -288,18 +368,19 @@ _SPECS = ((32, 2, 3, 2, 1), (64, 3, 3, 2, 1), (64, 3, 3, 2, (0, 1, 1)))
 
 @BACKBONES.register_module
 class SpMiddleFHD(nn.Module):
-    """SECOND sparse middle, plan-fed evaluation. Port of
-    det3d_tpu/models/backbones.py::SpMiddleFHD for ``plan is not None and
-    not train``.
+    """SECOND sparse middle, evaluation. Port of
+    det3d_tpu/models/backbones.py::SpMiddleFHD for ``not train``.
 
     Input: voxel_features (B, V, C), coords (B, V, 3) int32 zyx (-1 pad),
     input_shape (nx, ny, nz), and the host plan (ops/sparse_host.py, keys
-    without their ``plan_`` prefix). Output: (B, ny/8, nx/8, 64 * D_final).
-    Stages before ``dense_from`` run sparse window convs; with
-    ``dense_tail`` the rest run masked dense conv3d. The middle computes
-    in ``serve_precision`` when set, else ``precision``. The
-    ``serve_*band`` keys tune the TPU kernel's band and are ignored: the
-    CUDA kernel has no band.
+    without their ``plan_`` prefix) or None. Output: (B, ny/8, nx/8, 64 *
+    D_final). Stages before ``dense_from`` run sparse window convs; with
+    ``dense_tail`` the rest run masked dense conv3d. From a host plan the
+    middle computes in ``serve_precision`` when set, else ``precision``;
+    without one it builds the plan on the device (build_plan_device) and
+    computes in ``precision``, as the JAX package's ``plan=None`` path
+    does. The ``serve_*band`` keys tune the TPU kernel's band and are
+    ignored: the CUDA kernel has no band.
 
     Modules carry the flax names in call order (``SparseConvBN_<n>``,
     ``DenseConvBN_<n>``), so utils/convert.py::from_jax maps one to one.
@@ -325,6 +406,7 @@ class SpMiddleFHD(nn.Module):
         self.start = max(1, self.dense_from) if self.dense_tail else 4
         prec = serve_precision or precision
         self.dtype = act_dtype(prec)
+        self.plain_dtype = act_dtype(precision)
         self._sparse, self._dense = [], []      # module names, call order
 
         def scb(cin, cout, kvol=27):
@@ -356,11 +438,7 @@ class SpMiddleFHD(nn.Module):
             scb(64, 64, kvol=3)
 
     def forward(self, voxel_features, coords, input_shape, plan=None):
-        if plan is None:
-            raise ValueError(
-                "SpMiddleFHD serves from a host plan: pass the plan_* keys "
-                "of apis/train.py::host_plan_fn (the device rulebook "
-                "builders are not ported)")
+        plan, dt = _serving_plan(self, coords, input_shape, plan)
         nx, ny, nz = (int(s) for s in input_shape)
         shape = (nz + 1, ny, nx)
         convs = iter([getattr(self, n) for n in self._sparse])
@@ -369,34 +447,34 @@ class SpMiddleFHD(nn.Module):
         x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
                                     plan)
         s0 = plan["s0"]
-        x = next(convs)(x, s0, True)
-        x = next(convs)(x, s0, True)
+        x = next(convs)(x, s0, True, dt)
+        x = next(convs)(x, s0, True, dt)
 
         xd = occ = co = None
         for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
             if i <= self.start:
                 co, down, subm, shape = _plan_stage(plan, i, shape, k, s, p)
-                x = next(convs)(x, down, False)
+                x = next(convs)(x, down, False, dt)
                 if i < self.start:
                     for _ in range(n_subm):
-                        x = next(convs)(x, subm, True)
+                        x = next(convs)(x, subm, True, dt)
                     continue
                 # transition: densify this stage
                 occ = _occupancy(co, shape)
-                xd = sp.to_dense(x.to(self.dtype), co, shape)
+                xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
             else:
                 k3, s3, p3 = sp._as3(k), sp._as3(s), sp._as3(p)
                 occ = _cover_mask(occ, k3, s3, p3)
-                xd = next(dconvs)(xd, occ)
+                xd = next(dconvs)(xd, occ, dt)
             for _ in range(n_subm):
-                xd = next(dconvs)(xd, occ)
+                xd = next(dconvs)(xd, occ, dt)
 
         if xd is not None:
             occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
-            return _fold_depth(next(dconvs)(xd, occ4))
+            return _fold_depth(next(dconvs)(xd, occ4, dt))
         co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
                                            (2, 1, 1), 0)
-        x = next(convs)(x, down, False)
+        x = next(convs)(x, down, False, dt)
         return _bev_reshape(x, co4, shape4)
 
 
@@ -406,18 +484,20 @@ _RES_SPECS = ((32, 3, 2, 1), (64, 3, 2, 1), (128, 3, 2, (0, 1, 1)))
 
 @BACKBONES.register_module
 class SpMiddleResNetFHD(nn.Module):
-    """CBGS residual sparse middle, plan-fed evaluation. Port of
+    """CBGS residual sparse middle, evaluation. Port of
     det3d_tpu/models/backbones.py::SpMiddleResNetFHD (reference
-    scn.py:308-370) for ``plan is not None and not train``.
+    scn.py:308-370) for ``not train``.
 
     The stem SparseConvBN and two SparseBasicBlocks at res0; per stage
     before ``dense_from`` a strided SparseConvBN and two SparseBasicBlocks;
     at ``dense_from`` the strided conv, then ``to_dense`` in the activation
     dtype and two DenseBasicBlocks; after it a strided DenseConvBN and two
     DenseBasicBlocks; then the (3, 1, 1) z conv to 128 channels. Without
-    ``dense_tail`` every stage and the z conv stay sparse. Input and output
-    as SpMiddleFHD's (output (B, ny/8, nx/8, 128 * D_final)); the
-    ``serve_*band`` keys are accepted and ignored likewise.
+    ``dense_tail`` every stage and the z conv stay sparse. Input, output
+    and precision as SpMiddleFHD's (output (B, ny/8, nx/8, 128 *
+    D_final)): without a plan it builds one on the device and computes in
+    ``precision``. The ``serve_*band`` keys are accepted and ignored
+    likewise.
 
     Modules carry flax's names in call order at each level
     (``SparseConvBN_<n>``, ``SparseBasicBlock_<n>``, ``DenseBasicBlock_<n>``,
@@ -442,6 +522,7 @@ class SpMiddleResNetFHD(nn.Module):
         self.start = max(1, self.dense_from) if self.dense_tail else 4
         prec = serve_precision or precision
         self.dtype = act_dtype(prec)
+        self.plain_dtype = act_dtype(precision)
         self._names = {}                        # class -> names, call order
 
         def add(module):
@@ -473,11 +554,7 @@ class SpMiddleResNetFHD(nn.Module):
             add(SparseConvBN(128, 128, norm_cfg, prec, kvol=3))
 
     def forward(self, voxel_features, coords, input_shape, plan=None):
-        if plan is None:
-            raise ValueError(
-                "SpMiddleResNetFHD serves from a host plan: pass the plan_* "
-                "keys of apis/train.py::host_plan_fn (the device rulebook "
-                "builders are not ported)")
+        plan, dt = _serving_plan(self, coords, input_shape, plan)
         nx, ny, nz = (int(s) for s in input_shape)
         shape = (nz + 1, ny, nx)
         mods = {cls: iter([getattr(self, n) for n in names])
@@ -487,32 +564,32 @@ class SpMiddleResNetFHD(nn.Module):
         x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
                                     plan)
         s0 = plan["s0"]
-        x = next(scb)(x, s0, True)
+        x = next(scb)(x, s0, True, dt)
         for _ in range(2):
-            x = next(mods["SparseBasicBlock"])(x, s0)
+            x = next(mods["SparseBasicBlock"])(x, s0, dt)
 
         xd = occ = None
         for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
             if i <= self.start:
                 co, down, subm, shape = _plan_stage(plan, i, shape, k, s, p)
-                x = next(scb)(x, down, False)
+                x = next(scb)(x, down, False, dt)
                 if i < self.start:
                     for _ in range(2):
-                        x = next(mods["SparseBasicBlock"])(x, subm)
+                        x = next(mods["SparseBasicBlock"])(x, subm, dt)
                     continue
                 # transition: densify this stage in the activation dtype
                 occ = _occupancy(co, shape)
-                xd = sp.to_dense(x.to(self.dtype), co, shape)
+                xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
             else:
                 occ = _cover_mask(occ, sp._as3(k), sp._as3(s), sp._as3(p))
-                xd = next(dcb)(xd, occ)
+                xd = next(dcb)(xd, occ, dt)
             for _ in range(2):
-                xd = next(mods["DenseBasicBlock"])(xd, occ)
+                xd = next(mods["DenseBasicBlock"])(xd, occ, dt)
 
         if xd is not None:
             occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
-            return _fold_depth(next(dcb)(xd, occ4))
+            return _fold_depth(next(dcb)(xd, occ4, dt))
         co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
                                            (2, 1, 1), 0)
-        x = next(scb)(x, down, False)
+        x = next(scb)(x, down, False, dt)
         return _bev_reshape(x, co4, shape4)

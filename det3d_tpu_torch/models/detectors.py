@@ -2,7 +2,7 @@
 
 Port of det3d_tpu/models/detectors.py::PointPillars and ``VoxelNet``.
 ``forward`` returns the head's raw predictions; ``predict`` decodes them,
-as in the reference.
+as in the reference, and ``predict_tta`` merges a double-flip batch.
 """
 
 from __future__ import annotations
@@ -41,12 +41,17 @@ class PointPillars(nn.Module):
         return self.bbox_head.predict(example, preds,
                                       test_cfg or self.test_cfg)
 
+    def predict_tta(self, example, preds, test_cfg=None):
+        return self.bbox_head.predict_tta(example, preds,
+                                          test_cfg or self.test_cfg)
+
 
 @DETECTORS.register_module
 class VoxelNet(PointPillars):
     """SECOND family: voxel reader -> sparse middle -> RPN -> head.
     ``plan``: the host-built packed rulebooks of the sparse middle
-    (ops/sparse_host.py), keys without their ``plan_`` prefix."""
+    (ops/sparse_host.py), keys without their ``plan_`` prefix; None builds
+    them on the device."""
 
     def forward(self, voxels, num_points, coors, plan=None):
         feats = self.reader(voxels, num_points)                 # (B, V, C)

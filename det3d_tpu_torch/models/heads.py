@@ -3,8 +3,8 @@
 Port of det3d_tpu/models/heads.py: ``TaskHead``, the ``MultiGroupHead``
 forward, ``_task_candidates`` (decode, sigmoid scores, score threshold),
 ``_nms_select`` (rotated NMS, direction fix, post-center range filter),
-``predict`` and ``_merge_tasks`` (the ``max_per_img`` cap). The loss and
-double-flip TTA wait for later ports.
+``predict``, the double-flip merge ``predict_tta`` and ``_merge_tasks``
+(the ``max_per_img`` cap). The loss waits for the training port.
 
 Head outputs keep the reference's NHWC layout (B, H, W, A_loc * code), so
 they flatten to (B, H*W*A_loc, code) in the anchors' (fz, fy, fx, loc)
@@ -217,12 +217,65 @@ class MultiGroupHead(nn.Module):
         global label ids, valid (B, D) bool."""
         cands = [self._task_candidates(example, preds, t, test_cfg)
                  for t, preds in enumerate(preds_dicts)]
+        return self._select_tasks(cands, test_cfg, apply_dir=True)
+
+    def predict_tta(self, example: Dict[str, Any], preds_dicts: List[dict],
+                    test_cfg) -> Dict[str, torch.Tensor]:
+        """Double-flip test-time augmentation merge; ``predict``'s output.
+
+        ``example`` and ``preds_dicts`` come from a forward over the 4B
+        scans [identity, y-flip, x-flip, xy-flip] (parallel/predict.py
+        stacks them). Each variant's candidates are mapped back into the
+        original frame: x, y (and vx, vy) negated as flipped, the yaw
+        reflected (y-flip -yaw, x-flip pi - yaw), with the direction
+        classifier folded into the yaw in the variant's own frame first.
+        One NMS per task then runs over the union of the four candidate
+        sets of each scan, without the direction fix. Port of
+        heads.py::MultiGroupHead.predict_tta; the tasks share one NMS
+        launch, folded into its sample dimension as in ``predict``."""
+        nv = 4
+        cands = []
+        for t, preds in enumerate(preds_dicts):
+            reg, scores, labels, dirs, offs = self._task_candidates(
+                example, preds, t, test_cfg)
+            yaw = reg[..., -1]
+            if self.use_direction_classifier:
+                opp = ((yaw - self.direction_offset) > 0) ^ dirs.bool()
+                yaw = yaw + torch.where(opp, math.pi, 0.0)
+            bsz = reg.shape[0] // nv
+            cols = [reg[..., i] for i in range(reg.shape[-1] - 1)] + [yaw]
+            variants = []
+            for v, (sx, sy) in enumerate(((1, 1), (1, -1), (-1, 1),
+                                          (-1, -1))):
+                c = [x[v * bsz:(v + 1) * bsz] for x in cols]
+                c[0], c[1] = c[0] * sx, c[1] * sy
+                if self.anchor_dim >= 9:                # [.., vx, vy, yaw]
+                    c[6], c[7] = c[6] * sx, c[7] * sy
+                if sy < 0:
+                    c[-1] = -c[-1]
+                if sx < 0:
+                    c[-1] = math.pi - c[-1]
+                variants.append(torch.stack(c, dim=-1))
+            reg = torch.stack(variants, dim=1)              # (B, nv, A, D)
+
+            def merge(x):
+                x = x.reshape((nv, bsz) + x.shape[1:]).transpose(0, 1)
+                return x.reshape((bsz, -1) + x.shape[3:])
+
+            cands.append((reg.reshape((bsz, -1) + reg.shape[3:]),
+                          merge(scores), merge(labels), merge(dirs),
+                          merge(offs)))
+        return self._select_tasks(cands, test_cfg, apply_dir=False)
+
+    def _select_tasks(self, cands, test_cfg, apply_dir: bool):
+        """NMS over each task's candidates, then the merge of the tasks.
+        Tasks are independent NMS problems: more than one are folded into
+        the sample dimension, candidate counts padded with invalid
+        entries, so one NMS launch serves them all."""
         n_tasks = len(cands)
         if n_tasks == 1:
-            sel = [self._nms_select(*cands[0], test_cfg, apply_dir=True)]
+            sel = [self._nms_select(*cands[0], test_cfg, apply_dir)]
         else:
-            # tasks are independent NMS problems: fold them into the sample
-            # dimension, padding candidate counts with invalid entries
             amax = max(c[0].shape[1] for c in cands)
 
             def padto(x, fill):
@@ -233,7 +286,7 @@ class MultiGroupHead(nn.Module):
             for i, fill in enumerate((0.0, -1.0, 0, 0, 0.0)):
                 st = torch.stack([padto(c[i], fill) for c in cands], dim=1)
                 fused.append(st.reshape((-1,) + st.shape[2:]))
-            outs = self._nms_select(*fused, test_cfg, apply_dir=True)
+            outs = self._nms_select(*fused, test_cfg, apply_dir)
             bsz = cands[0][0].shape[0]
             sel = [tuple(x.reshape((bsz, n_tasks) + x.shape[1:])[:, t]
                          for x in outs) for t in range(n_tasks)]

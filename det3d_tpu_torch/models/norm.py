@@ -4,7 +4,8 @@ Port of det3d_tpu/models/norm.py::MaskedBatchNorm for serving: it
 normalizes the last axis with the running statistics,
 ``y = (x - mean) * (rsqrt(var + eps) * scale) + bias``, in the reference's
 order of operations, in fp32, and returns ``dtype``: the layer's
-activation dtype (bf16 in a bf16 reader, neck or dense epilogue). In eval
+activation dtype (bf16 in a bf16 reader, neck or dense epilogue), or the
+one a call passes. In eval
 the mask plays no part. Batch statistics, the mask and the synced variant
 wait for the training port.
 """
@@ -30,14 +31,14 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
-    def forward(self, x):
+    def forward(self, x, dtype=None):
         if self.training:
             raise NotImplementedError(
                 "MaskedBatchNorm batch statistics are not ported yet; call "
                 "model.eval()")
         inv = torch.rsqrt(self.var + self.eps) * self.scale
         y = (x.float() - self.mean) * inv + self.bias
-        return y.to(self.dtype)
+        return y.to(dtype or self.dtype)
 
 
 def build_norm(norm_cfg: Optional[dict], num_features: int,

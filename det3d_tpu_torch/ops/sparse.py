@@ -1,11 +1,16 @@
-"""Sparse 3-D convolution over window rulebooks, plan-fed evaluation subset.
+"""Sparse 3-D convolution over window rulebooks, evaluation subset.
 
 Port of det3d_tpu/ops/sparse.py: coordinate helpers, the packed window
-format, ``to_dense`` and the forward of the window convolution, whose
+format, ``to_dense``, the forward of the window convolution, whose
 plain PyTorch form ``window_conv_ref`` is the twin of the CUDA kernel in
-``csrc/window_conv.cu`` (ops/window_conv_cuda.py). The device rulebook
-builders and the backward passes are not ported: the serving path reads
-host-built plans (ops/sparse_host.py).
+``csrc/window_conv.cu`` (ops/window_conv_cuda.py), and the device
+rulebook builders of the bitmap regime (depth <= 64): ``yxz_order``,
+``build_bitmap_batch``, the window rulebooks, ``conv_out_coords``,
+``stage_lookup_batch`` and ``pack_windows``. They are plain PyTorch with
+fixed shapes and no host round trip, so a captured step holds them, and
+give the host builders' plans (ops/sparse_host.py) array for array. The
+deep-grid lookups (dense and sorted tables), the sort-free transition
+and the backward passes are not ported.
 
 Active voxels live in fixed-size padded arrays: features (B, V, C), coords
 (B, V, 3) int32 zyx with -1 rows for padding, rows in (y, x, z) rank
@@ -22,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from det3d_tpu_torch.core.voxelize import scatter_rows
+from det3d_tpu_torch.core.voxelize import row_cumsum, scatter_rows
 
 _SENTINEL = int(np.iinfo(np.int32).max)
 _PACK_SHIFT = 24
@@ -178,3 +183,267 @@ def window_conv_ref(features, r0, pres, weights, center_shift: bool):
                                              pres[:, :, k])):
             out = out + _mm(tap, w_cols[k, j])
     return out
+
+
+# ---------------------------------------------------------------------------
+# Device rulebook builders: the bitmap lookup (depth <= 64)
+# ---------------------------------------------------------------------------
+# Ranks number the active voxels of a resolution in (y, x, z) order, so a
+# BEV column's actives hold consecutive ranks. The bitmap keeps, per BEV
+# column, the rank base of its first active voxel and its z occupancy in
+# 32-bit words; a tap's rank is base + popcount(bits below z). Words are
+# held in int64 tensors (values 0 .. 2^32 - 1): torch has no popcount and
+# shifts only part of uint32, and int64 runs alike on the CPU and the card.
+
+_U32 = 0xFFFFFFFF
+# guard columns around the interleaved table: column c's words live at
+# (c + _BM_PAD_FRONT) * stride
+_BM_PAD_FRONT = 1
+_BM_PAD_END = 3
+MAX_BITMAP_DEPTH = 64
+_DEEP_GRID = ("the bitmap lookup holds depths up to 64; deeper grids need "
+              "the dense or sorted lookup tables, not ported (ROADMAP "
+              "queue 1, the deep-grid fallbacks)")
+
+
+def check_depth(d: int):
+    """Raise for a grid too deep for the bitmap lookup."""
+    if not 0 < int(d) <= MAX_BITMAP_DEPTH:
+        raise NotImplementedError(f"depth {d}: {_DEEP_GRID}")
+
+
+def popcount32(x):
+    """Set bits of each 32-bit word held in an int64 tensor (SWAR)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & _U32) >> 24
+
+
+def _tap_offsets_bev(ky: int, kx: int, device):
+    """(Kbev,) dy and dx of a kernel's BEV columns in (jy, jx) row-major
+    order, from ``arange`` (no host copy)."""
+    t = torch.arange(ky * kx, device=device)
+    return t // kx, t % kx
+
+
+def yxz_lin(coords, shape):
+    """(..., 3) zyx -> (...,) int64 yxz-major rank keys; invalid rows ->
+    sentinel."""
+    d, h, w = shape
+    z, y, x = (coords[..., i].long() for i in range(3))
+    ok = (z >= 0) & (z < d) & (y >= 0) & (y < h) & (x >= 0) & (x < w)
+    return torch.where(ok, (y * w + x) * d + z, _SENTINEL)
+
+
+def yxz_order(coords, shape):
+    """(B, V, 3) -> (B, V) int64 row permutation into rank order (stable:
+    padding rows keep their order, last)."""
+    return torch.sort(yxz_lin(coords, shape), dim=-1, stable=True).indices
+
+
+def bitmap_stride(d: int) -> int:
+    """Words per column in the interleaved table: [base, lo] for d <= 32,
+    [base, lo, hi, 0] for d in (32, 64]."""
+    return 4 if d > 32 else 2
+
+
+def build_bitmap_batch(coords, shape):
+    """(B, V, 3) zyx rows in rank order -> (B, stride * (1 + h*w + 3))
+    int64 interleaved tables: per BEV column its exclusive rank base and
+    its z-bits 0..31 (and 32..63), guard columns in front and behind.
+
+    One scatter-add for the batch, at per-sample column offsets; each
+    active voxel owns a distinct (column, bit), so add == or. Padding rows
+    add nothing to one spare column per sample."""
+    d, h, w = shape
+    check_depth(d)
+    b = coords.shape[0]
+    n = h * w
+    z, y, x = (coords[..., i].long() for i in range(3))
+    ok = (z >= 0) & (z < d) & (y >= 0) & (y < h) & (x >= 0) & (x < w)
+    col = (torch.where(ok, y * w + x, n)
+           + torch.arange(b, device=coords.device)[:, None] * (n + 1))
+    zc = torch.where(ok, z, 0)
+    one = torch.ones_like(zc)
+    words = []
+    for lo_half in ((True, False) if d > 32 else (True,)):
+        in_word = ok & ((zc < 32) if lo_half else (zc >= 32))
+        bit = torch.where(in_word, one << (zc if lo_half else zc - 32), 0)
+        t = torch.zeros(b * (n + 1), dtype=torch.int64, device=coords.device)
+        t.scatter_add_(0, col.reshape(-1), bit.reshape(-1))
+        words.append(t.view(b, n + 1)[:, :n])
+    counts = sum(popcount32(t) for t in words)
+    base = row_cumsum(counts) - counts
+    parts = [base] + words
+    if d > 32:
+        parts.append(torch.zeros_like(base))
+    table = torch.stack(parts, dim=-1)                  # (B, n, stride)
+    table = torch.nn.functional.pad(table, (0, 0, _BM_PAD_FRONT, _BM_PAD_END))
+    return table.reshape(b, -1)
+
+
+def _bitmap_fetch(table, flat, d):
+    """One (stride,)-word fetch per column query -> (base, lo, hi).
+
+    table: (B, stride*M) from build_bitmap_batch; flat: (B, ...) in-range
+    column ids (callers send out-of-range queries to 0). The batch is
+    flattened into one gather at per-sample offsets; a slice start past
+    either end is clamped so the slice stays in bounds, as XLA's CLIP
+    gather mode does. hi is None for d <= 32."""
+    s = bitmap_stride(d)
+    bsz, sm = table.shape
+    off = (torch.arange(bsz, device=flat.device) * (sm // s)).view(
+        (bsz,) + (1,) * (flat.dim() - 1))
+    start = ((flat.long() + off + _BM_PAD_FRONT) * s).clamp(0, bsz * sm - s)
+    idx = start[..., None] + torch.arange(s, device=flat.device)
+    g = table.reshape(-1).gather(0, idx.reshape(-1)).view(idx.shape)
+    return g[..., 0], g[..., 1], (g[..., 2] if d > 32 else None)
+
+
+def _windows_from_words(base, lo, hi, okc, z0, kz, d):
+    """Window base rank + per-tap presence from fetched column words.
+
+    base/lo/hi/okc: (...,) per column; z0 broadcasts against them. Returns
+    (r0 (...,) int64, pres (..., kz) bool)."""
+    z0 = torch.broadcast_to(z0, okc.shape)
+    one = torch.ones_like(z0)
+
+    def below(z):
+        zc = z.clamp(0, d - 1)
+        m_lo = torch.where(zc < 32, (one << zc.clamp(max=31)) - 1, _U32)
+        n = popcount32(lo & m_lo)
+        if d > 32:
+            m_hi = torch.where(zc >= 32, (one << (zc - 32).clamp(min=0)) - 1,
+                               0)
+            n = n + popcount32(hi & m_hi)
+        return n
+
+    def present(z):
+        okz = okc & (z >= 0) & (z < d)
+        zc = torch.where(okz, z, 0)
+        if d > 32:
+            word = torch.where(zc < 32, lo, hi)
+            bit = torch.where(zc < 32, zc, zc - 32)
+        else:
+            word, bit = lo, zc
+        return okz & (((word >> bit) & 1) != 0)
+
+    r0 = torch.where(okc, base + below(z0), 0)
+    pres = torch.stack([present(z0 + j) for j in range(kz)], dim=-1)
+    return r0, pres
+
+
+def _bitmap_column_windows(bitmap, qy, qx, z0, kz, shape):
+    """Per-column window base + tap presence, one fetch per column query.
+    qy/qx: (B, ...) BEV column queries; z0: first z tap. Returns
+    (r0 (B, ...), pres (B, ..., kz))."""
+    d, h, w = shape
+    okc = (qy >= 0) & (qy < h) & (qx >= 0) & (qx < w)
+    flat = torch.where(okc, qy * w + qx, 0)
+    base, lo, hi = _bitmap_fetch(bitmap, flat, d)
+    return _windows_from_words(base, lo, hi, okc, z0, kz, d)
+
+
+def subm_window_rulebook_batch(coords, shape, kernel, bitmap):
+    """Window rulebook of a submanifold conv (output set == input set).
+
+    coords: (B, V, 3) zyx in rank order; bitmap: build_bitmap_batch of
+    them. Returns (r0 (B, V, Kbev), pres (B, V, Kbev, kz))."""
+    k = _as3(kernel)
+    pad = tuple(kk // 2 for kk in k)
+    dy, dx = _tap_offsets_bev(k[1], k[2], coords.device)
+    co = coords.long()
+    qy = co[..., 1, None] + (dy - pad[1])               # (B, V, Kbev)
+    qx = co[..., 2, None] + (dx - pad[2])
+    z0 = (co[..., 0] - pad[0])[..., None]
+    r0, pres = _bitmap_column_windows(bitmap, qy, qx, z0, k[0], shape)
+    return r0, pres & (co[..., 0] >= 0)[..., None, None]
+
+
+def conv_window_rulebook_batch(in_shape, out_coords, kernel, stride,
+                               padding, bitmap):
+    """Window rulebook of a strided sparse conv, in INPUT rank space.
+    out_coords: (B, O, 3) (any order); bitmap: the input resolution's."""
+    k, s, p = _as3(kernel), _as3(stride), _as3(padding)
+    dy, dx = _tap_offsets_bev(k[1], k[2], out_coords.device)
+    co = out_coords.long()
+    qy = (co[..., 1] * s[1] - p[1])[..., None] + dy
+    qx = (co[..., 2] * s[2] - p[2])[..., None] + dx
+    z0 = (co[..., 0] * s[0] - p[0])[..., None]
+    r0, pres = _bitmap_column_windows(bitmap, qy, qx, z0, k[0], in_shape)
+    return r0, pres & (co[..., 0] >= 0)[..., None, None]
+
+
+def _down_candidates(coords, kernel, stride, padding, oshape):
+    """Per input voxel the candidate strided-conv outputs, per dim:
+    o_i = floor((p + pad)/s) - i for i in [0, ceil(k/s)).
+
+    coords: (B, V, 3). Returns broadcastable (oz (B, V, ncz, 1, 1),
+    oy (B, V, 1, ncy, 1), ox (B, V, 1, 1, ncx), ok (B, V, ncz, ncy, ncx))."""
+    k, s, p = _as3(kernel), _as3(stride), _as3(padding)
+    cand, valid = [], []
+    for d in range(3):
+        pd = coords[..., d].long()[..., None]               # (B, V, 1)
+        i = torch.arange(-(-k[d] // s[d]), device=coords.device)
+        o = (pd + p[d]) // s[d] - i                         # (B, V, ncand)
+        j = pd + p[d] - o * s[d]                            # tap index
+        valid.append((o >= 0) & (o < oshape[d]) & (pd >= 0)
+                      & (j >= 0) & (j < k[d]))
+        cand.append(o)
+    oz = cand[0][..., :, None, None]
+    oy = cand[1][..., None, :, None]
+    ox = cand[2][..., None, None, :]
+    ok = (valid[0][..., :, None, None] & valid[1][..., None, :, None]
+          & valid[2][..., None, None, :])
+    return oz, oy, ox, ok
+
+
+def conv_out_coords(coords, shape, kernel, stride, padding, max_out: int):
+    """The strided conv's output position set, batched: every output whose
+    footprint covers an active input, deduplicated by a sort and head
+    flags, compacted in ascending zyx-linear order. Under overflow the
+    kept prefix is the lowest-z slab (z is the major digit), the
+    reference's drop policy.
+
+    coords: (B, V, 3). Returns (out_coords (B, max_out, 3) int32, -1
+    padded; out_shape)."""
+    oshape = out_spatial_shape(shape, kernel, stride, padding)
+    oz, oy, ox, ok = _down_candidates(coords, kernel, stride, padding,
+                                      oshape)
+    lin = (oz * oshape[1] + oy) * oshape[2] + ox
+    lin = torch.where(ok, lin, _SENTINEL).reshape(coords.shape[0], -1)
+    slin = torch.sort(lin, dim=1).values
+    head = slin != _SENTINEL
+    head[:, 1:] &= slin[:, 1:] != slin[:, :-1]
+    rank = row_cumsum(head.long()) - 1
+    dest = torch.where(head & (rank < max_out), rank, max_out)
+    out = torch.full((coords.shape[0], max_out + 1), _SENTINEL,
+                     dtype=slin.dtype, device=slin.device)
+    # every dropped candidate lands in the spare last column
+    out.scatter_(1, dest, slin)
+    return delinearize(out[:, :max_out], oshape), oshape
+
+
+def stage_lookup_batch(coords, shape):
+    """Reorder a resolution's rows into rank order and build its bitmap.
+
+    Returns (order (B, V) int64, coords in rank order, bitmap). Callers
+    apply ``order`` to every per-row array. Depths above 64 raise (in
+    build_bitmap_batch): the dense and sorted lookups of deep grids are
+    not ported."""
+    order = yxz_order(coords, shape)
+    co = torch.gather(coords, 1, order[..., None].expand(-1, -1, 3))
+    return order, co, build_bitmap_batch(co, shape)
+
+
+def pack_windows(r0, pres):
+    """(r0 (..., K), pres (..., K, kz) bool) -> packed (..., K) int32.
+
+    Canonical form: r0 is zeroed where no tap is present (no consumer
+    reads it there), so device and host plans compare bit for bit."""
+    r0 = torch.where(pres.any(-1), r0.long(), 0)
+    packed = r0 & _PACK_MASK
+    for j in range(pres.shape[-1]):
+        packed = packed | (pres[..., j].long() << (_PACK_SHIFT + j))
+    return packed.to(torch.int32)

@@ -5,7 +5,9 @@ needs of the step.
 On the CPU: the eager step of each of the seven serving paths, at cut
 sizes, makes no tensor from host data and reads no device value back
 (checked under a dispatch mode, the kernels' plain versions excepted: on
-the card the kernels replace them); a CPU model gets the eager step.
+the card the kernels replace them), fed as it is served from host data,
+from points alone (device voxels and plans) and with double-flip TTA; a
+CPU model gets the eager step.
 
 On the card (marker ``cuda``; they skip elsewhere from a fixture, so that
 every worker collects the same tests; run them with
@@ -33,6 +35,8 @@ from det3d_tpu_torch.ops import nms as nms_ops
 from det3d_tpu_torch.parallel.predict import CapturedStep, make_predict_step
 from det3d_tpu_torch.utils.synth import structured_batch
 
+torch.set_num_threads(2)
+
 FLAGSHIP_PC = (0.0, -8.0, -3.0, 16.0, 8.0, 1.0)
 CUT = (6.4, 512)            # sparse middles: +-6.4 m, 512 voxels
 PATHS = ("flagship", "second", "kitti_all", "cbgs", "lyft", "kitti_pp",
@@ -55,13 +59,20 @@ def path_config(name):
     return cs.sparse_config(path, cut=CUT)
 
 
-def path_step(name, device, points=2000, b=2, seed=3, pre_max=None):
-    """(predict step, batch: the scans with their host voxels and plan) of
-    a path at its cut size on ``device``, weights from
-    torch.Generator().manual_seed(0)."""
+# how a step is fed: from host voxels and plans where the path serves
+# from them, from points alone, or from points with double-flip TTA
+FEEDS = ("host", "points", "tta")
+
+
+def path_step(name, device, points=2000, b=2, seed=3, pre_max=None,
+              feed="host"):
+    """(predict step, batch: the scans, with their host voxels and plan
+    when ``feed`` is "host") of a path at its cut size on ``device``,
+    weights from torch.Generator().manual_seed(0)."""
     cfg = path_config(name)
     if pre_max is not None:
         cfg["test_cfg"]["nms"]["nms_pre_max_size"] = pre_max
+    cfg["test_cfg"]["double_flip"] = feed == "tta"
     model, vg, asg, cids, test_cfg = build_stack(cfg, device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     model = model.to(device)
@@ -71,7 +82,7 @@ def path_step(name, device, points=2000, b=2, seed=3, pre_max=None):
     batch = (cs.cbgs_batch(b, points, pc, seed=seed) if five
              else structured_batch(b, points, pc, seed=seed))
     fn = host_plan_fn(model, vg, voxelize=True)
-    if name not in ("flagship", "kitti_pp"):
+    if name not in ("flagship", "kitti_pp") and feed == "host":
         batch.update(fn(batch["points"], batch["num_points"]))
     return make_predict_step(model, vg, asg, cids, test_cfg), batch
 
@@ -119,13 +130,8 @@ def pausing(mode, fn):
     return wrapped
 
 
-@pytest.mark.parametrize("name", PATHS)
-def test_step_makes_no_host_round_trip(name, monkeypatch):
-    """After one call (which copies the anchors to the device once), the
-    eager step makes no tensor from host data and reads no device value:
-    what a CUDA graph could not capture. The kernels' plain versions are
-    left out (the NMS twin's greedy loop tests for its fixpoint)."""
-    step, batch = path_step(name, "cpu", pre_max=100)
+def no_host_round_trip(name, monkeypatch, feed="host"):
+    step, batch = path_step(name, "cpu", pre_max=100, feed=feed)
     data = {k: torch.as_tensor(v) for k, v in batch.items()}
     step.eager(data)
     mode = HostRoundTrips()
@@ -137,6 +143,31 @@ def test_step_makes_no_host_round_trip(name, monkeypatch):
         out = step.eager(data)
     assert not mode.found, sorted(set(mode.found))
     assert bool(torch.isfinite(out["box3d_lidar"]).all())
+
+
+@pytest.mark.parametrize("name", PATHS)
+def test_step_makes_no_host_round_trip(name, monkeypatch):
+    """After one call (which copies the anchors to the device once), the
+    eager step makes no tensor from host data and reads no device value:
+    what a CUDA graph could not capture. The kernels' plain versions are
+    left out (the NMS twin's greedy loop tests for its fixpoint)."""
+    no_host_round_trip(name, monkeypatch)
+
+
+# the steps that voxelize and build their plans on the device: the sparse
+# paths from points alone, and double-flip TTA
+DEVICE_FED = ([(n, "points") for n in ("second", "kitti_all", "cbgs",
+                                       "lyft")]
+              + [(n, "tta") for n in ("cbgs", "nusc_pp", "second",
+                                      "flagship")])
+
+
+@pytest.mark.parametrize("name,feed", DEVICE_FED)
+def test_device_fed_step_makes_no_host_round_trip(name, feed, monkeypatch):
+    """test_step_makes_no_host_round_trip for the steps fed points alone:
+    the device voxelizer, the device rulebook builders and the TTA merge
+    make no host round trip either."""
+    no_host_round_trip(name, monkeypatch, feed)
 
 
 def test_cpu_model_gets_the_eager_step():
@@ -202,6 +233,32 @@ def test_captured_step_equals_eager(dev, name):
     assert (window_conv.launches, rotated_nms_keep.launches) == eager
     assert_detections_agree(out, ref)
     assert int(out["valid"].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,feed", DEVICE_FED)
+def test_device_fed_captured_step_equals_eager(dev, name, feed):
+    """test_captured_step_equals_eager, and a sync-free eager step, for the
+    steps fed points alone."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    step, batch = path_step(name, dev, feed=feed)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    window_conv.launches = rotated_nms_keep.launches = 0
+    ref = step.eager(data)
+    eager = (window_conv.launches, rotated_nms_keep.launches)
+    assert eager[1] == 1
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step.eager(data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    step.warm_up(batch)
+    window_conv.launches = rotated_nms_keep.launches = 0
+    step.capture(batch)
+    assert (window_conv.launches, rotated_nms_keep.launches) == eager
+    assert_detections_agree(step(batch), ref)
 
 
 @pytest.mark.cuda

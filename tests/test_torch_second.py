@@ -337,22 +337,54 @@ def test_predict_step_matches_jax(predict):
                                rtol=0, atol=1e-4)
 
 
-def test_predict_without_plan_raises(batch):
-    """Host voxels without the plan: the middle raises. Raw points alone:
-    the device voxelizer raises for the yxz / fused-mean order."""
-    model, vg, asg, cids, test_cfg = build_stack(second_config(),
-                                                 device="cpu")
-    voxels = {k: v for k, v in host_plan_fn(model, vg, voxelize=True)(
+def test_predict_from_points_alone_matches_jax_plan_none(batch):
+    """A batch of points alone: the device voxelizer (yxz order, fused
+    mean) and the plan the middle builds on the device give JAX's
+    ``plan=None`` detections, the middle computing in ``precision``
+    (fp32) though the config serves bf16 from a host plan. Host voxels
+    without a plan give the same detections as the points alone: their
+    rows are the rows the device voxelizer emits."""
+    jmodel, vg, asg, test_cfg, _, _, var = jax_stack("bf16", True, batch,
+                                                     seed=2)
+    cls = var["params"]["bbox_head"]["task_0"]["conv_cls"]
+    cls["kernel"] = cls["kernel"] * 20.0
+    cls["bias"] = np.full_like(cls["bias"], 0.4)
+    cids = jbuild_stack(second_config("bf16", jax_side=True))[3]
+    ex = jbuild_example({k: jnp.asarray(v) for k, v in batch.items()}, vg,
+                        asg, cids, with_targets=False)
+    heads = jax.jit(lambda v, e: jmodel.apply(
+        v, e["voxels"], e["num_points_per_voxel"], e["coordinates"],
+        train=False))(var, ex)
+    scores = 1.0 / (1.0 + np.exp(-np.asarray(
+        heads[0]["cls_preds"], np.float64).reshape(2, -1)))
+    assert np.abs(scores - test_cfg["score_threshold"]).min() > MARGIN
+    det = {k: np.asarray(v) for k, v in jax.jit(
+        lambda e, h: jmodel.predict(e, h, test_cfg))(ex, heads).items()}
+
+    model, tvg, tasg, tcids, ttest = torch_model("bf16", True, var)
+    with torch.no_grad():
+        mid = model.backbone(torch.from_numpy(np.asarray(ex["voxels"])),
+                             torch.from_numpy(np.asarray(
+                                 ex["coordinates"])), model.grid_size)
+    assert mid.dtype == torch.float32
+    step = make_predict_step(model, tvg, tasg, tcids, ttest)
+    out = step(batch)
+    np.testing.assert_array_equal(out["valid"].numpy(), det["valid"])
+    np.testing.assert_array_equal(out["label_preds"].numpy(),
+                                  det["label_preds"])
+    v = det["valid"]
+    assert (v.sum(axis=1) > 0).all()
+    np.testing.assert_allclose(out["box3d_lidar"].numpy()[v],
+                               det["box3d_lidar"][v], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(out["scores"].numpy()[v], det["scores"][v],
+                               rtol=0, atol=1e-4)
+
+    voxels = {k: v for k, v in host_plan_fn(model, tvg, voxelize=True)(
         batch["points"], batch["num_points"]).items()
         if not k.startswith("plan_")}
-    step = make_predict_step(model, vg, asg, cids, test_cfg)
-    with pytest.raises(ValueError, match="serves from a host plan"):
-        step(dict(batch, **voxels))
-    with pytest.raises(NotImplementedError, match="voxelize on the host"):
-        step(batch)
-    with pytest.raises(NotImplementedError):
-        vg.generate_batch(torch.from_numpy(batch["points"]),
-                          torch.from_numpy(batch["num_points"]))
+    from_voxels = step(dict(batch, **voxels))
+    for k in out:
+        assert torch.equal(from_voxels[k], out[k]), k
 
 
 def test_build_stack_defaults_to_the_card(monkeypatch):

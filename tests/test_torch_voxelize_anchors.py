@@ -82,13 +82,18 @@ def test_empty_cloud_and_unported_orders():
                              torch.tensor([0, 0], dtype=torch.int32))
     assert out["num_voxels"].tolist() == [0, 0]
     assert not out["voxels"].any() and (out["coords"] == -1).all()
-    # yxz and the fused mean are voxelized on the host (SECOND's serving
-    # path); the device voxelizer refuses them
+    # yxz and the fused mean (SECOND's and CBGS's orders) run on the
+    # device too, as JAX's device voxelizer runs them
+    n = np.asarray([5, 0], np.int32)
     for kw in (dict(order="yxz"), dict(order="hashed", fuse_mean=True)):
         vg = VoxelGenerator(**kw, **VG_KW)
-        with pytest.raises(NotImplementedError):
-            vg.generate_batch(torch.from_numpy(pts),
-                              torch.tensor([5, 5], dtype=torch.int32))
+        out = vg.generate_batch(torch.from_numpy(pts), torch.from_numpy(n))
+        ref = JVoxelGenerator(**kw, **VG_KW).generate_batch(
+            jnp.asarray(pts), jnp.asarray(n))
+        for k in KEYS:
+            np.testing.assert_array_equal(out[k].numpy(), np.asarray(ref[k]),
+                                          err_msg=k)
+        assert out["num_voxels"].tolist()[1] == 0
 
 
 def test_mix32_matches_uint32_reference():
