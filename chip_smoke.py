@@ -5,6 +5,7 @@
                           [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
+    python3 chip_smoke.py --only points|train
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -19,7 +20,9 @@ with their kernels' device time by name under torch.profiler.
 They import det3d_tpu_torch from the checkout at DIR (by default this
 one): run them on two checkouts in turns on one card (parent, change,
 change, parent) to compare two versions of a kernel on the same
-yardsticks.
+yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
+and KITTI-all from points and under TTA) or only the training phases
+53-57.
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -31,10 +34,14 @@ alone (SECOND and CBGS with device voxels and plans, CBGS and nuScenes
 PointPillars under double-flip TTA) and prints one line per phase, in
 the order 1 to 11, 39, 40, 14 to 18, 41, 20 to 24, 42, 43, 26 to 30, 44,
 31 to 35, 45, 38, 47 to 50, then the profiles 12, 19, 25, 36, 37 each
-with its captured step's (46), then 13.
+with its captured step's (46), then 13; then, with every serving stack
+freed, Lyft and KITTI-all from points and under TTA (51, 52), and the
+pillar path's training (53 to 57: targets, one step card vs CPU, timing,
+overfit, validation loss) for KITTI car PointPillars (bf16, B=2) and
+the flagship (fp32, B=8). It prints its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
-CapturedStep (parallel/predict.py), one CUDA graph per batch signature.
+CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
 The phases that count a step's kernel launches, catch what it feeds the
 NMS kernel, time it against earlier PRs or profile it (4, 6, 9, 11, 12,
 16, 18, 19, 20, 22, 24, 25, 28, 30, 33, 35, 36, 37) call its eager form,
@@ -246,6 +253,35 @@ captured. Phases 39-46 drive the captured step itself.
  50. double-flip TTA on nuScenes PointPillars at B=2 (the device
      appearance voxelizer on 8 scans): as phase 49 without a window conv,
      card vs CPU with the reader and neck in fp32 on both sides;
+ 51. Lyft (configs/lyft_cbgs_voxelnet.py, fp32 middle) at the shipped B=2
+     x 300000 points, fed points alone and under double-flip TTA (8 scans,
+     the dense tail at (8, 11, 504, 504, 64)): the eager step's checks
+     (boxes, exactly 11 window-conv launches and 1 NMS launch fed N=10
+     K=1000 at 0.2, also at 4B rows), its peak memory, then the captured
+     step (phase_captured, 2 warm-ups, median of 5) where twice the eager
+     peak and what is resident fit in 0.9 of the card (capture_fits,
+     printed on its own line; else eagerly only), its peak memory; card
+     vs CPU at B=1 from points on the +-12.8 m cut (four flips under TTA);
+ 52. KITTI-all (configs/kitti_all_second.py) the same on SECOND's B=2 x
+     16384-point scans (10 window convs, NMS N=6 K=1000 at 0.01), card vs
+     CPU over the full range;
+ 53. targets (train_scene: points in 6 rotated car boxes a scan, gt padded
+     to 16) on the card against the CPU: labels and reg weights equal but
+     for anchors within 1e-5 of a threshold or a tie (at most 16), reg
+     targets within 1e-5; the anchor-area masks of a pos_area_threshold
+     copy equal;
+ 54. one train step (make_train_step, eager) on the card against the CPU
+     from the same calibrated weights: loss within 1e-4 relative, each
+     gradient within TRAIN_GRAD_REL (the worst named), BN running
+     statistics, the parameters after the step where the clipped
+     gradients are clear of zero; no window-conv or NMS launch;
+ 55. ms/step eager and captured (e c c e, 5 warm-ups, median of 20) from
+     numpy and from the card, the split into target assignment, forward,
+     backward and optimizer, the captured step's busy share, peak memory;
+ 56. 30 captured steps on one scene with OneCycle over 30: every loss
+     printed and finite, the last 5 below the first 5;
+ 57. make_loss_eval_step captured on the card against the CPU (bf16
+     models also with an fp32 reader and neck);
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -288,6 +324,7 @@ from __future__ import annotations
 import argparse
 import copy
 import functools
+import gc
 import json
 import re
 import statistics
@@ -557,11 +594,11 @@ def kernel_split_ms(fn, calls=REPEAT):
     return split
 
 
-def interleaved_ms(fns, rounds=REPEAT):
+def interleaved_ms(fns, rounds=REPEAT, warmup=WARMUP):
     """Median ms of each fn, timed in turns (a, b, b, a, ...) so that both
-    see the same clocks."""
+    see the same clocks, after ``warmup`` calls of each."""
     for fn in fns.values():
-        for _ in range(WARMUP):
+        for _ in range(warmup):
             fn()
     names = list(fns)
     times = {n: [] for n in names}
@@ -1598,7 +1635,8 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
     return fwd
 
 
-def phase_captured(dev, step, data, launches, smi, label):
+def phase_captured(dev, step, data, launches, smi, label, warmup=WARMUP,
+                   rounds=REPEAT):
     """The predict step as a user calls it: ``step`` (make_predict_step's
     CapturedStep) on ``data`` (numpy scans, with their host voxels and
     plan). In order:
@@ -1614,7 +1652,7 @@ def phase_captured(dev, step, data, launches, smi, label):
         call replays without a new capture;
       - ms/batch of the eager and the captured step from the numpy batch,
         the copy to the card included, in turns (e c c e: interleaved_ms,
-        WARMUP warm-ups, median of REPEAT, CUDA events), and each step's
+        ``warmup`` warm-ups, median of ``rounds``, CUDA events), and each step's
         copy alone (the eager step's pageable .to(), the captured step's
         pinned staging, _Graph.stage).
     Returns {"launches", "eager", "captured", "copy"}."""
@@ -1653,14 +1691,15 @@ def phase_captured(dev, step, data, launches, smi, label):
         f"eager step on the same batch: {agree}; a second call replayed "
         f"without a new capture")
 
+    timing = dict(rounds=rounds, warmup=warmup)
     ms = interleaved_ms({"eager": lambda: step.eager(data),
-                         "captured": lambda: step(data)})
+                         "captured": lambda: step(data)}, **timing)
     on_card = interleaved_ms({"eager": lambda: step.eager(data_d),
-                              "captured": lambda: step(data_d)})
+                              "captured": lambda: step(data_d)}, **timing)
     tensors = step.tensors(data)
     copy = interleaved_ms({
         "eager": lambda: {k: v.to(dev) for k, v in tensors.items()},
-        "captured": lambda: entry.stage(tensors)})
+        "captured": lambda: entry.stage(tensors)}, **timing)
     mib = sum(t.numel() * t.element_size() for t in tensors.values()) / 2**20
     b = data["points"].shape[0]
     log(f"{label} ms/batch B={b} from the numpy batch, copy to the card "
@@ -2986,6 +3025,551 @@ def phase_cbgs_variants(dev, batch, smi):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# Lyft and KITTI-all from points alone and under TTA (phases 51, 52)
+# ---------------------------------------------------------------------------
+
+FP32_TIMING = dict(warmup=2, rounds=5)   # these steps take up to ~1 s
+# a captured step's graph pool holds about the eager step's peak, and the
+# eager step's blocks stay cached beside it while the two are timed in
+# turns: capture only when twice the eager peak and what is resident fit
+# in this share of the card's memory
+CAPTURE_MEMORY_SHARE = 0.9
+
+
+def capture_fits(peak, label):
+    """Whether the captured step can be run beside the eager one: the byte
+    count 2 x ``peak`` (the eager step's peak allocation above what was
+    resident) + what is allocated now, against CAPTURE_MEMORY_SHARE of the
+    card's memory, printed on a line of its own."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    resident = torch.cuda.memory_allocated()
+    need = 2 * peak + resident
+    fits = need <= CAPTURE_MEMORY_SHARE * total
+    log(f"{label} memory: eager peak {peak / 2**30:.2f} GiB, resident "
+        f"{resident / 2**30:.2f} GiB; eager and captured side by side "
+        f"need 2 x peak + resident = {need / 2**30:.2f} GiB of "
+        f"{CAPTURE_MEMORY_SHARE} x {total / 2**30:.2f} GiB: "
+        + ("the captured step runs" if fits else
+           "THE CAPTURED STEP DOES NOT FIT and is not run; the step runs "
+           "eagerly only"))
+    return fits
+
+
+def phase_fp32_points(dev, path, phase, smi):
+    """Phase 51 (Lyft) / 52 (KITTI-all): the fp32 path's step fed points
+    alone and under double-flip TTA at the shipped B=2, full widths,
+    through build_stack and make_predict_step: the eager step's checks
+    (points_step's: boxes, exactly len(path.layers) window-conv launches
+    and 1 NMS launch fed path.nms, at 4B rows under TTA); its peak memory;
+    then, where capture_fits, the captured step (phase_captured, timed
+    with FP32_TIMING: 2 warm-ups, median of 5) and its peak memory, else
+    the eager step alone timed so; card vs CPU at B=1 from points
+    (card_vs_cpu_points: Lyft on its +-12.8 m cut, KITTI-all over its full
+    range; under TTA the four flips and predict_tta). The CPU's
+    predict_tta of Lyft's full-size card heads is not held to the card's:
+    with random weights they decode boxes of 460 m, where one ulp of exp is
+    3e-5, past check_decode's absolute 1e-5."""
+    batch = path.scans(path.b, path.points)
+    data = {k: batch[k] for k in ("points", "num_points")}
+    shape = (path.b, path.dets, 9 if path.five else 7)
+    if path.cut is None:
+        one_cfg = path.config()
+        one = {k: v[:1] for k, v in data.items()}
+    else:
+        one_cfg = path.config(cut=True)
+        one = path.scans(1, path.cut[2], cut=True)
+    for tta in (False, True):
+        label = (f"phase {phase} {path.name} "
+                 + ("double-flip TTA" if tta else "from points")
+                 + " (fp32 middle)")
+        cfg = tta_config(path.config()) if tta else path.config()
+        stack = load_stack(cfg, fp32_state(path), dev)
+        st, launches = sparse_predict(dev, stack, data, {}, shape,
+                                      len(path.layers), label, min_labels=2)
+        if launches["rotated_nms_keep"] != 1:
+            raise AssertionError(f"{label}: {launches['rotated_nms_keep']} "
+                                 f"NMS launches, expected 1")
+        nms_fed(st, path.nms, label)
+        step = st[4]
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step.eager(data)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - resident
+        if capture_fits(peak, label):
+            cap = phase_captured(dev, step, data, launches, smi, label,
+                                 **FP32_TIMING)
+            log(f"{label} memory: the eager step's peak allocation "
+                f"{peak / 2**30:.2f} GiB above the resident "
+                f"{resident / 2**30:.2f}; reserved after the eager and "
+                f"captured steps were timed in turns (the graph's pool "
+                f"beside the eager step's cached blocks) "
+                f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB "
+                f"[{smi}]")
+            cap_ms = f"captured {cap['captured']:.3f}"
+        else:
+            ms = cuda_ms(lambda: step.eager(data),
+                         warmup=FP32_TIMING["warmup"],
+                         repeat=FP32_TIMING["rounds"])
+            log(f"{label} eager step only: {ms:.3f} ms/batch B={path.b} "
+                f"from the numpy batch, peak memory {peak / 2**30:.2f} GiB "
+                f"[{smi}]")
+            cap_ms = "captured not run"
+        del st, stack, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        c = tta_config(one_cfg) if tta else one_cfg
+        cpu = load_stack(c, fp32_state(path), "cpu")
+        card_vs_cpu_points(dev, load_stack(c, fp32_state(path), dev), cpu,
+                           one, label, tta)
+        log(f"{label}: done ({cap_ms}) [{smi}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Training: the pillar path's train step (phases 53-57)
+# ---------------------------------------------------------------------------
+
+def train_scene(batch, points, pc_range, n_gt=6, max_gt=16, seed=SEED):
+    """Training scans: dense point clusters inside ``n_gt`` car boxes a
+    scan at random yaws, uniform clutter elsewhere, and the gt padded to
+    ``max_gt`` rows (gt_boxes, gt_classes = 1, gt_valid), seeded numpy, as
+    tests/test_e2e_pointpillars.py::_synth_scene builds its scene. A
+    third of the points fall in the boxes."""
+    rng = np.random.RandomState(seed)
+    x0, y0, _, x1, y1, _ = (float(v) for v in pc_range)
+    pts = np.zeros((batch, points, 4), np.float32)
+    gt = np.zeros((batch, max_gt, 7), np.float32)
+    valid = np.zeros((batch, max_gt), bool)
+    k = points // (3 * n_gt)
+    for b in range(batch):
+        cursor = 0
+        for g in range(n_gt):
+            cx = rng.uniform(x0 + 3, x1 - 3)
+            cy = rng.uniform(y0 + 3, y1 - 3)
+            theta = rng.uniform(-np.pi, np.pi)
+            gt[b, g] = [cx, cy, -1.0, 1.6, 3.9, 1.56, theta]
+            valid[b, g] = True
+            local = rng.uniform(-0.5, 0.5, (k, 3)) * [1.5, 3.5, 1.4]
+            c, s = np.cos(theta), np.sin(theta)
+            sl = slice(cursor, cursor + k)
+            pts[b, sl, 0] = local[:, 0] * c + local[:, 1] * s + cx
+            pts[b, sl, 1] = -local[:, 0] * s + local[:, 1] * c + cy
+            pts[b, sl, 2] = -1.0 + local[:, 2]
+            pts[b, sl, 3] = rng.uniform(0, 1, k)
+            cursor += k
+        rest = points - cursor
+        pts[b, cursor:, 0] = rng.uniform(x0, x1, rest)
+        pts[b, cursor:, 1] = rng.uniform(y0, y1, rest)
+        pts[b, cursor:, 2] = rng.uniform(-2.5, 0.5, rest)
+        pts[b, cursor:, 3] = rng.uniform(0, 1, rest)
+    return {"points": pts, "num_points": np.full((batch,), points, np.int32),
+            "gt_boxes": gt, "gt_classes": valid.astype(np.int32),
+            "gt_valid": valid}
+
+
+# the two trained models: kitti_car_pointpillars.py as shipped (bf16
+# reader and RPN) at its samples_per_gpu, and the flagship (fp32) at the
+# serving batch, trained with kitti_car_pointpillars.py's optimizer and lr
+TRAIN_PATHS = (("kitti_pp", "KITTI car PointPillars (bf16)", 2),
+               ("flagship", "flagship (fp32)", B))
+TRAIN_POINTS = POINTS
+TRAIN_GT, TRAIN_MAX_GT = 6, 16
+TRAIN_TOTAL = 100                        # the schedules' total steps
+OVERFIT_STEPS = 30
+TARGET_MARGIN = 1e-5     # anchors this near a threshold or a tie may tip
+TARGET_TIPPED_MAX = 16   # ... and at most this many a batch may differ
+TRAIN_LOSS_REL = 1e-4
+TRAIN_EVAL_BF16_REL = 1e-3
+# one step card vs CPU, relative L2 of each gradient. fp32: the batch
+# statistics come from sums, var = E[x²] - mean² as in the JAX package,
+# which loses digits where a channel's mean dwarfs its spread (the pillar
+# reader's features carry coordinates in metres); summed over 3M rows in
+# another order, the reader's weight gradient moves 8.1e-3 and the median
+# tensor 2.8e-3 (the flagship at B=8 on an H100 80GB HBM3 at 700 W; see
+# PERF.md), well above the 1e-3 of sums in another order alone. bf16:
+# training-mode BN's backward
+# leaves gradients of the size of the roundings above the head
+# (tests/test_torch_train_step.py: JAX's own jitted and op-by-op steps lie
+# 0.3-0.6 apart)
+TRAIN_GRAD_REL = {"fp32": 2e-2, "bf16": 0.75}
+TRAIN_STATS_TOL = {"fp32": dict(rtol=1e-4, atol=1e-5),
+                   "bf16": dict(rtol=1e-2, atol=1e-3)}
+TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=1e-6)
+# gradient elements whose step is compared: clear of zero relative to the
+# tensor's largest and absolutely (1000 x Adam's eps of 1e-8, where its
+# first step g / (|g| + eps) is the sign within 1e-3)
+TRAIN_CLEAR, TRAIN_CLEAR_ABS = 1e-3, 1e-5
+
+
+def train_config(key):
+    """The config dict of a trained model: KITTI car PointPillars as
+    shipped, or the flagship with kitti_car_pointpillars.py's optimizer,
+    lr_config and optimizer_config."""
+    kitti = pp_config(KITTI_PP_CFG)
+    if key == "kitti_pp":
+        return kitti
+    from det3d_tpu_torch.apis.flagship import flagship_config
+    return dict(flagship_config(), **{k: kitti[k] for k in (
+        "optimizer", "lr_config", "optimizer_config")})
+
+
+@functools.lru_cache(maxsize=None)
+def train_weights(key):
+    """Calibrated random weights (calibrated_state): KITTI car
+    PointPillars' of phase 20, the flagship's calibrated on the card on
+    its first structured scan."""
+    if key == "kitti_pp":
+        return pp_state(KITTI_PP_CFG)
+    from det3d_tpu_torch.utils.synth import structured_batch
+    cfg = train_config(key)
+    return calibrated_state(cfg, structured_batch(
+        1, POINTS, cfg["voxel_generator"]["range"], seed=SEED), "cuda")
+
+
+def train_stack(key, device, total_steps=TRAIN_TOTAL, cfg=None):
+    """(model, voxel_gen, assigners, class ids, TrainState) of a trained
+    model on ``device`` from train_weights, through build_stack and
+    init_state."""
+    from det3d_tpu_torch.apis.train import build_stack, init_state
+    cfg = cfg or train_config(key)
+    model, vg, asg, cids, _ = build_stack(cfg, device=device)
+    model.load_state_dict(train_weights(key))
+    return (model, vg, asg, cids, init_state(cfg, model, total_steps)[0])
+
+
+def train_batch(key, b):
+    pc = train_config(key)["voxel_generator"]["range"]
+    return train_scene(b, TRAIN_POINTS, pc, TRAIN_GT, TRAIN_MAX_GT)
+
+
+def spy_grads(state):
+    """Record the gradients a train step hands its optimizer."""
+    seen = []
+    update = state.tx.update
+
+    def spy(grads):
+        grads = list(grads)
+        seen.append([g.detach().clone() for g in grads])
+        return update(grads)
+    state.tx.update = spy
+    return seen
+
+
+def phase_train_targets(dev, key, name, batch):
+    """Phase 53: each task's targets of ``batch``'s gt on the card against
+    the CPU: labels and reg weights equal except at anchors whose CPU IoU
+    lies within TARGET_MARGIN of a threshold or of its gt's best overlap
+    (a force-match tie), at most TARGET_TIPPED_MAX of them; reg targets
+    within 1e-5 absolute; then, on a copy of the config with
+    pos_area_threshold = 1, the anchor-area masks of the step's own
+    voxels equal."""
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.core.target import _bev, nearest_iou_similarity
+    from det3d_tpu_torch.parallel.train import build_example
+    label = f"phase 53 {name}"
+    cfg = train_config(key)
+    _, vg, asg, cids, _ = build_stack(cfg, device="cpu")
+    gt = {k: batch[k] for k in ("gt_boxes", "gt_classes", "gt_valid")}
+    for t, (a, ids) in enumerate(zip(asg, cids)):
+        out = {}
+        for device in (dev, "cpu"):
+            g = {k: torch.as_tensor(v, device=device) for k, v in gt.items()}
+            out[str(device)] = [x.cpu() for x in a.assign(
+                g["gt_boxes"], g["gt_classes"], g["gt_valid"], ids)]
+        (ld, td, wd), (lc, tc, wc) = out[str(dev)], out["cpu"]
+        valid = torch.as_tensor(gt["gt_valid"])
+        sim = nearest_iou_similarity(_bev(a.anchors_on("cpu")),
+                                     _bev(torch.as_tensor(gt["gt_boxes"])))
+        sim = torch.where(valid[:, None, :], sim, -1.0)
+        best = sim.amax(dim=2)
+        near = torch.zeros_like(best, dtype=torch.bool)
+        for g_id, (mt, ut) in zip(ids, a._thresholds):
+            near |= ((best - mt).abs() < TARGET_MARGIN) | (
+                (best - ut).abs() < TARGET_MARGIN)
+        gt_best = sim.amax(dim=1)
+        near |= (((sim - gt_best[:, None, :]).abs() < TARGET_MARGIN)
+                 & valid[:, None, :]).any(2) & (best > 0)
+        differ = (ld != lc) | (wd != wc)
+        n_diff, n_near = int(differ.sum()), int(near.sum())
+        tipped = int((differ & near).sum())
+        err = float((td - tc).abs().max())
+        log(f"{label} task {t} targets card vs CPU, B={ld.shape[0]} x "
+            f"{ld.shape[1]} anchors, {int(valid.sum())} gt: labels / reg "
+            f"weights differ at {n_diff} anchors, all within "
+            f"{TARGET_MARGIN} of a threshold or a tie ({n_near} anchors "
+            f"are); positives {int((lc > 0).sum())}, reg targets max abs "
+            f"err {err:.2e}")
+        if bool((differ & ~near).any()) or tipped > TARGET_TIPPED_MAX:
+            raise AssertionError(f"{label}: {n_diff} anchors differ, "
+                                 f"{n_diff - tipped} clear of the "
+                                 f"thresholds")
+        if err > 1e-5:
+            raise AssertionError(f"{label}: reg targets card vs CPU {err}")
+        if int((lc > 0).sum()) < 1:
+            raise AssertionError(f"{label}: no positive anchor")
+    cfg = copy.deepcopy(cfg)
+    cfg["assigner"]["target_assigner"]["pos_area_threshold"] = 1
+    _, vg, asg, cids, _ = build_stack(cfg, device="cpu")
+    masks = []
+    for device in (dev, "cpu"):
+        d = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+        with torch.no_grad():
+            masks.append(build_example(d, vg, asg, cids)[
+                "anchors_mask"][0].cpu())
+    if not torch.equal(*masks):
+        raise AssertionError(f"{label}: anchor-area masks differ")
+    log(f"{label} anchor-area mask (pos_area_threshold 1) card vs CPU "
+        f"equal, {float(masks[1].float().mean()):.3f} of the anchors kept")
+
+
+def phase_train_step(dev, key, name, batch, smi):
+    """Phase 54: one train step (make_train_step) on the card (eager) and
+    on the CPU from the same weights: the loss within TRAIN_LOSS_REL; each
+    gradient (caught on its way to the optimizer) within TRAIN_GRAD_REL
+    relative L2, the worst named; the BatchNorm running statistics after
+    the step within TRAIN_STATS_TOL; the parameters after the step within
+    TRAIN_PARAM_TOL where both gradients, clipped at the global norm of 35
+    as the optimizer clips them, are clear of zero (TRAIN_CLEAR of the
+    tensor's largest and TRAIN_CLEAR_ABS) and of one sign (Adam's
+    first step turns a gradient into its sign); no window-conv or NMS
+    launch."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = f"phase 54 {name}"
+    prec = "bf16" if key == "kitti_pp" else "fp32"
+    runs = {}
+    for device in (dev, "cpu"):
+        model, vg, asg, cids, state = train_stack(key, device)
+        seen = spy_grads(state)
+        step = make_train_step(state, vg, asg, cids)
+        window_conv.launches = rotated_nms_keep.launches = 0
+        t = time.perf_counter()
+        metrics = step.eager(batch)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        t = time.perf_counter() - t
+        runs[str(device)] = (metrics, seen[0], model, t, (
+            window_conv.launches, rotated_nms_keep.launches))
+    (md, gd, model_d, t_d, launches), (mc, gc_, model_c, t_c, _) = (
+        runs[str(dev)], runs["cpu"])
+    if launches != (0, 0):
+        raise AssertionError(f"{label}: kernel launches {launches}")
+    loss_d, loss_c = float(md["loss"]), float(mc["loss"])
+    loss_err = abs(loss_d - loss_c) / abs(loss_c)
+    names = [n for n, _ in model_c.named_parameters()]
+    errs = {n: rel_l2(a, b) for n, a, b in zip(names, gd, gc_)}
+    worst = max(errs, key=errs.get)
+    sd_d = {k: v.cpu() for k, v in model_d.state_dict().items()}
+    sd_c = model_c.state_dict()
+    stat_err = max((float((sd_d[k] - sd_c[k]).abs().max()), k)
+                   for k in sd_c if k.endswith((".mean", ".var")))
+    checked, off = 0, []
+    # Adam sees the clipped gradients
+    clip = [min(1.0, 35.0 / float(m["grad_norm"])) for m in (md, mc)]
+    for n, a, b in zip(names, gd, gc_):
+        a = a.cpu() * clip[0]
+        b = b * clip[1]
+        clear = ((a.abs() > TRAIN_CLEAR * float(a.abs().max()))
+                 & (b.abs() > TRAIN_CLEAR * float(b.abs().max()))
+                 & (a.abs() > TRAIN_CLEAR_ABS) & (b.abs() > TRAIN_CLEAR_ABS)
+                 & (torch.sign(a) == torch.sign(b)))
+        checked += int(clear.sum())
+        if not torch.allclose(sd_d[n][clear], sd_c[n][clear],
+                              **TRAIN_PARAM_TOL):
+            off.append((float((sd_d[n][clear] - sd_c[n][clear]).abs().max()),
+                        n))
+    log(f"{label} one train step B={batch['points'].shape[0]} card (eager, "
+        f"{t_d * 1e3:.1f} ms with its first call's set-up) vs CPU "
+        f"({t_c:.2f} s): loss {loss_d:.6f} / {loss_c:.6f} (rel err "
+        f"{loss_err:.2e}, tolerance {TRAIN_LOSS_REL}); gradients relative "
+        f"L2 worst {errs[worst]:.3e} ({worst}), median "
+        f"{statistics.median(errs.values()):.3e} (tolerance "
+        f"{TRAIN_GRAD_REL[prec]}, {prec}); BN running stats max abs err "
+        f"{stat_err[0]:.2e} ({stat_err[1]}); {checked} parameter elements "
+        f"with clear gradients of one sign equal after the step within "
+        f"{TRAIN_PARAM_TOL}; num_pos {int(md['num_pos_task0'])}; window-conv "
+        f"and NMS launches {launches} [{smi}]")
+    if loss_err > TRAIN_LOSS_REL:
+        raise AssertionError(f"{label}: loss card vs CPU {loss_err}")
+    if off:
+        raise AssertionError(f"{label}: parameters after the step, card vs "
+                             f"CPU, worst {max(off)}")
+    if errs[worst] > TRAIN_GRAD_REL[prec]:
+        raise AssertionError(f"{label}: gradient {worst} card vs CPU "
+                             f"{errs[worst]}")
+    for k in sd_c:
+        if k.endswith((".mean", ".var")) and not torch.allclose(
+                sd_d[k], sd_c[k], **TRAIN_STATS_TOL[prec]):
+            raise AssertionError(f"{label}: BN statistic {k} card vs CPU")
+    if sorted(md) != sorted(mc):
+        raise AssertionError(f"{label}: metric keys differ")
+
+
+def phase_train_timing(dev, key, name, batch, smi):
+    """Phase 55: ms/step of the train step at full width, eager and
+    captured, from the numpy batch and from the card (interleaved_ms: e c c
+    e, WARMUP warm-ups, median of REPEAT); the split into target
+    assignment, forward (and loss), backward and optimizer, each timed
+    alone by CUDA events; the captured step's device busy share
+    (torch.profiler over 5 replays); peak memory of the eager step and of
+    the capture (its warm-up included). Every call is a step: the weights
+    move on. Returns {"eager", "captured", "on_card", "split", "busy",
+    "peak"}."""
+    from det3d_tpu_torch.parallel.train import (build_example,
+                                                make_train_step,
+                                                network_loss)
+    label = f"phase 55 {name}"
+    model, vg, asg, cids, state = train_stack(key, dev)
+    step = make_train_step(state, vg, asg, cids)
+    data_d = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step.eager(batch)
+    torch.cuda.synchronize()
+    peak_e = torch.cuda.max_memory_allocated() - resident
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    step(batch)
+    torch.cuda.synchronize()
+    peak_c = torch.cuda.memory_reserved() - reserved
+    ms = interleaved_ms({"eager": lambda: step.eager(batch),
+                         "captured": lambda: step(batch)})
+    on_card = interleaved_ms({"eager": lambda: step.eager(data_d),
+                              "captured": lambda: step(data_d)})
+    params = list(model.parameters())
+
+    def example():
+        with torch.no_grad():
+            return build_example(data_d, vg, asg, cids, with_targets=True)
+
+    ex = example()
+    model.train()
+    try:
+        fwd = cuda_ms(lambda: network_loss(model, ex))
+        fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
+            network_loss(model, ex)[0], params))
+        grads = torch.autograd.grad(network_loss(model, ex)[0], params)
+    finally:
+        model.eval()
+    split = {"targets": cuda_ms(example), "forward": fwd,
+             "backward": fwd_bwd - fwd,
+             "optimizer": cuda_ms(lambda: state.tx.update(grads))}
+    wall, kernels = profile_steps(lambda: step(data_d), 5)
+    busy = log_profile(f"{label} captured", wall, kernels, 5,
+                       batch["points"].shape[0], smi)
+    b = batch["points"].shape[0]
+    log(f"{label} train step B={b} ms/step from the numpy batch, in turns "
+        f"(e c c e): eager {ms['eager']:.3f}, captured {ms['captured']:.3f} "
+        f"({ms['eager'] / ms['captured']:.2f}x; "
+        f"{b * 1e3 / ms['captured']:.1f} scans/s); from the card: eager "
+        f"{on_card['eager']:.3f}, captured {on_card['captured']:.3f} "
+        f"[{smi}]")
+    log(f"{label} split, each part alone (CUDA events, median of "
+        f"{REPEAT}): target assignment {split['targets']:.3f} ms, forward "
+        f"and loss {split['forward']:.3f}, backward {split['backward']:.3f}, "
+        f"optimizer {split['optimizer']:.3f} (sum "
+        f"{sum(split.values()):.3f}); device busy in the captured step "
+        + (f"{busy:.3f} ms/step ({busy / wall:.2f} of the window)"
+           if busy else "not measured")
+        + f"; memory: the eager step's peak allocation {peak_e / 2**30:.2f} "
+        f"GiB above the resident {resident / 2**30:.2f}, the captured "
+        f"step's first call (warm-up, capture) reserved "
+        f"{peak_c / 2**30:.2f} GiB more [{smi}]")
+    return {"eager": ms["eager"], "captured": ms["captured"],
+            "on_card": on_card, "split": split, "busy": busy,
+            "peak": (peak_e, peak_c)}
+
+
+def phase_overfit(dev, key, name, smi):
+    """Phase 56: OVERFIT_STEPS captured steps on one fixed scene
+    (train_batch, seed SEED + 1) with the OneCycle schedule over those
+    steps; the loss of every step printed. Passes when every loss is
+    finite and the mean of the last 5 lies below the mean of the first
+    5."""
+    from det3d_tpu_torch.parallel.graph import CapturedStep
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = f"phase 56 {name}"
+    model, vg, asg, cids, state = train_stack(key, dev, OVERFIT_STEPS)
+    step = make_train_step(state, vg, asg, cids)
+    if not isinstance(step, CapturedStep):
+        raise AssertionError(f"{label}: the step is not captured")
+    pc = train_config(key)["voxel_generator"]["range"]
+    scene = train_scene(B if key == "flagship" else 2, TRAIN_POINTS, pc,
+                        TRAIN_GT, TRAIN_MAX_GT, seed=SEED + 1)
+    losses = [float(step(scene)["loss"]) for _ in range(OVERFIT_STEPS)]
+    first, last = (statistics.mean(losses[:5]),
+                   statistics.mean(losses[-5:]))
+    log(f"{label} {OVERFIT_STEPS} captured steps on one scene, OneCycle "
+        f"over {OVERFIT_STEPS}: losses "
+        + " ".join(f"{v:.4f}" for v in losses)
+        + f"; mean of the first 5 {first:.4f}, of the last 5 {last:.4f}; "
+        f"{len(step.graphs)} graph, step count {int(state.step)} [{smi}]")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"{label}: the loss did not fall")
+    if int(state.step) != OVERFIT_STEPS or len(step.graphs) != 1:
+        raise AssertionError(f"{label}: {int(state.step)} steps, "
+                             f"{len(step.graphs)} graphs")
+
+
+def phase_loss_eval(dev, key, name, batch):
+    """Phase 57: make_loss_eval_step, captured on the card, against the
+    CPU's from the same weights: within TRAIN_LOSS_REL in fp32 (a bf16
+    model also with its reader and neck in fp32 on both sides), and a bf16
+    model as shipped within TRAIN_EVAL_BF16_REL (cuDNN's and oneDNN's bf16
+    convs round apart; phase 23 holds the bf16 heads layer by layer)."""
+    from det3d_tpu_torch.parallel.train import make_loss_eval_step
+    label = f"phase 57 {name}"
+    cfg = train_config(key)
+    variants = [("as shipped", cfg, TRAIN_LOSS_REL)]
+    if cfg["model"]["reader"].get("precision") == "bf16":
+        fp32 = copy.deepcopy(cfg)
+        fp32["model"]["reader"]["precision"] = "fp32"
+        fp32["model"]["neck"]["precision"] = "fp32"
+        variants = [("as shipped (bf16)", cfg, TRAIN_EVAL_BF16_REL),
+                    ("reader and neck in fp32", fp32, TRAIN_LOSS_REL)]
+    for what, c, tol in variants:
+        out = {}
+        for device in (dev, "cpu"):
+            model, vg, asg, cids, _ = train_stack(key, device, cfg=c)
+            out[str(device)] = float(make_loss_eval_step(
+                model, vg, asg, cids)(batch)["loss"])
+        err = abs(out[str(dev)] - out["cpu"]) / abs(out["cpu"])
+        log(f"{label} validation loss {what}, captured on the card "
+            f"{out[str(dev)]:.6f} vs CPU {out['cpu']:.6f} (rel err "
+            f"{err:.2e}, tolerance {tol})")
+        if err > tol:
+            raise AssertionError(f"{label}: loss {what} card vs CPU {err}")
+
+
+def training_phases(dev, smi):
+    """Phases 53-57 for each of TRAIN_PATHS, then the timing summary."""
+    times = {}
+    for key, name, b in TRAIN_PATHS:
+        batch = train_batch(key, b)
+        phase_train_targets(dev, key, name, batch)
+        phase_train_step(dev, key, name, batch, smi)
+        times[key] = phase_train_timing(dev, key, name, batch, smi)
+        phase_overfit(dev, key, name, smi)
+        phase_loss_eval(dev, key, name, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, name, b in TRAIN_PATHS:
+        t = times[key]
+        log(f"train steps: {name} B={b}: eager {t['eager']:.3f} ms/step, "
+            f"captured {t['captured']:.3f}; from the card eager "
+            f"{t['on_card']['eager']:.3f}, captured "
+            f"{t['on_card']['captured']:.3f}; memory: eager peak "
+            f"{t['peak'][0] / 2**30:.2f} GiB, captured pool reserved "
+            f"{t['peak'][1] / 2**30:.2f} GiB; "
+            f"window-conv and NMS launches on the train step: 0 [{smi}]")
+
+
 def conv_timing_main(tree, prec, paths):
     """--conv-timing: phase 1, then for each of ``paths`` its host plan
     (plan_builder: the tree's own host_plan_fn) and the window-conv timing
@@ -3068,37 +3652,9 @@ def nms_timing_main(tree):
     return 0
 
 
-def main():
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--conv-timing", action="store_true",
-                    help="time only the window conv (conv_timing) on the "
-                    "plans of --path")
-    ap.add_argument("--prec", choices=("bf16", "fp32"),
-                    help="with --conv-timing: the operands' type (default: "
-                    "bf16 on SECOND's plan, fp32 on Lyft's and KITTI-all's)")
-    ap.add_argument("--path", nargs="+", default=["second"],
-                    choices=("second", "lyft", "kitti_all"),
-                    help="with --conv-timing: whose host plans and layers "
-                    "(default: second)")
-    ap.add_argument("--nms-timing", action="store_true",
-                    help="time only the rotated-NMS kernel (phase 13)")
-    ap.add_argument("--build-timing", nargs="+",
-                    choices=("second", "kitti_all", "cbgs", "lyft"),
-                    help="time only the device voxels and plan (phase 47) "
-                    "on these paths' bench batches")
-    ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
-                    "--build-timing: the checkout whose det3d_tpu_torch to "
-                    "time (default: this one)")
-    args = ap.parse_args()
-    if args.conv_timing:
-        return conv_timing_main(args.tree, args.prec, args.path)
-    if args.nms_timing:
-        return nms_timing_main(args.tree)
-    if args.build_timing:
-        return build_timing_main(args.tree, args.build_timing)
-    smi = phase_device()
-    dev = torch.device("cuda", 0)
-    phase_build()
+def serving_phases(dev, smi):
+    """Phases 3 to 50 and 46, 13: every serving path, in the order of the
+    module docstring. Returns the entries of the kernels' JSON line."""
     nms_err = phase_kernel(dev)
 
     from det3d_tpu_torch.utils.synth import structured_batch
@@ -3320,7 +3876,7 @@ def main():
     # SECOND's (window conv) times, then one per kernel at CBGS's shapes,
     # the NMS kernel on the nuScenes PointPillars step's inputs, the fp32
     # paths' entries and those of the steps fed points alone
-    print(json.dumps({"kernels": [dict(
+    return [dict(
         nms_src, launches=sum(by_path["rotated_nms_keep"].values()),
         launches_by_path=by_path["rotated_nms_keep"],
         max_abs_err=float(nms_err), ms=nms_times["kernel"],
@@ -3353,7 +3909,66 @@ def main():
         device_ms=nms_dev["nuScenes PointPillars step B=2"]["device"],
         plain_ms=nusc_nms["plain"], bound_ms=bounds["nusc_pp"][0],
         bound_by=bounds["nusc_pp"][1], library_ms=None,
-    )] + fp32_entries}), flush=True)
+    )] + fp32_entries
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--conv-timing", action="store_true",
+                    help="time only the window conv (conv_timing) on the "
+                    "plans of --path")
+    ap.add_argument("--prec", choices=("bf16", "fp32"),
+                    help="with --conv-timing: the operands' type (default: "
+                    "bf16 on SECOND's plan, fp32 on Lyft's and KITTI-all's)")
+    ap.add_argument("--path", nargs="+", default=["second"],
+                    choices=("second", "lyft", "kitti_all"),
+                    help="with --conv-timing: whose host plans and layers "
+                    "(default: second)")
+    ap.add_argument("--nms-timing", action="store_true",
+                    help="time only the rotated-NMS kernel (phase 13)")
+    ap.add_argument("--build-timing", nargs="+",
+                    choices=("second", "kitti_all", "cbgs", "lyft"),
+                    help="time only the device voxels and plan (phase 47) "
+                    "on these paths' bench batches")
+    ap.add_argument("--only", choices=("points", "train"),
+                    help="run phase 1, the build and only phases 51-52 "
+                    "(Lyft and KITTI-all from points and under TTA) or "
+                    "only the training phases 53-57")
+    ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
+                    "--build-timing: the checkout whose det3d_tpu_torch to "
+                    "time (default: this one)")
+    args = ap.parse_args()
+    if args.conv_timing:
+        return conv_timing_main(args.tree, args.prec, args.path)
+    if args.nms_timing:
+        return nms_timing_main(args.tree)
+    if args.build_timing:
+        return build_timing_main(args.tree, args.build_timing)
+    smi = phase_device()
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    phase_build()
+    if args.only == "points":
+        for path, phase in ((LYFT, 51), (KITTI_ALL, 52)):
+            phase_fp32_points(dev, path, phase, smi)
+        return 0
+    if args.only == "train":
+        training_phases(dev, smi)
+        log(f"training phases took {time.perf_counter() - t0:.1f} s")
+        return 0
+    kernels = serving_phases(dev, smi)
+    # every serving stack and graph is freed before the last phases: Lyft's
+    # TTA step alone holds tens of GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    for path, phase in ((LYFT, 51), (KITTI_ALL, 52)):
+        phase_fp32_points(dev, path, phase, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+    training_phases(dev, smi)
+    log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
+        f"device check, the kernels' build included")
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

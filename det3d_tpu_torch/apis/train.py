@@ -1,11 +1,15 @@
-"""Build the serving stack from a config, and the host plans it serves from.
+"""Build the stack from a config, the host plans it serves from, and the
+train state.
 
 Port of det3d_tpu/apis/train.py: ``build_stack`` (the same
 reference-schema config -- ``voxel_generator``, ``model``, ``assigner``,
 ``tasks``, ``test_cfg`` -- builds the voxelizer, the detector, the per-task
-anchor sets and the class ids) and ``host_plan_fn`` (the sparse middle's
-rulebooks and the voxels, built on the host for each request batch).
-Training and evaluation entry points wait for later ports.
+assigners and the class ids), ``host_plan_fn`` (the sparse middle's
+rulebooks and the voxels, built on the host for each request batch) and
+``init_state`` (the optimizer and schedules of ``optimizer`` and
+``lr_config``, for parallel/train.py::make_train_step). The trainer, the
+datasets and ``train_detector`` / ``eval_detector`` are ROADMAP queue 1's
+later items.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ from det3d_tpu_torch.ops import sparse_host as sph
 from det3d_tpu_torch.ops.voxelize_host import (host_voxelize,
                                                host_voxelize_ref,
                                                stack_voxels)
+from det3d_tpu_torch.parallel.train import TrainState
+from det3d_tpu_torch.solver.optim import build_optimizer
+from det3d_tpu_torch.solver.schedules import build_lr_schedule
 
 
 def host_plan_fn(model, voxel_gen, train: bool = False,
@@ -38,10 +45,11 @@ def host_plan_fn(model, voxel_gen, train: bool = False,
     predict step takes as they are, and no ``point_lin`` / ``point_perm``.
     The serving process calls it in its request pre-processing, outside
     the device step. The builders are the C++ twins of csrc/hostplan.cc
-    (built with g++ at first use). ``train=True`` (inverse rulebooks) is
-    not ported."""
+    (built with g++ at first use). ``train=True`` (the inverse rulebooks
+    of the sparse backward) raises: ROADMAP queue 1, item 5."""
     if train:
-        raise NotImplementedError("training plans are not ported yet")
+        raise NotImplementedError(
+            "training plans (inverse rulebooks) are ROADMAP queue 1, item 5")
     return _plan_fn(model, voxel_gen, voxelize, sph.build_plan,
                     host_voxelize)
 
@@ -112,8 +120,9 @@ def build_stack(cfg, device="cuda"):
     """Build (model, voxel_gen, assigners, class_ids_per_task, test_cfg).
 
     The model is in eval mode on ``device`` (the card unless the caller
-    asks for the CPU; "cuda" without a card raises) with the modules'
-    default initial weights; load a state dict
+    asks for the CPU; "cuda" without a card raises; the train step puts it
+    in training mode for its own run) with the modules' default initial
+    weights; load a state dict
     (``utils/convert.py::from_jax``) or call
     ``models/builder.py::init_weights`` before serving. Readers, middles
     and necks run in the precision their config gives (fp32 or bf16); the
@@ -155,6 +164,9 @@ def build_stack(cfg, device="cuda"):
     fm = [1, grid[1] // osf, grid[0] // osf]
     for a in assigners:
         a.generate_anchors(fm)
+        if a.anchor_area_threshold >= 0:
+            a.prepare_anchors_mask(voxel_gen.voxel_size,
+                                   voxel_gen.point_cloud_range, grid)
 
     # global 1-based class ids per task, numbered over the flattened
     # class_names list
@@ -165,3 +177,20 @@ def build_stack(cfg, device="cuda"):
                           for t in tasks]
     return model, voxel_gen, assigners, class_ids_per_task, \
         cfg.get("test_cfg")
+
+
+def init_state(cfg, model, total_steps: int,
+               steps_per_epoch: int = 1) -> tuple:
+    """(TrainState, lr_fn) for ``model`` (built by ``build_stack``, its
+    weights loaded): the schedules of ``cfg["lr_config"]`` over
+    ``total_steps`` (the mmcv policies' base lr from
+    ``cfg["optimizer"]["VALUE"]["lr"]``) and the optimizer of
+    ``cfg["optimizer"]``, clipping gradients at a global norm of 35, as
+    the JAX package's init_state does (every shipped config's
+    ``optimizer_config`` says 35)."""
+    base_lr = cfg["optimizer"].get("VALUE", {}).get("lr")
+    lr_fn, mom_fn = build_lr_schedule(cfg["lr_config"], total_steps,
+                                      steps_per_epoch=steps_per_epoch,
+                                      base_lr=base_lr)
+    tx = build_optimizer(cfg["optimizer"], model, lr_fn, mom_fn)
+    return TrainState(model, tx), lr_fn

@@ -1,11 +1,10 @@
-"""Anchor grids (numpy, built once) and the box coder's decode (torch).
+"""Anchor grids (numpy, built once) and the box coder (torch).
 
 Port of det3d_tpu/core/anchors.py: ``_mesh_anchors``,
 ``create_anchors_3d_range``, ``AnchorGeneratorRange``,
 ``GroundBox3dCoder`` and ``build_box_coder``. Anchors depend only on the
 config and the feature-map size, so they are numpy arrays made at build
-time; the predict step moves them to the device once. Encoding waits for
-the training port.
+time; the steps move them to the device once.
 """
 
 from __future__ import annotations
@@ -88,7 +87,7 @@ class AnchorGeneratorRange:
 @BOX_CODERS.register_module(name="ground_box3d_coder")
 @dataclass
 class GroundBox3dCoder:
-    """SECOND ground-plane 3D box coder (decode only, torch)."""
+    """SECOND ground-plane 3D box coder (torch)."""
     linear_dim: bool = False
     vec_encode: bool = False
     n_dim: int = 7
@@ -97,6 +96,11 @@ class GroundBox3dCoder:
     @property
     def code_size(self) -> int:
         return self.n_dim + 1 if self.vec_encode else self.n_dim
+
+    def encode(self, boxes, anchors):
+        return box_ops.second_box_encode(
+            boxes, anchors, encode_angle_to_vector=self.vec_encode,
+            smooth_dim=self.linear_dim, norm_velo=self.norm_velo)
 
     def decode(self, encodings, anchors):
         return box_ops.second_box_decode(

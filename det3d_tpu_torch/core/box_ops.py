@@ -1,6 +1,8 @@
-"""3D box math on torch tensors: decode, corners, rotation, period wrap.
+"""3D box math on torch tensors: encode and decode, corners, rotation,
+period wrap, standup IoU.
 
-Port of det3d_tpu/core/box_ops.py (the functions the serving path needs).
+Port of det3d_tpu/core/box_ops.py (the functions serving and training
+need).
 The reference switches between numpy and jax per call; here every function
 takes and returns torch tensors and keeps the reference's arithmetic order,
 so results agree with it to rounding.
@@ -14,6 +16,51 @@ import numpy as np
 import torch
 
 from det3d_tpu_torch.core.voxelize import filled
+
+
+def second_box_encode(boxes, anchors, encode_angle_to_vector=False,
+                      smooth_dim=False, norm_velo=False):
+    """SECOND's box encoding of ``boxes`` against ``anchors``: center
+    offsets over the anchor's BEV diagonal, z over its height, dims as log
+    ratios (ratio - 1 with ``smooth_dim``), the angle as a residual or a
+    (cos, sin) difference, 9-dim boxes with velocity residuals. Port of
+    box_ops.second_box_encode; ``second_box_decode`` inverts it."""
+    ndim = anchors.shape[-1]
+    xa, ya, za = anchors[..., 0:1], anchors[..., 1:2], anchors[..., 2:3]
+    wa, la, ha = anchors[..., 3:4], anchors[..., 4:5], anchors[..., 5:6]
+    ra = anchors[..., ndim - 1:ndim]
+    xg, yg, zg = boxes[..., 0:1], boxes[..., 1:2], boxes[..., 2:3]
+    wg, lg, hg = boxes[..., 3:4], boxes[..., 4:5], boxes[..., 5:6]
+    rg = boxes[..., ndim - 1:ndim]
+
+    diagonal = torch.sqrt(la ** 2 + wa ** 2)
+    xt = (xg - xa) / diagonal
+    yt = (yg - ya) / diagonal
+    zt = (zg - za) / ha
+    if smooth_dim:
+        lt = lg / la - 1.0
+        wt = wg / wa - 1.0
+        ht = hg / ha - 1.0
+    else:
+        lt = torch.log(lg / la)
+        wt = torch.log(wg / wa)
+        ht = torch.log(hg / ha)
+    parts = [xt, yt, zt, wt, lt, ht]
+
+    if ndim > 7:
+        vxa, vya = anchors[..., 6:7], anchors[..., 7:8]
+        vxg, vyg = boxes[..., 6:7], boxes[..., 7:8]
+        if norm_velo:
+            parts.extend([(vxg - vxa) / diagonal, (vyg - vya) / diagonal])
+        else:
+            parts.extend([vxg - vxa, vyg - vya])
+
+    if encode_angle_to_vector:
+        parts.extend([torch.cos(rg) - torch.cos(ra),
+                      torch.sin(rg) - torch.sin(ra)])
+    else:
+        parts.append(rg - ra)
+    return torch.cat(parts, dim=-1)
 
 
 def second_box_decode(box_encodings, anchors, encode_angle_to_vector=False,
@@ -107,16 +154,33 @@ def limit_period(val, offset=0.5, period=np.pi):
     return val - torch.floor(val / period + offset) * period
 
 
-def iou_matrix(boxes, qboxes):
-    """Pairwise IoU of axis-aligned [x1, y1, x2, y2] boxes over a leading
-    batch dimension: (N, K, 4) x (N, M, 4) -> (N, K, M)."""
-    lt = torch.maximum(boxes[:, :, None, :2], qboxes[:, None, :, :2])
-    rb = torch.minimum(boxes[:, :, None, 2:4], qboxes[:, None, :, 2:4])
-    wh = torch.clamp(rb - lt, min=0.0)
+def iou_matrix(boxes, qboxes, eps=0.0):
+    """Pairwise IoU of axis-aligned [x1, y1, x2, y2] boxes over broadcast
+    leading dimensions: (..., K, 4) x (..., M, 4) -> (..., K, M). ``eps``
+    is added to every extent (box_np_ops.iou_jit's pixel convention; 0.0
+    for metric boxes). The JAX package's operations in its order."""
+    lt = torch.maximum(boxes[..., :, None, :2], qboxes[..., None, :, :2])
+    rb = torch.minimum(boxes[..., :, None, 2:4], qboxes[..., None, :, 2:4])
+    wh = torch.clamp(rb - lt + eps, min=0.0)
     inter = wh[..., 0] * wh[..., 1]
-    area_a = (boxes[..., 2] - boxes[..., 0]) * (boxes[..., 3] - boxes[..., 1])
-    area_b = (qboxes[..., 2] - qboxes[..., 0]) * (qboxes[..., 3]
-                                                  - qboxes[..., 1])
-    union = area_a[:, :, None] + area_b[:, None, :] - inter
+    area_a = ((boxes[..., 2] - boxes[..., 0] + eps)
+              * (boxes[..., 3] - boxes[..., 1] + eps))
+    area_b = ((qboxes[..., 2] - qboxes[..., 0] + eps)
+              * (qboxes[..., 3] - qboxes[..., 1] + eps))
+    union = area_a[..., :, None] + area_b[..., None, :] - inter
     return torch.where(union > 0,
                        inter / torch.where(union > 0, union, 1.0), 0.0)
+
+
+def rbbox2d_to_near_bbox(rbboxes):
+    """Rotated BEV boxes [x, y, w, l, r] -> their nearest axis-aligned
+    boxes [x1, y1, x2, y2]: w and l swap where the period-limited rotation
+    is nearer pi/2. Port of box_ops.rbbox2d_to_near_bbox."""
+    rots = rbboxes[..., -1]
+    rots_0_pi_div_2 = torch.abs(limit_period(rots, 0.5, np.pi))
+    cond = (rots_0_pi_div_2 > np.pi / 4)[..., None]
+    dims_swapped = torch.cat([rbboxes[..., 0:2], rbboxes[..., 3:4],
+                              rbboxes[..., 2:3]], dim=-1)
+    bboxes_center = torch.where(cond, dims_swapped, rbboxes[..., :4])
+    centers, dims = bboxes_center[..., :2], bboxes_center[..., 2:]
+    return torch.cat([centers - dims / 2, centers + dims / 2], dim=-1)

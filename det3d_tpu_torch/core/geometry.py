@@ -103,3 +103,26 @@ def polygon_area(corners):
     terms = corners[..., 0] * nxt[..., 1] - nxt[..., 0] * corners[..., 1]
     total = ((terms[..., 0] + terms[..., 1]) + terms[..., 2]) + terms[..., 3]
     return 0.5 * torch.abs(total)
+
+
+def rotated_iou_matrix(boxes, qboxes, criterion=-1):
+    """Pairwise rotated IoU / overlap of BEV boxes over broadcast leading
+    dimensions: (..., N, 5) x (..., K, 5) -> (..., N, K). ``criterion``
+    -1: intersection over union; 0: over the area of ``boxes``; 1: over
+    the area of ``qboxes``. Port of geometry.rotated_iou_matrix."""
+    ca = box_to_corners(boxes)[..., :, None, :, :]       # (..., N, 1, 4, 2)
+    cb = box_to_corners(qboxes)[..., None, :, :, :]      # (..., 1, K, 4, 2)
+    shape = torch.broadcast_shapes(ca.shape, cb.shape)
+    inter = rotated_intersection_area(ca.expand(shape), cb.expand(shape))
+    area_a = (boxes[..., 2] * boxes[..., 3])[..., :, None]
+    area_b = (qboxes[..., 2] * qboxes[..., 3])[..., None, :]
+    if criterion == -1:
+        denom = area_a + area_b - inter
+    elif criterion == 0:
+        denom = area_a.expand(inter.shape)
+    elif criterion == 1:
+        denom = area_b.expand(inter.shape)
+    else:
+        raise ValueError("criterion must be -1, 0 or 1")
+    return torch.where(denom > 0,
+                       inter / torch.where(denom > 0, denom, 1.0), 0.0)

@@ -202,7 +202,7 @@ class DenseConvBN(nn.Module):
             0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        y = self.norm(y, dtype)
+        y = self.norm(y, dtype=dtype)
         if self.relu:
             y = torch.relu(y)
         return y * occ_out[..., None].to(y.dtype)

@@ -1,8 +1,11 @@
 """Detector composition: reader -> backbone -> neck -> bbox_head.
 
 Port of det3d_tpu/models/detectors.py::PointPillars and ``VoxelNet``.
-``forward`` returns the head's raw predictions; ``predict`` decodes them,
-as in the reference, and ``predict_tta`` merges a double-flip batch.
+``forward`` returns the head's raw predictions; ``loss`` scores them
+against an example's targets, ``predict`` decodes them, as in the
+reference, and ``predict_tta`` merges a double-flip batch. The JAX
+package's ``train=True`` is ``model.train()``: BatchNorm on batch
+statistics.
 """
 
 from __future__ import annotations
@@ -36,6 +39,9 @@ class PointPillars(nn.Module):
         if self.neck is not None:
             x = self.neck(x)
         return self.bbox_head(x)
+
+    def loss(self, example, preds):
+        return self.bbox_head.loss(example, preds)
 
     def predict(self, example, preds, test_cfg=None):
         return self.bbox_head.predict(example, preds,

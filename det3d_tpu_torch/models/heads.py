@@ -1,10 +1,12 @@
-"""Multi-group anchor head: forward and fixed-shape prediction.
+"""Multi-group anchor head: forward, loss and fixed-shape prediction.
 
 Port of det3d_tpu/models/heads.py: ``TaskHead``, the ``MultiGroupHead``
-forward, ``_task_candidates`` (decode, sigmoid scores, score threshold),
+forward, the loss (``add_sin_difference``, ``get_direction_target``,
+``prepare_loss_weights``, ``create_loss``, ``MultiGroupHead.loss``),
+``_task_candidates`` (decode, sigmoid scores, score threshold),
 ``_nms_select`` (rotated NMS, direction fix, post-center range filter),
 ``predict``, the double-flip merge ``predict_tta`` and ``_merge_tasks``
-(the ``max_per_img`` cap). The loss waits for the training port.
+(the ``max_per_img`` cap).
 
 Head outputs keep the reference's NHWC layout (B, H, W, A_loc * code), so
 they flatten to (B, H*W*A_loc, code) in the anchors' (fz, fy, fx, loc)
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from det3d_tpu_torch.models.losses import build_loss
 from det3d_tpu_torch.models.registry import HEADS
 from det3d_tpu_torch.ops import nms as nms_ops
 from det3d_tpu_torch.core import box_ops
@@ -37,6 +40,95 @@ def conv1x1(conv: nn.Conv2d, x):
     y = F.conv2d(x, conv.weight.to(x.dtype)) + conv.bias.to(x.dtype)[:, None,
                                                                     None]
     return y.float()
+
+
+def one_hot_f(labels, depth, dtype=torch.float32):
+    """(...) int labels -> (..., depth) one-hot; a label outside [0,
+    depth) gives a zero row, as jax.nn.one_hot does (F.one_hot checks its
+    range on the host)."""
+    ids = torch.arange(depth, device=labels.device)
+    return (labels[..., None] == ids).to(dtype)
+
+
+def add_sin_difference(boxes1, boxes2):
+    """The angle channels become sin(a) cos(b) and cos(a) sin(b), whose
+    difference is sin(a - b)."""
+    rad_pred = torch.sin(boxes1[..., -1:]) * torch.cos(boxes2[..., -1:])
+    rad_tg = torch.cos(boxes1[..., -1:]) * torch.sin(boxes2[..., -1:])
+    return (torch.cat([boxes1[..., :-1], rad_pred], dim=-1),
+            torch.cat([boxes2[..., :-1], rad_tg], dim=-1))
+
+
+def get_direction_target(anchors, reg_targets, dir_offset=0.0, one_hot=True):
+    """The direction class (the target's yaw in [0, pi) or not, after
+    ``dir_offset``), one-hot unless ``one_hot`` is False."""
+    rot_gt = reg_targets[..., -1] + anchors[..., -1]
+    dir_cls = (box_ops.limit_period(rot_gt - dir_offset, 0.5, 2 * math.pi)
+               > 0).long()
+    if one_hot:
+        return one_hot_f(dir_cls, 2, dtype=reg_targets.dtype)
+    return dir_cls
+
+
+def prepare_loss_weights(labels, loss_norm, dtype=torch.float32):
+    """Class and box-regression weights of (B, A) labels under
+    ``loss_norm``'s normalization (NormByNumPositives, NormByNumExamples,
+    NormByNumPosNeg, DontNorm); returns (cls_weights, reg_weights,
+    cared)."""
+    norm_type = loss_norm.get("type", "NormByNumPositives")
+    pos_w = loss_norm.get("pos_cls_weight", 1.0)
+    neg_w = loss_norm.get("neg_cls_weight", 1.0)
+
+    cared = labels >= 0
+    positives = labels > 0
+    negatives = labels == 0
+    cls_weights = negatives.to(dtype) * neg_w + positives.to(dtype) * pos_w
+    reg_weights = positives.to(dtype)
+
+    if norm_type == "NormByNumExamples":
+        num_examples = torch.clamp(cared.to(dtype).sum(1, keepdim=True),
+                                   min=1.0)
+        cls_weights = cls_weights / num_examples
+        bbox_norm = positives.sum(1, keepdim=True).to(dtype)
+        reg_weights = reg_weights / torch.clamp(bbox_norm, min=1.0)
+    elif norm_type == "NormByNumPositives":
+        pos_norm = positives.sum(1, keepdim=True).to(dtype)
+        reg_weights = reg_weights / torch.clamp(pos_norm, min=1.0)
+        cls_weights = cls_weights / torch.clamp(pos_norm, min=1.0)
+    elif norm_type == "NormByNumPosNeg":
+        pos_neg = torch.stack([positives, negatives], dim=-1).to(dtype)
+        normalizer = pos_neg.sum(1, keepdim=True)               # (B, 1, 2)
+        cls_normalizer = torch.clamp((pos_neg * normalizer).sum(-1), min=1.0)
+        normalizer = torch.clamp(normalizer, min=1.0)
+        reg_weights = reg_weights / normalizer[:, 0:1, 0]
+        cls_weights = cls_weights / cls_normalizer
+    elif norm_type == "DontNorm":
+        pos_norm = positives.sum(1, keepdim=True).to(dtype)
+        reg_weights = reg_weights / torch.clamp(pos_norm, min=1.0)
+    else:
+        raise ValueError(f"unknown loss norm {norm_type}")
+    return cls_weights, reg_weights, cared
+
+
+def create_loss(loc_loss_ftor, cls_loss_ftor, box_preds, cls_preds,
+                cls_targets, cls_weights, reg_targets, reg_weights,
+                num_class, encode_background_as_zeros=True,
+                encode_rad_error_by_sin=True, box_code_size=7):
+    """Elementwise box and class losses of one task's NHWC predictions."""
+    batch = box_preds.shape[0]
+    box_preds = box_preds.reshape(batch, -1, box_code_size)
+    cls_preds = cls_preds.reshape(
+        batch, -1, num_class if encode_background_as_zeros else num_class + 1)
+    one_hot_targets = one_hot_f(cls_targets, num_class + 1,
+                              dtype=box_preds.dtype)
+    if encode_background_as_zeros:
+        one_hot_targets = one_hot_targets[..., 1:]
+    if encode_rad_error_by_sin:
+        box_preds, reg_targets = add_sin_difference(box_preds, reg_targets)
+    loc_losses = loc_loss_ftor(box_preds, reg_targets, weights=reg_weights)
+    cls_losses = cls_loss_ftor(cls_preds, one_hot_targets,
+                               weights=cls_weights)
+    return loc_losses, cls_losses
 
 
 class TaskHead(nn.Module):
@@ -64,8 +156,9 @@ class TaskHead(nn.Module):
 @HEADS.register_module
 class MultiGroupHead(nn.Module):
     """One TaskHead per task over a shared BEV feature map. Takes the
-    reference config's keys; the loss settings among them are accepted and
-    unused until the loss is ported."""
+    reference config's keys: the loss settings (``loss_norm``,
+    ``loss_cls``, ``loss_bbox``, ``loss_aux``, ``encode_rad_error_by_sin``)
+    build the losses of ``loss``."""
 
     def __init__(self, mode: str = "3d", in_channels: int = 128,
                  norm_cfg: Optional[dict] = None, tasks: Sequence[dict] = (),
@@ -85,6 +178,16 @@ class MultiGroupHead(nn.Module):
         self.encode_background_as_zeros = encode_background_as_zeros
         self.use_direction_classifier = loss_aux is not None
         self.direction_offset = float(direction_offset)
+        self.encode_rad_error_by_sin = encode_rad_error_by_sin
+        self.loss_norm = dict(loss_norm or dict(
+            type="NormByNumPositives", pos_cls_weight=1.0,
+            neg_cls_weight=1.0))
+        self.loss_cls = build_loss(loss_cls or dict(
+            type="SigmoidFocalLoss", alpha=0.25, gamma=2.0, loss_weight=1.0))
+        self.loss_bbox = build_loss(loss_bbox or dict(
+            type="WeightedSmoothL1Loss", sigma=3.0, codewise=True,
+            loss_weight=1.0))
+        self.loss_aux = build_loss(loss_aux) if loss_aux else None
         code_size = box_coder.code_size
         for t, (num_c, num_a) in enumerate(zip(self.num_classes,
                                                self.num_anchor_per_locs)):
@@ -116,6 +219,79 @@ class MultiGroupHead(nn.Module):
         return [getattr(self, f"task_{t}")(x) for t in range(len(self.tasks))]
 
     # ------------------------------------------------------------------
+    # loss
+    # ------------------------------------------------------------------
+    def loss(self, example: Dict[str, Any],
+             preds_dicts: List[dict]) -> Dict[str, list]:
+        """Each task's losses from the example's targets (``labels``,
+        ``reg_targets``, ``anchors``) and the head's predictions: a dict of
+        per-task lists with the keys ``loss``, ``cls_pos_loss``,
+        ``cls_neg_loss``, ``dir_loss_reduced``, ``cls_loss_reduced``,
+        ``loc_loss_reduced``, ``loc_loss_elem``, ``num_pos`` and
+        ``num_neg`` (the last two of the first sample)."""
+        batch_size = example["anchors"][0].shape[0]
+        pos_w = self.loss_norm.get("pos_cls_weight", 1.0)
+        neg_w = self.loss_norm.get("neg_cls_weight", 1.0)
+        rets = []
+        for task_id, preds in enumerate(preds_dicts):
+            num_class = self.num_classes[task_id]
+            labels = example["labels"][task_id]               # (B, A)
+            reg_targets = example["reg_targets"][task_id]     # (B, A, code)
+            cls_weights, reg_weights, cared = prepare_loss_weights(
+                labels, self.loss_norm)
+            cls_targets = labels * cared.to(labels.dtype)
+
+            loc_loss, cls_loss = create_loss(
+                self.loss_bbox, self.loss_cls, preds["box_preds"],
+                preds["cls_preds"], cls_targets, cls_weights, reg_targets,
+                reg_weights, num_class, self.encode_background_as_zeros,
+                self.encode_rad_error_by_sin, box_code_size=self.box_n_dim)
+
+            loc_loss_reduced = (loc_loss.sum() / batch_size
+                                * self.loss_bbox.loss_weight)
+            cls_loss_sum = cls_loss.sum() / batch_size
+            # the pos/neg split for logging
+            if cls_loss.dim() == 2 or cls_loss.shape[-1] == 1:
+                flat = cls_loss.reshape(batch_size, -1)
+                cls_pos_loss = ((labels > 0) * flat).sum() / batch_size
+                cls_neg_loss = ((labels == 0) * flat).sum() / batch_size
+            else:
+                cls_pos_loss = cls_loss[..., 1:].sum() / batch_size
+                cls_neg_loss = cls_loss[..., 0].sum() / batch_size
+            cls_pos_loss = cls_pos_loss / pos_w
+            cls_neg_loss = cls_neg_loss / neg_w
+            cls_loss_reduced = cls_loss_sum * self.loss_cls.loss_weight
+            loss = loc_loss_reduced + cls_loss_reduced
+
+            dir_loss_reduced = loc_loss_reduced.new_zeros(())
+            if self.use_direction_classifier:
+                anchors = example["anchors"][task_id].reshape(
+                    batch_size, -1, self.anchor_dim)
+                dir_targets = get_direction_target(
+                    anchors, reg_targets, dir_offset=self.direction_offset)
+                dir_logits = preds["dir_cls_preds"].reshape(batch_size, -1, 2)
+                weights = (labels > 0).to(dir_logits.dtype)
+                weights = weights / torch.clamp(
+                    weights.sum(-1, keepdim=True), min=1.0)
+                dir_loss = self.loss_aux(dir_logits, dir_targets,
+                                         weights=weights)
+                dir_loss_reduced = dir_loss.sum() / batch_size
+                loss = loss + dir_loss_reduced * self.loss_aux.loss_weight
+
+            rets.append({
+                "loss": loss,
+                "cls_pos_loss": cls_pos_loss,
+                "cls_neg_loss": cls_neg_loss,
+                "dir_loss_reduced": dir_loss_reduced,
+                "cls_loss_reduced": cls_loss_reduced,
+                "loc_loss_reduced": loc_loss_reduced,
+                "loc_loss_elem": loc_loss.sum(dim=(0, 1)) / batch_size,
+                "num_pos": (labels[0] > 0).sum(),
+                "num_neg": (labels[0] == 0).sum(),
+            })
+        return {k: [r[k] for r in rets] for k in rets[0]}
+
+    # ------------------------------------------------------------------
     # prediction (fixed shape)
     # ------------------------------------------------------------------
     def _task_candidates(self, example, preds, task_id, test_cfg):
@@ -139,6 +315,12 @@ class MultiGroupHead(nn.Module):
                                      device=cls_preds.device)
 
         total_scores = torch.sigmoid(cls_preds)
+        amask = example.get("anchors_mask")
+        if amask is not None and amask[task_id] is not None:
+            # predictions outside the anchor-area mask are pruned before NMS
+            total_scores = torch.where(
+                amask[task_id].reshape(batch, -1)[..., None], total_scores,
+                0.0)
         if use_multi_class and num_class > 1:
             # per-class NMS in one pass: each class is shifted to its own
             # far-away region so NMS cannot suppress across classes

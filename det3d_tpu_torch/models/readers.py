@@ -9,7 +9,9 @@ per-voxel point counts (B, V), zyx coords (B, V, 3). With
 every PFN layer runs in bf16, as the JAX package serves it: the linear's
 input and its fp32 weight are cast to bf16 for the call, the BN rounds its
 output to bf16, and the ReLU, the pillar max and the empty-pillar mask
-stay in bf16.
+stay in bf16. In training mode each PFN layer's BN takes its batch
+statistics over the real pillars' rows, their padded point slots
+included, as the reference's BN1d over its ragged collate does.
 """
 
 from __future__ import annotations
@@ -63,9 +65,12 @@ class PFNLayer(nn.Module):
         self.linear = nn.Linear(in_channels, out, bias=False)
         self.norm = build_norm(norm_cfg, out, dtype=self.dtype)
 
-    def forward(self, x):
+    def forward(self, x, pillar_mask):
+        """x: (B, V, T, C_in); pillar_mask: (B, V) bool, the real pillars
+        (the BN's rows in training)."""
         x = F.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
-        x = torch.relu(self.norm(x))                         # (B, V, T, U)
+        mask = pillar_mask[..., None].expand(x.shape[:-1])
+        x = torch.relu(self.norm(x, mask))                   # (B, V, T, U)
         x_max = x.amax(dim=2, keepdim=True)                  # (B, V, 1, U)
         if self.last_layer:
             return x_max
@@ -124,8 +129,9 @@ class PillarFeatureNet(nn.Module):
             feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
         features = torch.cat(feats, dim=-1) * maskf
 
+        pillar_mask = num_points > 0                         # (B, V)
         for i in range(self.num_layers):
-            features = getattr(self, f"pfn_{i}")(features)
+            features = getattr(self, f"pfn_{i}")(features, pillar_mask)
         out = features.squeeze(2)                            # (B, V, U)
         # empty pillar rows stay zero for the scatter
-        return out * (num_points > 0)[..., None].to(out.dtype)
+        return out * pillar_mask[..., None].to(out.dtype)

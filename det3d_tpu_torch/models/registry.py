@@ -7,3 +7,4 @@ BACKBONES = Registry("backbone")
 NECKS = Registry("neck")
 HEADS = Registry("head")
 DETECTORS = Registry("detector")
+LOSSES = Registry("loss")

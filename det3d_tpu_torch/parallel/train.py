@@ -1,0 +1,202 @@
+"""The train step and the validation-loss step, and the example both
+build: points -> voxels -> anchors and targets.
+
+Port of det3d_tpu/parallel/train.py: ``TrainState``, ``build_example``
+(voxelization, each task's anchors, the anchor-area mask and, with
+``with_targets``, target assignment), ``make_train_step`` and
+``make_loss_eval_step``, without the mesh (one card).
+
+The JAX train step is one jitted function of (state, batch); here the
+model holds the parameters and BatchNorm statistics and the optimizer
+(solver/optim.py) its moments and step count, all on the model's device.
+``train_step(batch) -> metrics`` voxelizes, assigns targets, runs the
+network in training mode (BatchNorm on batch statistics, running
+statistics updated), computes the head's losses, takes their gradients
+with ``torch.autograd.grad`` and applies the optimizer's update. On the
+card it is a ``CapturedStep`` (parallel/graph.py): the whole step,
+backward and update included, replays as one CUDA graph a batch
+signature; the learning rate and momentum come from the optimizer's
+count on the device. The pillar path only: a sparse middle's window conv
+has no backward yet (ROADMAP queue 1, item 5), and its step raises
+rather than train without its gradients.
+
+Batch layout (numpy arrays or tensors):
+  points (B, P, C) float32, num_points (B,) int32,
+  gt_boxes (B, G, nd) float32, gt_classes (B, G) int32 (global 1-based
+  ids), gt_valid (B, G) bool; host voxels as the predict step takes them.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+from det3d_tpu_torch.core.target import TargetAssigner
+from det3d_tpu_torch.core.voxelize import VoxelGenerator
+from det3d_tpu_torch.parallel.graph import stepper
+
+METRIC_KEYS = ("loc_loss_reduced", "cls_loss_reduced", "dir_loss_reduced",
+               "cls_pos_loss", "cls_neg_loss", "num_pos", "num_neg")
+
+
+class TrainState:
+    """What a train step advances: ``model`` (parameters and BatchNorm
+    statistics) and ``tx`` (solver/optim.py::Optimizer: moments and the
+    step count, ``step``)."""
+
+    def __init__(self, model, tx):
+        self.model, self.tx = model, tx
+
+    @property
+    def step(self) -> torch.Tensor:
+        return self.tx.count
+
+    def tensors(self):
+        """Every tensor the step updates in place."""
+        return (list(self.model.parameters()) + list(self.model.buffers())
+                + self.tx.state_tensors())
+
+
+def build_example(batch: Dict[str, Any], voxel_generator: VoxelGenerator,
+                  assigners: Sequence[TargetAssigner],
+                  class_ids_per_task: Optional[Sequence[Sequence[int]]] = None,
+                  with_targets: bool = False,
+                  generator: Optional[torch.Generator] = None
+                  ) -> Dict[str, Any]:
+    """Voxelize the batch (unless it already carries ``voxels``, the host
+    voxelized serving input), attach each task's anchors broadcast over the
+    batch, the anchor-area masks where an assigner sets
+    ``anchor_area_threshold >= 0`` and, with ``with_targets``, each task's
+    ``labels``, ``reg_targets`` and ``reg_weights`` from the batch's padded
+    gt (``class_ids_per_task``: each task's global class ids;
+    ``generator``: the draws of positive_fraction subsampling). All tensors
+    must be on one device."""
+    if "voxels" in batch:
+        vox = {"voxels": batch["voxels"], "coords": batch["coordinates"],
+               "num_points_per_voxel": batch["num_points_per_voxel"],
+               "num_voxels": batch["num_voxels"]}
+    else:
+        vox = voxel_generator.generate_batch(batch["points"],
+                                             batch["num_points"])
+    points = batch["points"]
+    b = points.shape[0]
+    example: Dict[str, Any] = {
+        "voxels": vox["voxels"],
+        "coordinates": vox["coords"],
+        "num_points_per_voxel": vox["num_points_per_voxel"],
+        "num_voxels": vox["num_voxels"],
+        "anchors": [],
+    }
+    if with_targets:
+        example.update({"labels": [], "reg_targets": [], "reg_weights": []})
+    use_amask = any(a.anchor_area_threshold >= 0 for a in assigners)
+    if use_amask:
+        example["anchors_mask"] = []
+
+    for t, assigner in enumerate(assigners):
+        anchors = assigner.anchors_on(points.device)
+        example["anchors"].append(anchors[None].expand(b, *anchors.shape))
+        amask = None
+        if assigner.anchor_area_threshold >= 0:
+            amask = assigner.anchors_mask(vox["coords"],
+                                          voxel_generator.grid_size)
+        if use_amask:
+            example["anchors_mask"].append(amask)
+        if with_targets:
+            labels, targets, weights = assigner.assign(
+                batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
+                class_ids=tuple(class_ids_per_task[t]), generator=generator,
+                anchors_mask=amask)
+            example["labels"].append(labels)
+            example["reg_targets"].append(targets)
+            example["reg_weights"].append(weights)
+    return example
+
+
+@contextlib.contextmanager
+def _mode(model, training: bool):
+    """The model in training (batch statistics) or eval mode, restored
+    after."""
+    was = model.training
+    model.train(training)
+    try:
+        yield
+    finally:
+        model.train(was)
+
+
+def _check_trainable(model):
+    backbone = getattr(model, "backbone", None)
+    if "SpMiddle" in type(backbone).__name__:
+        raise NotImplementedError(
+            f"make_train_step: the sparse middle {type(backbone).__name__} "
+            "has no backward for its window convs yet (ROADMAP queue 1, "
+            "item 5: the sparse-conv backward and training plans); the "
+            "port trains the pillar path only")
+
+
+def network_loss(model, example):
+    """The head's losses on the example, and their total."""
+    preds = model(example["voxels"], example["num_points_per_voxel"],
+                  example["coordinates"])
+    losses = model.loss(example, preds)
+    return sum(losses["loss"]), losses
+
+
+def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
+                    assigners: Sequence[TargetAssigner],
+                    class_ids_per_task: Sequence[Sequence[int]],
+                    generator: Optional[torch.Generator] = None) -> Callable:
+    """Returns ``train_step(batch) -> metrics``: one optimizer step of
+    ``state`` (apis/train.py::init_state) on the batch. Metrics, 0-d fp32
+    tensors: ``loss`` (the sum over tasks), ``grad_norm`` (the gradients'
+    global norm before clipping), ``num_voxels`` (the batch mean) and
+    ``{key}_task{t}`` for each of METRIC_KEYS.
+
+    On a CUDA model the step is a CapturedStep (``train_step.eager`` the
+    same step run eagerly; the capture's warm-up leaves the state as it
+    was); on a CPU model (the caller asked for the CPU) it runs eagerly.
+    Raises for a model with a sparse middle."""
+    model, tx = state.model, state.tx
+    _check_trainable(model)
+    params = list(model.parameters())
+    device = params[0].device
+
+    def run(batch):
+        with torch.no_grad():
+            example = build_example(batch, voxel_generator, assigners,
+                                    class_ids_per_task, with_targets=True,
+                                    generator=generator)
+        with _mode(model, True), torch.enable_grad():
+            total, losses = network_loss(model, example)
+            grads = torch.autograd.grad(total, params)
+        grad_norm = tx.update(grads)
+        metrics = {"loss": total.detach(), "grad_norm": grad_norm,
+                   "num_voxels": example["num_voxels"].float().mean()}
+        for k in METRIC_KEYS:
+            for t, v in enumerate(losses[k]):
+                metrics[f"{k}_task{t}"] = v.detach().float()
+        return metrics
+
+    return stepper(run, device, state.tensors)
+
+
+def make_loss_eval_step(model, voxel_generator: VoxelGenerator,
+                        assigners: Sequence[TargetAssigner],
+                        class_ids_per_task: Sequence[Sequence[int]]
+                        ) -> Callable:
+    """Returns ``loss_step(batch) -> {"loss": tensor}``: the validation
+    loss with BatchNorm on its running statistics, nothing updated (the
+    reference workflow's ``('val', 1)``). Captured on a CUDA model."""
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def run(batch):
+        example = build_example(batch, voxel_generator, assigners,
+                                class_ids_per_task, with_targets=True)
+        with _mode(model, False):
+            return {"loss": network_loss(model, example)[0]}
+
+    return stepper(run, device)

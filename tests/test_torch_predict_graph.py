@@ -1,4 +1,4 @@
-"""The predict step as CUDA graphs (parallel/predict.py::CapturedStep), the
+"""The predict step as CUDA graphs (parallel/graph.py::CapturedStep), the
 counterpart of the JAX package's ``jax.jit(step_fn)``, and what a capture
 needs of the step.
 
@@ -7,7 +7,9 @@ sizes, makes no tensor from host data and reads no device value back
 (checked under a dispatch mode, the kernels' plain versions excepted: on
 the card the kernels replace them), fed as it is served from host data,
 from points alone (device voxels and plans) and with double-flip TTA; a
-CPU model gets the eager step.
+CPU model gets the eager step. The same lint holds the pillar paths'
+train step (parallel/train.py: target assignment, forward, backward and
+the optimizer's update) and its loss-eval step.
 
 On the card (marker ``cuda``; they skip elsewhere from a fixture, so that
 every worker collects the same tests; run them with
@@ -32,7 +34,8 @@ from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
 from det3d_tpu_torch.models import backbones
 from det3d_tpu_torch.models.builder import init_weights
 from det3d_tpu_torch.ops import nms as nms_ops
-from det3d_tpu_torch.parallel.predict import CapturedStep, make_predict_step
+from det3d_tpu_torch.parallel.graph import CapturedStep
+from det3d_tpu_torch.parallel.predict import make_predict_step
 from det3d_tpu_torch.utils.synth import structured_batch
 
 torch.set_num_threads(2)
@@ -168,6 +171,51 @@ def test_device_fed_step_makes_no_host_round_trip(name, feed, monkeypatch):
     the device voxelizer, the device rulebook builders and the TTA merge
     make no host round trip either."""
     no_host_round_trip(name, monkeypatch, feed)
+
+
+# the pillar paths' train step and validation-loss step
+# (parallel/train.py), with kitti_car_pointpillars.py's optimizer
+TRAIN_CFG = dict(optimizer=dict(TYPE="adam", VALUE=dict(amsgrad=0.0,
+                                                        wd=0.01),
+                                FIXED_WD=True),
+                 lr_config=dict(type="one_cycle", lr_max=0.003,
+                                moms=[0.95, 0.85], div_factor=10.0,
+                                pct_start=0.4))
+
+
+def train_steps(name, device):
+    """(train step, loss-eval step, training scans, train state) of a
+    pillar path at its cut size on ``device``, weights from
+    torch.Generator().manual_seed(0)."""
+    from det3d_tpu_torch.apis.train import init_state
+    from det3d_tpu_torch.parallel.train import (make_loss_eval_step,
+                                                make_train_step)
+    cfg = dict(path_config(name), **TRAIN_CFG)
+    model, vg, asg, cids, _ = build_stack(cfg, device="cpu")
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device)
+    state, _ = init_state(cfg, model, 20)
+    scans = cs.train_scene(2, 2000, cfg["voxel_generator"]["range"])
+    return (make_train_step(state, vg, asg, cids),
+            make_loss_eval_step(model, vg, asg, cids), scans, state)
+
+
+@pytest.mark.parametrize("name", ["flagship", "kitti_pp"])
+def test_train_step_makes_no_host_round_trip(name):
+    """test_step_makes_no_host_round_trip for the train step (target
+    assignment, forward, backward, the clip, the schedules and the
+    optimizer's update on the device count) and the loss-eval step."""
+    train, loss_eval, scans, _ = train_steps(name, "cpu")
+    data = {k: torch.as_tensor(v) for k, v in scans.items()}
+    train.eager(data)
+    loss_eval.eager(data)
+    mode = HostRoundTrips()
+    with mode:
+        metrics = train.eager(data)
+        loss = loss_eval.eager(data)
+    assert not mode.found, sorted(set(mode.found))
+    assert bool(torch.isfinite(metrics["loss"])) and bool(
+        torch.isfinite(loss["loss"]))
 
 
 def test_cpu_model_gets_the_eager_step():
@@ -323,3 +371,43 @@ def test_failed_capture_raises(dev):
     with pytest.raises(RuntimeError):
         step.capture(batch)
     assert not step.graphs
+
+
+# the captured train step against the eager one: two copies of one model
+CAPTURED_TRAIN_STEPS = 4
+CAPTURED_TRAIN_REL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship", "kitti_pp"])
+def test_captured_train_step_follows_eager(dev, name):
+    """One copy of a pillar path's model trained by the eager step, one by
+    the captured step (one graph, captured once; its warm-up leaves the
+    state as it was), on the same batch: after CAPTURED_TRAIN_STEPS steps
+    every parameter within a relative L2 of CAPTURED_TRAIN_REL (a backward
+    may sum in another order from one replay to the next), the step counts
+    equal; the eager step, after its first call, never waits for the
+    card. The loss-eval step's captured loss equals its eager one."""
+    eager, _, scans, s_eager = train_steps(name, dev)
+    captured, loss_eval, _, s_captured = train_steps(name, dev)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in scans.items()}
+    for i in range(CAPTURED_TRAIN_STEPS):
+        if i:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager.eager(data)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out = captured(scans)
+        assert len(captured.graphs) == 1
+        assert bool(torch.isfinite(out["loss"]))
+    assert int(s_eager.step) == int(s_captured.step) == CAPTURED_TRAIN_STEPS
+    for a, b in zip(s_eager.tensors(), s_captured.tensors()):
+        if a.dtype.is_floating_point:
+            err = float((a - b).float().norm())
+            assert err <= CAPTURED_TRAIN_REL * float(a.float().norm()), err
+        else:
+            assert torch.equal(a, b)
+    ref = loss_eval.eager(data)["loss"]
+    assert torch.allclose(loss_eval(scans)["loss"], ref, rtol=1e-5, atol=0)
