@@ -22,7 +22,7 @@ one): run them on two checkouts in turns on one card (parent, change,
 change, parent) to compare two versions of a kernel on the same
 yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
 and KITTI-all from points and under TTA) or only the training phases
-53-57.
+53-62.
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -38,7 +38,8 @@ with its captured step's (46), then 13; then, with every serving stack
 freed, Lyft and KITTI-all from points and under TTA (51, 52), and the
 pillar path's training (53 to 57: targets, one step card vs CPU, timing,
 overfit, validation loss) for KITTI car PointPillars (bf16, B=2) and
-the flagship (fp32, B=8). It prints its running time at the end.
+the flagship (fp32, B=8), then the sparse middles' training (58 to 62)
+for SECOND (B=4) and CBGS (B=2). It prints its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
 CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
@@ -282,6 +283,30 @@ captured. Phases 39-46 drive the captured step itself.
      printed and finite, the last 5 below the first 5;
  57. make_loss_eval_step captured on the card against the CPU (bf16
      models also with an fp32 reader and neck);
+ 58. the window conv's backward kernels against their plain twins at
+     every conv of SECOND's (B=4 x 16384 points) and CBGS's (B=2 x
+     300000) middles, on their host training plans: dW
+     (csrc/window_conv_bwd.cu) within 1e-4 and bit-equal on a second
+     call, the subm dX (the forward kernel, mirrored and transposed
+     weights) and the strided dX over the inverse rulebook within 1e-4;
+     each one's time a call, on the device, the twin's, and its bound;
+ 59. training plans: host_plan_fn(train=True) equal to the numpy build
+     and to the device voxels and build_plan_device(train=True) on the
+     card, key for key (the inverse rulebooks inv{i} among them);
+ 60. SECOND's train step (configs/kitti_car_second.py as shipped, fp32 in
+     training, B=4) from host training plans: one eager step card vs CPU
+     (the loss, the head's gradients within SPARSE_HEAD_REL, every other
+     within SPARSE_GRAD_REL), the window-conv launches of an eager step
+     (10 forward, 6 subm dX, 3 inverse dX, 10 dW), 4 captured steps
+     against 4 eager ones (cuDNN deterministic), timing as 55, a 30-step
+     captured overfit;
+ 61. SECOND fed points alone (the training plan built on the card in the
+     step) against the host-fed step, and one captured step;
+ 62. CBGS (configs/nusc_cbgs_voxelnet.py, fp32 in training; B=2, cut from
+     its samples_per_gpu=16 to keep this script inside its time limit):
+     card vs CPU on the +-12.8 m cut, launches (11 / 8 / 2 / 11), captured
+     vs eager, from points, timing; each with its convolutions' device
+     time by input shape (conv_shape_table);
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -3206,9 +3231,13 @@ TRAIN_CLEAR, TRAIN_CLEAR_ABS = 1e-3, 1e-5
 
 
 def train_config(key):
-    """The config dict of a trained model: KITTI car PointPillars as
-    shipped, or the flagship with kitti_car_pointpillars.py's optimizer,
-    lr_config and optimizer_config."""
+    """The config dict of a trained model: KITTI car PointPillars, SECOND
+    or CBGS as shipped, or the flagship with kitti_car_pointpillars.py's
+    optimizer, lr_config and optimizer_config."""
+    if key == "second":
+        return second_config()
+    if key == "cbgs":
+        return cbgs_config()
     kitti = pp_config(KITTI_PP_CFG)
     if key == "kitti_pp":
         return kitti
@@ -3220,10 +3249,14 @@ def train_config(key):
 @functools.lru_cache(maxsize=None)
 def train_weights(key):
     """Calibrated random weights (calibrated_state): KITTI car
-    PointPillars' of phase 20, the flagship's calibrated on the card on
-    its first structured scan."""
+    PointPillars' of phase 20, SECOND's and CBGS's of phases 7 and 14, the
+    flagship's calibrated on the card on its first structured scan."""
     if key == "kitti_pp":
         return pp_state(KITTI_PP_CFG)
+    if key == "second":
+        return second_state()
+    if key == "cbgs":
+        return cbgs_state()
     from det3d_tpu_torch.utils.synth import structured_batch
     cfg = train_config(key)
     return calibrated_state(cfg, structured_batch(
@@ -3410,10 +3443,11 @@ def phase_train_step(dev, key, name, batch, smi):
         raise AssertionError(f"{label}: metric keys differ")
 
 
-def phase_train_timing(dev, key, name, batch, smi):
+def phase_train_timing(dev, key, name, batch, smi, label=None,
+                       warmup=WARMUP, repeat=REPEAT):
     """Phase 55: ms/step of the train step at full width, eager and
     captured, from the numpy batch and from the card (interleaved_ms: e c c
-    e, WARMUP warm-ups, median of REPEAT); the split into target
+    e, ``warmup`` warm-ups, median of ``repeat``); the split into target
     assignment, forward (and loss), backward and optimizer, each timed
     alone by CUDA events; the captured step's device busy share
     (torch.profiler over 5 replays); peak memory of the eager step and of
@@ -3423,7 +3457,7 @@ def phase_train_timing(dev, key, name, batch, smi):
     from det3d_tpu_torch.parallel.train import (build_example,
                                                 make_train_step,
                                                 network_loss)
-    label = f"phase 55 {name}"
+    label = label or f"phase 55 {name}"
     model, vg, asg, cids, state = train_stack(key, dev)
     step = make_train_step(state, vg, asg, cids)
     data_d = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
@@ -3439,9 +3473,10 @@ def phase_train_timing(dev, key, name, batch, smi):
     torch.cuda.synchronize()
     peak_c = torch.cuda.memory_reserved() - reserved
     ms = interleaved_ms({"eager": lambda: step.eager(batch),
-                         "captured": lambda: step(batch)})
+                         "captured": lambda: step(batch)}, repeat, warmup)
     on_card = interleaved_ms({"eager": lambda: step.eager(data_d),
-                              "captured": lambda: step(data_d)})
+                              "captured": lambda: step(data_d)}, repeat,
+                             warmup)
     params = list(model.parameters())
 
     def example():
@@ -3451,15 +3486,16 @@ def phase_train_timing(dev, key, name, batch, smi):
     ex = example()
     model.train()
     try:
-        fwd = cuda_ms(lambda: network_loss(model, ex))
+        fwd = cuda_ms(lambda: network_loss(model, ex), warmup, repeat)
         fwd_bwd = cuda_ms(lambda: torch.autograd.grad(
-            network_loss(model, ex)[0], params))
+            network_loss(model, ex)[0], params), warmup, repeat)
         grads = torch.autograd.grad(network_loss(model, ex)[0], params)
     finally:
         model.eval()
-    split = {"targets": cuda_ms(example), "forward": fwd,
+    split = {"targets": cuda_ms(example, warmup, repeat), "forward": fwd,
              "backward": fwd_bwd - fwd,
-             "optimizer": cuda_ms(lambda: state.tx.update(grads))}
+             "optimizer": cuda_ms(lambda: state.tx.update(grads), warmup,
+                                  repeat)}
     wall, kernels = profile_steps(lambda: step(data_d), 5)
     busy = log_profile(f"{label} captured", wall, kernels, 5,
                        batch["points"].shape[0], smi)
@@ -3471,7 +3507,7 @@ def phase_train_timing(dev, key, name, batch, smi):
         f"{on_card['eager']:.3f}, captured {on_card['captured']:.3f} "
         f"[{smi}]")
     log(f"{label} split, each part alone (CUDA events, median of "
-        f"{REPEAT}): target assignment {split['targets']:.3f} ms, forward "
+        f"{repeat}): target assignment {split['targets']:.3f} ms, forward "
         f"and loss {split['forward']:.3f}, backward {split['backward']:.3f}, "
         f"optimizer {split['optimizer']:.3f} (sum "
         f"{sum(split.values()):.3f}); device busy in the captured step "
@@ -3486,22 +3522,27 @@ def phase_train_timing(dev, key, name, batch, smi):
             "peak": (peak_e, peak_c)}
 
 
-def phase_overfit(dev, key, name, smi):
+def phase_overfit(dev, key, name, smi, label=None):
     """Phase 56: OVERFIT_STEPS captured steps on one fixed scene
-    (train_batch, seed SEED + 1) with the OneCycle schedule over those
-    steps; the loss of every step printed. Passes when every loss is
-    finite and the mean of the last 5 lies below the mean of the first
-    5."""
+    (train_batch, seed SEED + 1; a sparse path's SPARSE_TRAIN scene with
+    its host training plan) with the OneCycle schedule over those steps;
+    the loss of every step printed. Passes when every loss is finite and
+    the mean of the last 5 lies below the mean of the first 5."""
     from det3d_tpu_torch.parallel.graph import CapturedStep
     from det3d_tpu_torch.parallel.train import make_train_step
-    label = f"phase 56 {name}"
+    label = label or f"phase 56 {name}"
     model, vg, asg, cids, state = train_stack(key, dev, OVERFIT_STEPS)
     step = make_train_step(state, vg, asg, cids)
     if not isinstance(step, CapturedStep):
         raise AssertionError(f"{label}: the step is not captured")
     pc = train_config(key)["voxel_generator"]["range"]
-    scene = train_scene(B if key == "flagship" else 2, TRAIN_POINTS, pc,
-                        TRAIN_GT, TRAIN_MAX_GT, seed=SEED + 1)
+    sparse = {k: (b, p) for k, _, b, p in SPARSE_TRAIN}
+    if key in sparse:
+        scene = with_train_plan(key, sparse_train_scene(
+            key, sparse[key][0], pc, sparse[key][1], seed=SEED + 1))
+    else:
+        scene = train_scene(B if key == "flagship" else 2, TRAIN_POINTS, pc,
+                            TRAIN_GT, TRAIN_MAX_GT, seed=SEED + 1)
     losses = [float(step(scene)["loss"]) for _ in range(OVERFIT_STEPS)]
     first, last = (statistics.mean(losses[:5]),
                    statistics.mean(losses[-5:]))
@@ -3548,7 +3589,9 @@ def phase_loss_eval(dev, key, name, batch):
 
 
 def training_phases(dev, smi):
-    """Phases 53-57 for each of TRAIN_PATHS, then the timing summary."""
+    """Phases 53-57 for each of TRAIN_PATHS, then the timing summary, then
+    the sparse middles' phases 58-62. Returns the kernels' JSON entries of
+    the sparse train steps."""
     times = {}
     for key, name, b in TRAIN_PATHS:
         batch = train_batch(key, b)
@@ -3568,6 +3611,522 @@ def training_phases(dev, smi):
             f"{t['peak'][0] / 2**30:.2f} GiB, captured pool reserved "
             f"{t['peak'][1] / 2**30:.2f} GiB; "
             f"window-conv and NMS launches on the train step: 0 [{smi}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sparse_training_phases(dev, smi)
+
+
+# ---------------------------------------------------------------------------
+# Training the sparse middles (phases 58-62)
+# ---------------------------------------------------------------------------
+
+# the sparse train steps: kitti_car_second.py as shipped at its
+# samples_per_gpu=4, and nusc_cbgs_voxelnet.py as shipped at B=2 (its
+# samples_per_gpu is 16: cut to 2 to keep this script inside its time
+# limit), both on train_scene scans, fed host training plans
+SPARSE_TRAIN = (("second", "SECOND", 4, POINTS),
+                ("cbgs", "CBGS", CBGS_B, CBGS_POINTS))
+# the window-conv kernels' launches in one eager train step: forward,
+# subm dX (the forward kernel; the stem's input needs no gradient), the
+# strided convs' dX over the inverse rulebook, dW
+TRAIN_LAUNCHES = {"second": {"window_conv": 10, "window_conv_subm_dx": 6,
+                             "window_conv_inv": 3, "window_conv_dw": 10},
+                  "cbgs": {"window_conv": 11, "window_conv_subm_dx": 8,
+                           "window_conv_inv": 2, "window_conv_dw": 11}}
+BWD_TOL = dict(rtol=1e-4, atol=1e-4)    # backward kernels vs plain, fp32
+CAPTURED_REL = 1e-4                     # captured vs eager train steps
+# one sparse train step card vs CPU (and from points vs from host plans),
+# relative L2 of each gradient. The head's gradients agree within 1.9e-5;
+# below it the RPN's and the middle's training BN backward amplifies any
+# change of a conv's rounding: on the card alone, cuDNN off against on
+# moves CBGS's gradients up to 1.6e-2 (median 9e-3), two runs of one
+# setting 2e-6 (H100 80GB HBM3 at 700 W, see PERF.md). So the head is held
+# at SPARSE_HEAD_REL, every other gradient at SPARSE_GRAD_REL.
+SPARSE_HEAD_REL = 1e-4
+SPARSE_GRAD_REL = 5e-2
+# from points against from host plans on the card, relative L2 of each
+# gradient: the plans are equal and the device's fused voxel means within
+# MEAN_TOL of the host's; measured 2.7e-7 (SECOND) and 2.7e-6 (CBGS),
+# where two runs of one step differ by up to 2e-6 (cuDNN's wgrad_alg1_nd
+# sums with atomics)
+POINTS_REL = 1e-4
+EAGER_STEPS = 4
+# the sparse steps' timing (phase_train_timing): 200-470 ms a step, so
+# fewer rounds than the pillar steps' WARMUP / REPEAT
+SPARSE_WARMUP, SPARSE_REPEAT = 2, 8
+
+
+def bwd_counters():
+    """The launch counters of the window conv's four kernel paths."""
+    from det3d_tpu_torch.ops import window_conv_cuda as wc
+    return {n: getattr(wc, n) for n in TRAIN_LAUNCHES["second"]}
+
+
+def launch_counts():
+    return {n: f.launches for n, f in bwd_counters().items()}
+
+
+def reset_launches():
+    for f in bwd_counters().values():
+        f.launches = 0
+
+
+def sparse_train_scene(key, b, pc_range, points, seed=SEED):
+    """train_scene scans for a sparse path: CBGS's with a fifth point
+    feature (the sweep time, zero) and 9-dim gt boxes (velocities zero)."""
+    scene = train_scene(b, points, pc_range, TRAIN_GT, TRAIN_MAX_GT,
+                        seed=seed)
+    if key == "cbgs":
+        scene["points"] = np.concatenate(
+            [scene["points"], np.zeros_like(scene["points"][..., :1])], -1)
+        gt = np.zeros(scene["gt_boxes"].shape[:2] + (9,), np.float32)
+        gt[..., :7] = scene["gt_boxes"]
+        scene["gt_boxes"] = gt
+    return scene
+
+
+def with_train_plan(key, scene, cfg=None, ref=False):
+    """The scene with the host training plan and host voxels of
+    host_plan_fn(train=True, voxelize=True) (host_plan_ref_fn with
+    ``ref``), as a trainer's input pipeline builds them."""
+    from det3d_tpu_torch.apis.train import (build_stack, host_plan_fn,
+                                            host_plan_ref_fn)
+    model, vg = build_stack(cfg or train_config(key), device="cpu")[:2]
+    fn = (host_plan_ref_fn if ref else host_plan_fn)(model, vg, train=True,
+                                                     voxelize=True)
+    return dict(scene, **fn(scene["points"], scene["num_points"]))
+
+
+def bwd_cases(plan, dev, layers):
+    """conv_cases of a sparse middle's training plan, each with its
+    inverse rulebook (strided convs), a random dy and the kernel's
+    (kz, ky, kx) and stride."""
+    g = torch.Generator().manual_seed(1)
+    out = []
+    for (name, x, pk, w, subm), (key, *_) in zip(
+            conv_cases(plan, dev, torch.float32, layers), layers):
+        inv = (None if subm else torch.as_tensor(
+            plan[f"plan_inv{key[4:]}"], device=dev).contiguous())
+        dy = torch.randn(pk.shape[0], pk.shape[1], w.shape[-1],
+                         generator=g).to(dev)
+        out.append((name, x, pk, w, subm, inv, dy))
+    return out
+
+
+def bwd_work(x, pk, w, subm, dy, words, dw_ws):
+    """(bytes, flops) of each backward path at one layer: the forward's
+    products (conv_work) over the same (row, tap) pairs; bytes: dW reads
+    the rows the taps reach, the plan and dy (the forward's output size)
+    and writes dW (the weights' size), and its workspace (``dw_ws`` bytes)
+    once each way: conv_work's bytes plus the workspace; dX reads dy, its
+    rulebook's ``words`` (the inverse's for a strided conv) and the
+    weights and writes dX."""
+    nbytes, flops, _ = conv_work(x, pk, w, subm)
+    dx = (dy.numel() * 4 + words.numel() * 4 + w.numel() * 4
+          + x.numel() * 4)
+    return {"dw": (nbytes + 2 * dw_ws, flops), "dx": (dx, flops)}
+
+
+def phase_bwd_kernels(dev, plan, layers, label, smi):
+    """Phase 58: the backward kernels against their plain twins on a
+    training plan, at every conv of a sparse middle: dW (window_conv_dw,
+    both conv kinds) within BWD_TOL of window_conv_dw_ref (dy scaled by
+    1/sqrt(B*O), so that dW is of order one) and bit-equal on a second
+    call; dX of the subm convs after the stem (window_conv_subm_dx, the
+    forward kernel) within BWD_TOL of window_conv_ref with mirrored,
+    transposed weights; dX of the strided convs (window_conv_inv) within
+    BWD_TOL of window_conv_inv_ref. Each kernel's time: a call from Python
+    (cuda_ms), on the device (graph_ms), the twin's, and the bound.
+    Returns {kernel: {"err", "ms", "device", "plain", "bound_ms",
+    "bound_by"}} summed over the layers."""
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops.window_conv_cuda import (
+        dw_chunks, window_conv_dw, window_conv_inv, window_conv_subm_dx)
+    tot = {k: {"err": 0.0, "ms": 0.0, "device": 0.0, "plain": 0.0,
+               "bytes": 0, "flops": 0} for k in ("dw", "subm_dx", "inv")}
+    for name, x, pk, w, subm, inv, dy in bwd_cases(plan, dev, layers):
+        b, o, k = pk.shape
+        r0, pres = sp.unpack_windows(pk, 3)
+        dys = dy / (b * o) ** 0.5
+        kvol = w.shape[0]
+        nch = -(-b * o // dw_chunks(b * o, kvol))
+        work = bwd_work(x, pk, w, subm, dy, pk if subm else inv,
+                        nch * w.numel() * 4)
+        got = window_conv_dw(x, pk, dys, subm)
+        again = window_conv_dw(x, pk, dys, subm)
+        ref = sp.window_conv_dw_ref(x, r0, pres, dys, subm)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        if not torch.allclose(got, ref, **BWD_TOL):
+            raise AssertionError(f"{label} {name}: dW kernel vs plain {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} {name}: dW differs between two "
+                                 f"calls")
+        runs = [("dw", lambda: window_conv_dw(x, pk, dys, subm),
+                 lambda: sp.window_conv_dw_ref(x, r0, pres, dys, subm),
+                 err, work["dw"])]
+        if subm and w.shape[1] >= 16:
+            wt = w.flip(0).transpose(1, 2).contiguous()
+            got = window_conv_subm_dx(dy, pk, w)
+            ref = sp.window_conv_ref(dy, r0, pres, wt, True)
+            kind = "subm_dx"
+            plain = (lambda: sp.window_conv_ref(dy, r0, pres, wt, True))
+            fn = (lambda: window_conv_subm_dx(dy, pk, w))
+        elif not subm:
+            v = x.shape[1]
+            geo = ((3, 3, 3) if k == 9 else (3, 1, 1),
+                   (2, 2, 2) if k == 9 else (2, 1, 1))
+            r0i, presi, par = sp.unpack_inverse(inv, 2)
+            got = window_conv_inv(dy, inv, w, *geo, v)
+            ref = sp.window_conv_inv_ref(dy, r0i, presi, par, w, *geo)
+            kind = "inv"
+            plain = (lambda: sp.window_conv_inv_ref(dy, r0i, presi, par, w,
+                                                    *geo))
+            fn = (lambda: window_conv_inv(dy, inv, w, *geo, v))
+        else:
+            kind = None
+        if kind:
+            torch.cuda.synchronize()
+            if not bool(ref.abs().max() > 0):
+                raise AssertionError(f"{label} {name}: {kind} is all zero")
+            e = float((got - ref).abs().max())
+            if not torch.allclose(got, ref, **BWD_TOL):
+                raise AssertionError(f"{label} {name}: {kind} kernel vs "
+                                     f"plain {e}")
+            runs.append((kind, fn, plain, e, work["dx"]))
+        for kind, fn, plain, e, (nbytes, flops) in runs:
+            t = tot[kind]
+            ms, dev_ms = cuda_ms(fn), graph_ms(fn)
+            p_ms = cuda_ms(plain, warmup=1, repeat=3)
+            b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+            t["err"] = max(t["err"], e)
+            t["ms"] += ms
+            t["device"] += dev_ms
+            t["plain"] += p_ms
+            t["bytes"] += nbytes
+            t["flops"] += flops
+            log(f"{label} {kind} {name} B={b} O={o}: kernel vs plain max "
+                f"abs err {e:.2e} (tolerance {BWD_TOL})"
+                + (", bit-equal on a second call" if kind == "dw" else "")
+                + f"; a call {ms:.4f} ms, on the device {dev_ms:.4f} ms, "
+                f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB) [{smi}]")
+    for kind, t in tot.items():
+        t["bound_ms"], t["bound_by"] = bound(t.pop("bytes"), t.pop("flops"),
+                                             FP32_FLOPS)
+        log(f"{label} {kind} over the middle's layers: a call {t['ms']:.4f} "
+            f"ms, device {t['device']:.4f} ms, plain {t['plain']:.3f} ms, "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max abs err "
+            f"{t['err']:.2e} [{smi}]")
+    return tot
+
+
+def phase_train_plans(dev, key, name, scene, data):
+    """Phase 59: the training plans of a sparse path's scene: the native
+    host build (host_plan_fn(train=True), in ``data``) equal to the numpy
+    build (host_plan_ref_fn) in every key, and the device voxels and
+    build_plan_device(train=True) on the card equal to the host's, the
+    inverse rulebooks inv{i} among the keys."""
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.models.backbones import (build_plan_device,
+                                                  middle_plan_spec)
+    label = f"phase 59 {name}"
+    t = time.perf_counter()
+    ref = with_train_plan(key, scene, ref=True)
+    t = time.perf_counter() - t
+    for k in data:
+        if not np.array_equal(np.asarray(data[k]), np.asarray(ref[k])):
+            raise AssertionError(f"{label}: native {k} differs from numpy's")
+    inv = sorted(k for k in data if k.startswith("plan_inv"))
+    model, vg = build_stack(train_config(key), device="cpu")[:2]
+    spec = middle_plan_spec(model.backbone, vg.grid_size, vg.max_voxels)
+    pts = torch.as_tensor(scene["points"], device=dev)
+    n = torch.as_tensor(scene["num_points"], device=dev)
+    vox = vg.generate_batch(pts, n)
+    plan = build_plan_device(vox["coords"], spec, train=True)
+    check_voxels(vox, data, label)
+    want = sorted(k[5:] for k in data if k.startswith("plan_"))
+    if sorted(plan) != want:
+        raise AssertionError(f"{label}: device plan keys {sorted(plan)}, "
+                             f"host {want}")
+    for k, v in plan.items():
+        if not np.array_equal(v.cpu().numpy(), data[f"plan_{k}"]):
+            raise AssertionError(f"{label}: device plan {k} differs")
+    log(f"{label} training plans B={pts.shape[0]}: native host build equal "
+        f"to numpy's in all {len(data)} keys (numpy {t:.1f} s), device "
+        f"voxels and build_plan_device(train=True) equal to the host's in "
+        f"all {len(plan)} plan keys, inverse rulebooks {inv}")
+
+
+def grads_rel(gd, gc_, names):
+    """{name: relative L2 of the card's gradient against the CPU's}."""
+    return {n: rel_l2(a, b) for n, a, b in zip(names, gd, gc_)}
+
+
+def zero_grad_bias(names):
+    """Conv biases that feed a training-mode BN: their gradient is zero in
+    exact arithmetic (the BN subtracts the batch mean), so what either
+    side computes is rounding, compared by its size alone."""
+    return {n for n in names if n.endswith(".bias") and ".norm." not in n
+            and "Conv" in n and "backbone" in n}
+
+
+def phase_sparse_step(dev, key, name, data, smi, cut=None):
+    """Phase 60 (62 CBGS): one eager train step on the card and on the
+    CPU from the same weights and host training plan (``cut``: the CPU
+    comparison on that (config, batch) instead): the loss within
+    TRAIN_LOSS_REL, every gradient within TRAIN_GRAD_REL relative L2 but
+    the conv biases before a training BN (zero_grad_bias), which must be
+    below 1e-4 of their layer's weight gradient; the stem's figure
+    printed. Then on the full batch the window-conv kernels' launches of
+    one eager step (TRAIN_LAUNCHES). Returns the launch counts."""
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = f"phase {60 if key == 'second' else 62} {name}"
+    cfg, batch = cut or (train_config(key), data)
+    runs = {}
+    for device in (dev, "cpu"):
+        model, vg, asg, cids, state = train_stack(key, device, cfg=cfg)
+        seen = spy_grads(state)
+        t = time.perf_counter()
+        m = make_train_step(state, vg, asg, cids).eager(batch)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        runs[str(device)] = (m, seen[0], model, time.perf_counter() - t)
+    (md, gd, model_d, t_d), (mc, gc_, model_c, t_c) = (runs[str(dev)],
+                                                       runs["cpu"])
+    names = [n for n, _ in model_c.named_parameters()]
+    errs = grads_rel(gd, gc_, names)
+    zb = zero_grad_bias(names)
+    norms = {n: float(g.norm()) for n, g in zip(names, gc_)}
+    bias_worst = max((max(float(a.norm()), float(b.norm()))
+                      / max(norms[n.rsplit(".", 1)[0] + ".weight"], 1e-30), n)
+                     for n, a, b in zip(names, gd, gc_) if n in zb) \
+        if zb else (0.0, None)
+    checked = {n: e for n, e in errs.items() if n not in zb}
+    worst = max(checked, key=checked.get)
+    head = {n: e for n, e in checked.items() if n.startswith("bbox_head")}
+    head_worst = max(head, key=head.get)
+    stem = [n for n in names if "SparseConvBN_0.weight" in n][0]
+    loss_err = abs(float(md["loss"]) - float(mc["loss"])) / abs(
+        float(mc["loss"]))
+    log(f"{label} one train step B={batch['points'].shape[0]} card (eager, "
+        f"{t_d * 1e3:.1f} ms with its first call's set-up) vs CPU "
+        f"({t_c:.2f} s): loss {float(md['loss']):.6f} / "
+        f"{float(mc['loss']):.6f} (rel err {loss_err:.2e}, tolerance "
+        f"{TRAIN_LOSS_REL}); gradients relative L2 worst "
+        f"{checked[worst]:.3e} ({worst}), median "
+        f"{statistics.median(checked.values()):.3e}, the sparse stem's "
+        f"weight {errs[stem]:.3e} (tolerance {SPARSE_GRAD_REL}); the head's "
+        f"worst {head[head_worst]:.3e} ({head_worst}; tolerance "
+        f"{SPARSE_HEAD_REL}); "
+        f"{len(zb)} conv biases before a training BN at most "
+        f"{bias_worst[0]:.2e} of their weight gradient's norm [{smi}]")
+    if loss_err > TRAIN_LOSS_REL:
+        raise AssertionError(f"{label}: loss card vs CPU {loss_err}")
+    if checked[worst] > SPARSE_GRAD_REL:
+        raise AssertionError(f"{label}: gradient {worst} card vs CPU "
+                             f"{checked[worst]}")
+    if head[head_worst] > SPARSE_HEAD_REL:
+        raise AssertionError(f"{label}: head gradient {head_worst} card vs "
+                             f"CPU {head[head_worst]}")
+    if bias_worst[0] > 1e-4:
+        raise AssertionError(f"{label}: gradient of {bias_worst[1]} is not "
+                             f"zero: {bias_worst[0]}")
+    if cut is not None:
+        model, vg, asg, cids, state = train_stack(key, dev)
+        make_train_step(state, vg, asg, cids).eager(data)
+    reset_launches()
+    model, vg, asg, cids, state = train_stack(key, dev)
+    m = make_train_step(state, vg, asg, cids).eager(data)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"{label} launches of one eager train step B="
+        f"{data['points'].shape[0]}: {counts} (expected "
+        f"{TRAIN_LAUNCHES[key]}); loss {float(m['loss']):.4f}")
+    if counts != TRAIN_LAUNCHES[key]:
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{TRAIN_LAUNCHES[key]}")
+    if not bool(torch.isfinite(m["loss"])):
+        raise AssertionError(f"{label}: loss not finite")
+    return counts
+
+
+def phase_captured_train(dev, key, name, data, smi):
+    """Phase 60 (62): EAGER_STEPS captured steps (make_train_step as a user
+    calls it) against as many eager steps from the same weights: loss and
+    grad_norm of every step within CAPTURED_REL. Both run with cuDNN's
+    deterministic algorithms: its default weight gradient of the fp32
+    conv3d tail (wgrad_alg1_nd) sums with atomics in an order that changes
+    from run to run, and Adam turns the near-zero gradients that moves into
+    steps of the learning rate (two eager runs drift apart as far)."""
+    from det3d_tpu_torch.parallel.graph import CapturedStep
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = f"phase {60 if key == 'second' else 62} {name}"
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    for how in ("eager", "captured"):
+        model, vg, asg, cids, state = train_stack(key, dev)
+        step = make_train_step(state, vg, asg, cids)
+        if not isinstance(step, CapturedStep):
+            raise AssertionError(f"{label}: the step is not captured")
+        run = step.eager if how == "eager" else step
+        out[how] = [{k: float(v) for k, v in run(data).items()
+                     if k in ("loss", "grad_norm")}
+                    for _ in range(EAGER_STEPS)]
+        del model, state, step
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    worst = max(abs(c[k] - e[k]) / max(abs(e[k]), 1e-12)
+                for e, c in zip(out["eager"], out["captured"])
+                for k in ("loss", "grad_norm"))
+    log(f"{label} captured vs eager over {EAGER_STEPS} steps: losses "
+        + " / ".join(f"{e['loss']:.6f} {c['loss']:.6f}"
+                     for e, c in zip(out["eager"], out["captured"]))
+        + f"; loss and grad_norm worst rel err {worst:.2e} (tolerance "
+        f"{CAPTURED_REL}; cuDNN deterministic) [{smi}]")
+    if worst > CAPTURED_REL:
+        raise AssertionError(f"{label}: captured vs eager {worst}")
+
+
+def phase_points_train(dev, key, name, scene, data, smi):
+    """Phase 61 (62): the train step fed points alone (device voxels and
+    build_plan_device(train=True) inside the step) against the step fed
+    the host plan, one eager step each from the same weights: the loss
+    within TRAIN_LOSS_REL and every gradient within POINTS_REL (the plans
+    are equal, phase 59); then one captured step from points."""
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = f"phase {61 if key == 'second' else 62} {name} from points"
+    grads, losses = [], []
+    for batch in (data, scene):
+        model, vg, asg, cids, state = train_stack(key, dev)
+        seen = spy_grads(state)
+        losses.append(float(make_train_step(state, vg, asg, cids).eager(
+            batch)["loss"]))
+        grads.append(seen[0])
+        names = [n for n, _ in model.named_parameters()]
+    zb = zero_grad_bias(names)
+    errs = {n: e for n, e in grads_rel(grads[1], grads[0], names).items()
+            if n not in zb}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(losses[1] - losses[0]) / abs(losses[0])
+    model, vg, asg, cids, state = train_stack(key, dev)
+    step = make_train_step(state, vg, asg, cids)
+    cap = float(step(scene)["loss"])
+    log(f"{label}: one eager step from points vs from the host plan, loss "
+        f"{losses[1]:.6f} / {losses[0]:.6f} (rel err {loss_err:.2e}), "
+        f"gradients worst relative L2 {errs[worst]:.2e} ({worst}), median "
+        f"{statistics.median(errs.values()):.2e} (tolerance "
+        f"{POINTS_REL}); a captured step from points: loss {cap:.6f} "
+        f"[{smi}]")
+    if loss_err > TRAIN_LOSS_REL or errs[worst] > POINTS_REL:
+        raise AssertionError(f"{label}: from points vs host plan: loss "
+                             f"{loss_err}, {worst} {errs[worst]}")
+    if not np.isfinite(cap):
+        raise AssertionError(f"{label}: captured loss not finite")
+
+
+def conv_shape_table(run, label, smi, top=10):
+    """The convolutions of one eager step by input shapes under
+    torch.profiler (record_shapes): the forward (aten::convolution) and
+    the backward (aten::convolution_backward: dgrad and wgrad in one op)
+    of each cuDNN conv, device ms a step, largest first. It names the
+    shapes at which cuDNN's fp32 algorithms (TF32 off) take the step's
+    time; routes around them are a later change."""
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.key in ("aten::convolution", "aten::convolution_backward"):
+            t = getattr(e, "device_time_total",
+                        getattr(e, "cuda_time_total", 0.0)) / 1e3
+            rows.append((t, e.count, e.key, str(e.input_shapes)[:110]))
+    total = sum(r[0] for r in rows)
+    log(f"{label} convolutions of one eager step by input shape "
+        f"(torch.profiler): {total:.3f} ms in all [{smi}]")
+    for t, n, key, shapes in sorted(rows, reverse=True)[:top]:
+        log(f"{label}   {t:8.3f} ms x{n:<3d} {key[6:]:22s} {shapes}")
+
+
+def sparse_training_phases(dev, smi):
+    """Phases 58-62: the backward kernels against their twins (58) and
+    the training plans (59) of SECOND and CBGS, SECOND's train step from
+    host plans (60: card vs CPU, launches, captured vs eager, timing, the
+    overfit) and from points (61), CBGS's step (62: card vs CPU on the
+    +-CBGS_CUT m cut, launches, captured vs eager, from points, timing).
+    Returns the kernels' JSON entries."""
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv_dw,
+                                                      window_conv_inv)
+    from det3d_tpu_torch.parallel.train import make_train_step
+    layers = {"second": SECOND_LAYERS, "cbgs": CBGS_LAYERS}
+    kern, launches, times = {}, {}, {}
+    for key, name, b, points in SPARSE_TRAIN:
+        pc = train_config(key)["voxel_generator"]["range"]
+        scene = sparse_train_scene(key, b, pc, points)
+        data = with_train_plan(key, scene)
+        kern[key] = phase_bwd_kernels(dev, data, layers[key],
+                                      f"phase 58 {name}", smi)
+        phase_train_plans(dev, key, name, scene, data)
+        cut = None
+        if key == "cbgs":
+            ccfg = cbgs_config(cut=True)
+            cscene = sparse_train_scene(key, b, ccfg["voxel_generator"][
+                "range"], 60000)
+            cut = (ccfg, with_train_plan(key, cscene, cfg=ccfg))
+        launches[key] = phase_sparse_step(dev, key, name, data, smi, cut)
+        phase_captured_train(dev, key, name, data, smi)
+        phase_points_train(dev, key, name, scene, data, smi)
+        label = f"phase {60 if key == 'second' else 62} {name}"
+        times[key] = phase_train_timing(dev, key, name, data, smi,
+                                        label=label, warmup=SPARSE_WARMUP,
+                                        repeat=SPARSE_REPEAT)
+        model, vg, asg, cids, state = train_stack(key, dev)
+        step = make_train_step(state, vg, asg, cids)
+        conv_shape_table(lambda: step.eager(data), label, smi)
+        del model, state, step
+        if key == "second":
+            phase_overfit(dev, key, name, smi, label=f"phase 60 {name}")
+        gc.collect()
+        torch.cuda.empty_cache()
+    for key, name, b, _ in SPARSE_TRAIN:
+        t = times[key]
+        log(f"sparse train steps: {name} B={b} from host plans: eager "
+            f"{t['eager']:.3f} ms/step, captured {t['captured']:.3f}; from "
+            f"the card eager {t['on_card']['eager']:.3f}, captured "
+            f"{t['on_card']['captured']:.3f}; split {t['split']}; memory: "
+            f"eager peak {t['peak'][0] / 2**30:.2f} GiB, captured pool "
+            f"reserved {t['peak'][1] / 2**30:.2f} GiB; window-conv launches "
+            f"a step {launches[key]} [{smi}]")
+    src = dict(route="cuda", source="det3d_tpu_torch/csrc/window_conv_bwd.cu",
+               replaces="det3d_tpu/ops/sparse.py:883", library_ms=None)
+    out = []
+    for key, _, _, _ in SPARSE_TRAIN:
+        for kind, fn, rep in (("dw", window_conv_dw,
+                               "det3d_tpu/ops/sparse.py:883"),
+                              ("inv", window_conv_inv,
+                               "det3d_tpu/ops/sparse.py:1033")):
+            t = kern[key][kind]
+            out.append(dict(
+                src, name=fn.__name__, replaces=rep, path=f"{key}_train",
+                dtype="fp32", launches=launches[key][fn.__name__],
+                max_abs_err=t["err"], ms=t["ms"], device_ms=t["device"],
+                plain_ms=t["plain"], bound_ms=t["bound_ms"],
+                bound_by=t["bound_by"]))
+        t = kern[key]["subm_dx"]
+        out.append(dict(
+            name="window_conv", route="cuda",
+            source="det3d_tpu_torch/csrc/window_conv.cu",
+            replaces="det3d_tpu/ops/band_conv.py:216",
+            path=f"{key}_train_subm_dx", dtype="fp32",
+            launches=launches[key]["window_conv_subm_dx"],
+            max_abs_err=t["err"], ms=t["ms"], device_ms=t["device"],
+            plain_ms=t["plain"], bound_ms=t["bound_ms"],
+            bound_by=t["bound_by"], library_ms=None))
+    return out
 
 
 def conv_timing_main(tree, prec, paths):
@@ -3933,7 +4492,7 @@ def main():
     ap.add_argument("--only", choices=("points", "train"),
                     help="run phase 1, the build and only phases 51-52 "
                     "(Lyft and KITTI-all from points and under TTA) or "
-                    "only the training phases 53-57")
+                    "only the training phases 53-62")
     ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
                     "--build-timing: the checkout whose det3d_tpu_torch to "
                     "time (default: this one)")
@@ -3965,7 +4524,7 @@ def main():
         phase_fp32_points(dev, path, phase, smi)
         gc.collect()
         torch.cuda.empty_cache()
-    training_phases(dev, smi)
+    kernels += training_phases(dev, smi)
     log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
         f"device check, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,26 +44,25 @@ def host_plan_fn(model, voxel_gen, train: bool = False,
     the example's ``voxels`` / ``coordinates`` / ... keys, which the
     predict step takes as they are, and no ``point_lin`` / ``point_perm``.
     The serving process calls it in its request pre-processing, outside
-    the device step. The builders are the C++ twins of csrc/hostplan.cc
-    (built with g++ at first use). ``train=True`` (the inverse rulebooks
-    of the sparse backward) raises: ROADMAP queue 1, item 5."""
-    if train:
-        raise NotImplementedError(
-            "training plans (inverse rulebooks) are ROADMAP queue 1, item 5")
-    return _plan_fn(model, voxel_gen, voxelize, sph.build_plan,
+    the device step, and a trainer in its input pipeline. The builders are
+    the C++ twins of csrc/hostplan.cc (built with g++ at first use).
+    ``train=True`` adds each strided conv's inverse rulebook
+    (``plan_inv{i}``), which the train step's backward reads."""
+    return _plan_fn(model, voxel_gen, voxelize, train, sph.build_plan,
                     host_voxelize)
 
 
-def host_plan_ref_fn(model, voxel_gen, voxelize: bool = False):
+def host_plan_ref_fn(model, voxel_gen, train: bool = False,
+                     voxelize: bool = False):
     """``host_plan_fn`` with the numpy builders, the plain versions
     (``ops/sparse_host.py::build_plan_ref``,
     ``ops/voxelize_host.py::host_voxelize_ref``): the same arrays. The
     tests and chip_smoke.py hold ``host_plan_fn`` to it."""
-    return _plan_fn(model, voxel_gen, voxelize, sph.build_plan_ref,
+    return _plan_fn(model, voxel_gen, voxelize, train, sph.build_plan_ref,
                     host_voxelize_ref)
 
 
-def _plan_fn(model, voxel_gen, voxelize, build_plan, voxelize_one):
+def _plan_fn(model, voxel_gen, voxelize, train, build_plan, voxelize_one):
     backbone = getattr(model, "backbone", None)
     sparse_mid = ("SpMiddle" in type(backbone).__name__
                   and voxel_gen.effective_order in ("hashed", "yxz"))
@@ -85,7 +84,7 @@ def _plan_fn(model, voxel_gen, voxelize, build_plan, voxelize_one):
               pc_range=tuple(voxel_gen.point_cloud_range),
               grid_size=tuple(voxel_gen.grid_size),
               max_voxels=int(voxel_gen.max_voxels),
-              order=voxel_gen.effective_order, spec=spec)
+              order=voxel_gen.effective_order, spec=spec, train=train)
 
     def fn(points, num_points):
         points = np.asarray(points)

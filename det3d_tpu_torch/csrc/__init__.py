@@ -32,7 +32,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
 
-CUDA_SOURCES = ("rotated_nms", "window_conv")       # *.cu, nvcc
+CUDA_SOURCES = ("rotated_nms", "window_conv",       # *.cu, nvcc
+                "window_conv_bwd")
 HOST_SOURCES = ("hostplan",)                        # *.cc, g++
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 

@@ -4,7 +4,9 @@ CBGS sparse middles.
 Port of det3d_tpu/models/backbones.py: ``PointPillarsScatter``, and
 ``SpMiddleFHD`` and ``SpMiddleResNetFHD`` with their layers
 (``SparseConvBN``, ``DenseConvBN``, ``SparseBasicBlock``,
-``DenseBasicBlock``) for serving, from a host plan or, without one, from
+``DenseBasicBlock``), for serving and training (``module.train()``: BN
+on the batch statistics of the active rows, the strided convs' backward
+over their inverse rulebooks), from a host plan or, without one, from
 the plan ``build_plan_device`` builds on the device. The canvas keeps the
 reference's NHWC layout, (B, ny, nx, C). Padded rows (coords -1) are
 dropped before every scatter, where the reference sends them to an
@@ -47,7 +49,7 @@ class PointPillarsScatter(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# The SECOND and CBGS sparse middles, plan-fed serving
+# The SECOND and CBGS sparse middles
 # ---------------------------------------------------------------------------
 
 from det3d_tpu_torch.models.norm import build_norm  # noqa: E402
@@ -93,14 +95,16 @@ def middle_plan_spec(middle, input_shape, max_voxels):
 
 class SparseConvBN(nn.Module):
     """Sparse conv over a packed window rulebook, optional bias, BN and
-    optional ReLU; evaluation.
+    optional ReLU.
 
     The conv runs in ``precision``, or in the ``dtype`` a call passes (its
-    operands cast to it, fp32 sums, fp32 output): the CUDA kernel for card
-    tensors, its plain twin for CPU tensors (ops/window_conv_cuda.py).
-    Bias (added before the BN, as the JAX package does), BN and ReLU run
-    in fp32. The weight keeps the JAX package's (kz*ky*kx, Cin, Cout)
-    z-major layout."""
+    operands cast to it, fp32 sums, fp32 output): the CUDA kernels for
+    card tensors, their plain twins for CPU tensors
+    (ops/window_conv_cuda.py::window_conv, differentiable; a strided conv
+    takes its ``inverse`` rulebook for its dX). Bias (added before the BN,
+    as the JAX package does), BN and ReLU run in fp32; in training the
+    BN's batch statistics cover the rows ``valid`` selects. The weight
+    keeps the JAX package's (kz*ky*kx, Cin, Cout) z-major layout."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
@@ -116,13 +120,15 @@ class SparseConvBN(nn.Module):
                      else None)
         self.norm = build_norm(norm_cfg, out_channels)
 
-    def forward(self, x, packed, center_shift: bool, dtype=None):
+    def forward(self, x, packed, center_shift: bool, dtype=None,
+                valid=None, inverse=None):
         dt = dtype or self.dtype
         y = window_conv(x.to(dt).contiguous(), packed.contiguous(),
-                        self.weight.to(dt).contiguous(), center_shift)
+                        self.weight.to(dt).contiguous(), center_shift,
+                        inverse)
         if self.bias is not None:
             y = y + self.bias
-        y = self.norm(y)
+        y = self.norm(y, mask=valid)
         return torch.relu(y) if self.relu else y
 
 
@@ -130,7 +136,7 @@ class SparseBasicBlock(nn.Module):
     """Residual block of two biased submanifold convs on one rulebook, the
     second without ReLU, then relu(x + y), all in fp32 (the convs' BN
     leaves fp32). Port of det3d_tpu/models/backbones.py::SparseBasicBlock
-    (reference scn.py:46-89), evaluation."""
+    (reference scn.py:46-89)."""
 
     def __init__(self, channels: int, norm_cfg: Optional[dict] = None,
                  precision: str = "fp32"):
@@ -141,9 +147,9 @@ class SparseBasicBlock(nn.Module):
                                            precision, use_bias=True,
                                            relu=False)
 
-    def forward(self, x, packed, dtype=None):
-        y = self.SparseConvBN_0(x, packed, True, dtype)
-        y = self.SparseConvBN_1(y, packed, True, dtype)
+    def forward(self, x, packed, dtype=None, valid=None):
+        y = self.SparseConvBN_0(x, packed, True, dtype, valid)
+        y = self.SparseConvBN_1(y, packed, True, dtype, valid)
         return torch.relu(x + y)
 
 
@@ -156,8 +162,9 @@ COUT_CHUNK = 64
 
 
 class DenseConvBN(nn.Module):
-    """Dense-tail twin of SparseConvBN: conv3d, optional bias, BN, optional
-    ReLU, re-zeroed off the active sites; evaluation.
+    """Dense-tail twin of SparseConvBN: conv3d, optional bias, BN (in
+    training on the statistics of the active sites), optional ReLU,
+    re-zeroed off the active sites.
 
     Tensors are NDHWC; the conv runs on NCDHW views of them. The conv is
     PyTorch's conv3d (the JAX package leaves this one to XLA, outside any
@@ -202,7 +209,7 @@ class DenseConvBN(nn.Module):
             0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        y = self.norm(y, dtype=dtype)
+        y = self.norm(y, mask=occ_out, dtype=dtype)
         if self.relu:
             y = torch.relu(y)
         return y * occ_out[..., None].to(y.dtype)
@@ -212,7 +219,7 @@ class DenseBasicBlock(nn.Module):
     """Dense-tail twin of SparseBasicBlock: two biased DenseConvBNs, then
     relu(x + y) in the activation dtype (bf16 when serving bf16), re-masked
     by the occupancy. Port of det3d_tpu/models/backbones.py::
-    DenseBasicBlock, evaluation."""
+    DenseBasicBlock."""
 
     def __init__(self, channels: int, norm_cfg: Optional[dict] = None,
                  precision: str = "fp32"):
@@ -276,41 +283,48 @@ def _res0_lookup(coords, shape0, pre_ranked):
 
 
 def _stage_rulebooks(coords, shape, kernel, stride, padding, max_out,
-                     in_lookup, build_subm):
+                     in_lookup, build_subm, build_inverse=False):
     """One downsample stage on the device: the output coords
     (conv_out_coords, the low-z prefix kept under ``max_out``), reordered
-    into the new resolution's rank order, its bitmap and subm window
-    rulebook when ``build_subm``, and the down conv's window rulebook over
-    the input bitmap. Port of backbones.py::_stage_rulebooks, its sorted
-    branch without the inverse rulebook.
+    into the new resolution's rank order, its bitmap when ``build_subm``
+    or ``build_inverse``, its subm window rulebook when ``build_subm``, the
+    down conv's window rulebook over the input bitmap and, with
+    ``build_inverse``, the down conv's packed inverse rulebook over the
+    output bitmap. Port of backbones.py::_stage_rulebooks, its sorted
+    branch.
 
     Rows go into rank order at every stage, also at one that builds no
     lookup (the dense tail's transition, the sparse z conv), where the
     JAX package's evaluation keeps conv_out_coords' zyx order: the host
     plan's order, which that stage's consumers (to_dense, the BEV scatter)
     do not see. Returns (coords, (r0, pres) down, (r0, pres) subm or None,
-    out shape, bitmap or None)."""
+    out shape, bitmap or None, packed inverse or None)."""
     out_co, oshape = sp.conv_out_coords(coords, shape, kernel, stride,
                                         padding, max_out)
     order = sp.yxz_order(out_co, oshape)
     out_co = torch.gather(out_co, 1, order[..., None].expand(-1, -1, 3))
-    lookup = subm = None
-    if build_subm:
+    lookup = subm = inverse = None
+    if build_subm or build_inverse:
         lookup = sp.build_bitmap_batch(out_co, oshape)
+    if build_subm:
         subm = sp.subm_window_rulebook_batch(out_co, oshape, 3, lookup)
     down = sp.conv_window_rulebook_batch(shape, out_co, kernel, stride,
                                          padding, in_lookup)
-    return out_co, down, subm, oshape, lookup
+    if build_inverse:
+        inv = sp.strided_inverse_rulebook_batch(coords, kernel, stride,
+                                                padding, lookup, oshape)
+        inverse = None if inv is None else sp.pack_inverse(*inv)
+    return out_co, down, subm, oshape, lookup, inverse
 
 
-def build_plan_device(coords, spec):
+def build_plan_device(coords, spec, train: bool = False):
     """The packed rulebook plan of (B, V, 3) voxel coords, built on the
     device: the keys of ops/sparse_host.py::build_plan without ``plan_``
-    (order0 when not pre_ranked, s0, co{i}, down{i}, subm{i}), int32, equal
-    to the host plan array for array. Plain PyTorch with fixed shapes and
-    no host round trip, so a captured step holds it. Port of
-    backbones.py::build_plan_device for evaluation (no inverse
-    rulebooks)."""
+    (order0 when not pre_ranked, s0, co{i}, down{i}, subm{i}, and with
+    ``train`` the inverse rulebooks inv{i}), int32, equal to the host plan
+    array for array. Plain PyTorch with fixed shapes and no host round
+    trip, so a captured step holds it. Port of
+    backbones.py::build_plan_device."""
     shape0 = tuple(spec["shape0"])
     plan = {}
     order0, co, lookup = _res0_lookup(coords, shape0, spec["pre_ranked"])
@@ -320,9 +334,11 @@ def build_plan_device(coords, spec):
         *sp.subm_window_rulebook_batch(co, shape0, 3, lookup))
     shape = shape0
     for i, st in enumerate(spec["stages"], start=1):
-        co, down, subm, shape, lookup = _stage_rulebooks(
+        co, down, subm, shape, lookup, inverse = _stage_rulebooks(
             co, shape, st["kernel"], st["stride"], st["padding"], st["cap"],
-            lookup, st["subm"])
+            lookup, st["subm"], train)
+        if inverse is not None:
+            plan[f"inv{i}"] = inverse
         plan[f"co{i}"] = sp.linearize(co, shape).to(torch.int32)
         plan[f"down{i}"] = sp.pack_windows(*down)
         if st["subm"]:
@@ -330,15 +346,20 @@ def build_plan_device(coords, spec):
     return plan
 
 
-def _serving_plan(middle, coords, input_shape, plan):
-    """(plan, dtype of the call): the host plan with the layers' own dtype
-    (``serve_precision`` when set), or without one the device-built plan
-    and ``precision``'s dtype, as the JAX package computes its middles in
-    ``serve_precision`` only when a plan is given."""
+def _plan_and_dtype(middle, coords, input_shape, plan):
+    """(plan, dtype of the call). Serving from a host plan: the layers'
+    own dtype (``serve_precision`` when set). Without a plan the middle
+    builds it on the device (a training plan in training) and computes in
+    ``precision``, as the JAX package computes its middles in
+    ``serve_precision`` only when a plan is given; in training it computes
+    in ``precision`` from a host plan too (JAX: ``serving = plan is not
+    None and not train``)."""
+    dt = middle.plain_dtype if middle.training else None
     if plan is not None:
-        return plan, None
+        return plan, dt
     spec = middle_plan_spec(middle, input_shape, coords.shape[1])
-    return build_plan_device(coords, spec), middle.plain_dtype
+    return (build_plan_device(coords, spec, train=middle.training),
+            middle.plain_dtype)
 
 
 def _res0_with_plan(voxel_features, coords, pre_ranked, plan):
@@ -356,10 +377,19 @@ def _res0_with_plan(voxel_features, coords, pre_ranked, plan):
 
 def _plan_stage(plan, i, in_shape, kernel, stride, padding):
     """Stage ``i`` of a packed plan: (coords (B, cap, 3), down rulebook,
-    subm rulebook or None, out shape)."""
+    subm rulebook or None, out shape, the down conv's inverse: (packed
+    inverse rulebook, kernel, stride) or None when the plan has none)."""
     oshape = sp.out_spatial_shape(in_shape, kernel, stride, padding)
     co = sp.delinearize(plan[f"co{i}"], oshape)
-    return co, plan[f"down{i}"], plan.get(f"subm{i}"), oshape
+    inv = plan.get(f"inv{i}")
+    inverse = (None if inv is None
+               else (inv, sp._as3(kernel), sp._as3(stride)))
+    return co, plan[f"down{i}"], plan.get(f"subm{i}"), oshape, inverse
+
+
+def _valid(coords, training):
+    """The rows whose BN statistics count in training: coords not -1."""
+    return coords[..., 0] >= 0 if training else None
 
 
 # (channels, n_subm, kernel, stride, padding) per downsample stage
@@ -368,8 +398,8 @@ _SPECS = ((32, 2, 3, 2, 1), (64, 3, 3, 2, 1), (64, 3, 3, 2, (0, 1, 1)))
 
 @BACKBONES.register_module
 class SpMiddleFHD(nn.Module):
-    """SECOND sparse middle, evaluation. Port of
-    det3d_tpu/models/backbones.py::SpMiddleFHD for ``not train``.
+    """SECOND sparse middle. Port of
+    det3d_tpu/models/backbones.py::SpMiddleFHD.
 
     Input: voxel_features (B, V, C), coords (B, V, 3) int32 zyx (-1 pad),
     input_shape (nx, ny, nz), and the host plan (ops/sparse_host.py, keys
@@ -379,8 +409,11 @@ class SpMiddleFHD(nn.Module):
     middle computes in ``serve_precision`` when set, else ``precision``;
     without one it builds the plan on the device (build_plan_device) and
     computes in ``precision``, as the JAX package's ``plan=None`` path
-    does. The ``serve_*band`` keys tune the TPU kernel's band and are
-    ignored: the CUDA kernel has no band.
+    does. In training (``module.train()``) it computes in ``precision``
+    from either plan (a training plan: host_plan_fn(train=True) or
+    build_plan_device(train=True)), densifies in fp32, and passes each
+    strided conv its inverse rulebook. The ``serve_*band`` keys tune the
+    TPU kernel's band and are ignored: the CUDA kernel has no band.
 
     Modules carry the flax names in call order (``SparseConvBN_<n>``,
     ``DenseConvBN_<n>``), so utils/convert.py::from_jax maps one to one.
@@ -438,7 +471,7 @@ class SpMiddleFHD(nn.Module):
             scb(64, 64, kvol=3)
 
     def forward(self, voxel_features, coords, input_shape, plan=None):
-        plan, dt = _serving_plan(self, coords, input_shape, plan)
+        plan, dt = _plan_and_dtype(self, coords, input_shape, plan)
         nx, ny, nz = (int(s) for s in input_shape)
         shape = (nz + 1, ny, nx)
         convs = iter([getattr(self, n) for n in self._sparse])
@@ -447,17 +480,20 @@ class SpMiddleFHD(nn.Module):
         x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
                                     plan)
         s0 = plan["s0"]
-        x = next(convs)(x, s0, True, dt)
-        x = next(convs)(x, s0, True, dt)
+        valid = _valid(coords, self.training)
+        x = next(convs)(x, s0, True, dt, valid)
+        x = next(convs)(x, s0, True, dt, valid)
 
         xd = occ = co = None
         for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
             if i <= self.start:
-                co, down, subm, shape = _plan_stage(plan, i, shape, k, s, p)
-                x = next(convs)(x, down, False, dt)
+                co, down, subm, shape, inv = _plan_stage(plan, i, shape, k,
+                                                         s, p)
+                valid = _valid(co, self.training)
+                x = next(convs)(x, down, False, dt, valid, inv)
                 if i < self.start:
                     for _ in range(n_subm):
-                        x = next(convs)(x, subm, True, dt)
+                        x = next(convs)(x, subm, True, dt, valid)
                     continue
                 # transition: densify this stage
                 occ = _occupancy(co, shape)
@@ -472,9 +508,9 @@ class SpMiddleFHD(nn.Module):
         if xd is not None:
             occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
             return _fold_depth(next(dconvs)(xd, occ4, dt))
-        co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
-                                           (2, 1, 1), 0)
-        x = next(convs)(x, down, False, dt)
+        co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
+                                                (2, 1, 1), 0)
+        x = next(convs)(x, down, False, dt, _valid(co4, self.training), inv)
         return _bev_reshape(x, co4, shape4)
 
 
@@ -484,9 +520,9 @@ _RES_SPECS = ((32, 3, 2, 1), (64, 3, 2, 1), (128, 3, 2, (0, 1, 1)))
 
 @BACKBONES.register_module
 class SpMiddleResNetFHD(nn.Module):
-    """CBGS residual sparse middle, evaluation. Port of
+    """CBGS residual sparse middle. Port of
     det3d_tpu/models/backbones.py::SpMiddleResNetFHD (reference
-    scn.py:308-370) for ``not train``.
+    scn.py:308-370).
 
     The stem SparseConvBN and two SparseBasicBlocks at res0; per stage
     before ``dense_from`` a strided SparseConvBN and two SparseBasicBlocks;
@@ -496,8 +532,8 @@ class SpMiddleResNetFHD(nn.Module):
     ``dense_tail`` every stage and the z conv stay sparse. Input, output
     and precision as SpMiddleFHD's (output (B, ny/8, nx/8, 128 *
     D_final)): without a plan it builds one on the device and computes in
-    ``precision``. The ``serve_*band`` keys are accepted and ignored
-    likewise.
+    ``precision``, and in training computes in ``precision`` from either
+    plan. The ``serve_*band`` keys are accepted and ignored likewise.
 
     Modules carry flax's names in call order at each level
     (``SparseConvBN_<n>``, ``SparseBasicBlock_<n>``, ``DenseBasicBlock_<n>``,
@@ -554,7 +590,7 @@ class SpMiddleResNetFHD(nn.Module):
             add(SparseConvBN(128, 128, norm_cfg, prec, kvol=3))
 
     def forward(self, voxel_features, coords, input_shape, plan=None):
-        plan, dt = _serving_plan(self, coords, input_shape, plan)
+        plan, dt = _plan_and_dtype(self, coords, input_shape, plan)
         nx, ny, nz = (int(s) for s in input_shape)
         shape = (nz + 1, ny, nx)
         mods = {cls: iter([getattr(self, n) for n in names])
@@ -564,18 +600,22 @@ class SpMiddleResNetFHD(nn.Module):
         x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
                                     plan)
         s0 = plan["s0"]
-        x = next(scb)(x, s0, True, dt)
+        valid = _valid(coords, self.training)
+        x = next(scb)(x, s0, True, dt, valid)
         for _ in range(2):
-            x = next(mods["SparseBasicBlock"])(x, s0, dt)
+            x = next(mods["SparseBasicBlock"])(x, s0, dt, valid)
 
         xd = occ = None
         for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
             if i <= self.start:
-                co, down, subm, shape = _plan_stage(plan, i, shape, k, s, p)
-                x = next(scb)(x, down, False, dt)
+                co, down, subm, shape, inv = _plan_stage(plan, i, shape, k,
+                                                         s, p)
+                valid = _valid(co, self.training)
+                x = next(scb)(x, down, False, dt, valid, inv)
                 if i < self.start:
                     for _ in range(2):
-                        x = next(mods["SparseBasicBlock"])(x, subm, dt)
+                        x = next(mods["SparseBasicBlock"])(x, subm, dt,
+                                                           valid)
                     continue
                 # transition: densify this stage in the activation dtype
                 occ = _occupancy(co, shape)
@@ -589,7 +629,7 @@ class SpMiddleResNetFHD(nn.Module):
         if xd is not None:
             occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
             return _fold_depth(next(dcb)(xd, occ4, dt))
-        co4, down, _, shape4 = _plan_stage(plan, 4, shape, (3, 1, 1),
-                                           (2, 1, 1), 0)
-        x = next(scb)(x, down, False, dt)
+        co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
+                                                (2, 1, 1), 0)
+        x = next(scb)(x, down, False, dt, _valid(co4, self.training), inv)
         return _bev_reshape(x, co4, shape4)

@@ -1,16 +1,23 @@
-"""Sparse 3-D convolution over window rulebooks, evaluation subset.
+"""Sparse 3-D convolution over window rulebooks.
 
 Port of det3d_tpu/ops/sparse.py: coordinate helpers, the packed window
-format, ``to_dense``, the forward of the window convolution, whose
-plain PyTorch form ``window_conv_ref`` is the twin of the CUDA kernel in
-``csrc/window_conv.cu`` (ops/window_conv_cuda.py), and the device
-rulebook builders of the bitmap regime (depth <= 64): ``yxz_order``,
-``build_bitmap_batch``, the window rulebooks, ``conv_out_coords``,
-``stage_lookup_batch`` and ``pack_windows``. They are plain PyTorch with
-fixed shapes and no host round trip, so a captured step holds them, and
-give the host builders' plans (ops/sparse_host.py) array for array. The
-deep-grid lookups (dense and sorted tables), the sort-free transition
-and the backward passes are not ported.
+format, ``to_dense``, the window convolution and its backward, and the
+device rulebook builders of the bitmap regime (depth <= 64):
+``yxz_order``, ``build_bitmap_batch``, the window rulebooks,
+``conv_out_coords``, ``stage_lookup_batch``, ``pack_windows``, and the
+strided conv's inverse rulebook of training
+(``strided_inverse_rulebook_batch``, ``pack_inverse``). They are plain
+PyTorch with fixed shapes and no host round trip, so a captured step
+holds them, and give the host builders' plans (ops/sparse_host.py) array
+for array.
+
+The convolution's plain PyTorch forms are the twins of the CUDA kernels
+(ops/window_conv_cuda.py): ``window_conv_ref`` of ``csrc/window_conv.cu``
+(also the submanifold conv's dX, with mirrored, transposed weights),
+``window_conv_dw_ref`` and ``window_conv_inv_ref`` of
+``csrc/window_conv_bwd.cu``. The deep-grid lookups (dense and sorted
+tables), the sort-free transition and the flat per-tap backward of
+strided convs without an inverse rulebook (ncand > 2) are not ported.
 
 Active voxels live in fixed-size padded arrays: features (B, V, C), coords
 (B, V, 3) int32 zyx with -1 rows for padding, rows in (y, x, z) rank
@@ -144,10 +151,17 @@ def _split_cols(r0, pres, weights, center_shift):
     return w_cols, cols, cc
 
 
+def _acc_dtype(dtype):
+    """The type the plain versions sum in: fp32 for fp32 and bf16
+    operands (bf16 -> fp32 is exact), fp64 for fp64 (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _mm(tap, w):
-    """(B, O, Cin) @ (Cin, Cout) with fp32 products and sums, whatever the
-    operands' type (bf16 -> fp32 is exact)."""
-    return torch.matmul(tap.float(), w.float())
+    """(B, O, Cin) @ (Cin, Cout) with products and sums in _acc_dtype,
+    whatever the operands' type."""
+    dt = _acc_dtype(tap.dtype)
+    return torch.matmul(tap.to(dt), w.to(dt))
 
 
 def window_conv_ref(features, r0, pres, weights, center_shift: bool):
@@ -155,7 +169,8 @@ def window_conv_ref(features, r0, pres, weights, center_shift: bool):
 
     features: (B, V, Cin) fp32 or bf16; r0: (B, O, K) int; pres:
     (B, O, K, kz) bool; weights: (kz*K, Cin, Cout) z-major (tap (k, j) is
-    row j*K + k), the features' type. Returns (B, O, Cout) fp32.
+    row j*K + k), the features' type. Returns (B, O, Cout) fp32 (fp64 for
+    fp64 operands).
 
     Tap j of column k reads input row min(r0, V-1) + popcount(pres[:j])
     where pres[j]; rows past V read zero. ``center_shift`` (submanifold,
@@ -166,7 +181,7 @@ def window_conv_ref(features, r0, pres, weights, center_shift: bool):
     cout = weights.shape[-1]
     w_cols, cols, cc = _split_cols(r0, pres, weights, center_shift)
 
-    out = torch.zeros((b, o, cout), dtype=torch.float32,
+    out = torch.zeros((b, o, cout), dtype=_acc_dtype(features.dtype),
                       device=features.device)
     if center_shift:
         assert o == v
@@ -182,6 +197,104 @@ def window_conv_ref(features, r0, pres, weights, center_shift: bool):
         for j, tap in enumerate(_window_taps(fpad, r0c[:, :, k],
                                              pres[:, :, k])):
             out = out + _mm(tap, w_cols[k, j])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Window convolution backward, plain versions (the CUDA kernels' twins)
+# ---------------------------------------------------------------------------
+# A submanifold rulebook is its own transpose (tap m of row o reads row i
+# <=> tap kvol-1-m of row i reads row o, with equal presence), so its dX is
+# the forward over dY with the taps mirrored and the weights transposed:
+# window_conv_ref(dy, r0, pres, weights.flip(0).transpose(1, 2), True). A
+# strided conv's dX gathers dY over the inverse rulebook
+# (window_conv_inv_ref); both convs' dW re-gathers the forward's taps
+# (window_conv_dw_ref).
+
+
+def window_conv_dw_ref(features, r0, pres, dy, center_shift: bool):
+    """d(weights) of window_conv_ref, plain PyTorch: for every tap (k, j),
+    dW[j*K + k] = sum over (b, o) of x[tap row]^T dy[o], the rows the
+    forward reads (the center column's o-1, o, o+1 with ``center_shift``).
+
+    features: (B, V, Cin); r0 (B, O, K); pres (B, O, K, kz); dy (B, O,
+    Cout). Returns (kz*K, Cin, Cout) z-major, summed in fp32 (fp64 for
+    fp64 operands). Twin of det3d_tpu/ops/sparse.py::_window_conv_dw."""
+    b, o, kbev = r0.shape
+    kz = pres.shape[-1]
+    v, cin = features.shape[1:]
+    cout = dy.shape[-1]
+    dt = _acc_dtype(features.dtype)
+    dyf = dy.to(dt)
+    dw = torch.zeros((kbev, kz, cin, cout), dtype=dt, device=dy.device)
+    cc = kbev // 2
+    cols = [k for k in range(kbev) if not (center_shift and k == cc)]
+
+    def contract(tap):
+        return torch.einsum("boc,bod->cd", tap.to(dt), dyf)
+
+    if center_shift:
+        assert kz == 3 and o == v
+        for j, tap in enumerate(_center_taps(features, pres[:, :, cc])):
+            dw[cc, j] = contract(tap)
+    if v > 0:
+        fpad = torch.cat([features, features.new_zeros(
+            (b, kz - 1, cin))], dim=1)
+        r0c = torch.clamp(r0.long(), max=v - 1)
+        for k in cols:
+            for j, tap in enumerate(_window_taps(fpad, r0c[:, :, k],
+                                                 pres[:, :, k])):
+                dw[k, j] = contract(tap)
+    return dw.transpose(0, 1).reshape(kz * kbev, cin, cout)
+
+
+def ncand_of(kernel, stride):
+    """Output candidates per dim of one input voxel: ceil(k / s)."""
+    k, s = _as3(kernel), _as3(stride)
+    return tuple(-(-k[d] // s[d]) for d in range(3))
+
+
+def window_conv_inv_ref(dy, r0i, presi, par, weights, kernel, stride):
+    """d(features) of a strided window conv over its inverse rulebook,
+    plain PyTorch:
+
+        dX[q] = sum over taps kk of parmask_kk(q) * dY[row_kk(q)] @ W[kk]^T
+
+    where tap kk = (jz, jy, jx) reaches candidate c = j // s per dim,
+    row_kk(q) is window tap m = ncz-1-cz of candidate column cy*ncx + cx
+    (min(r0i, O-1) + popcount(presi[:m]), present where presi[m]; rows past
+    O read zero), and parmask_kk(q) holds where par(q) == j mod s.
+
+    dy: (B, O, Cout); r0i (B, V, Kc); presi (B, V, Kc, ncz); par (B, V, 3);
+    weights (kvol, Cin, Cout) z-major. Returns (B, V, Cin) in fp32 (fp64
+    for fp64 operands). Twin of det3d_tpu/ops/sparse.py::
+    _strided_inverse_df (dX only)."""
+    k3, s3 = _as3(kernel), _as3(stride)
+    nc = ncand_of(k3, s3)
+    b, v, kc = r0i.shape
+    o, cout = dy.shape[1:]
+    cin = weights.shape[1]
+    dt = _acc_dtype(dy.dtype)
+    out = torch.zeros((b, v, cin), dtype=dt, device=dy.device)
+    if o == 0:
+        return out
+    dy_pad = torch.cat([dy, dy.new_zeros((b, max(nc[0] - 1, 1), cout))],
+                       dim=1)
+    r0c = torch.clamp(r0i.long(), max=o - 1)
+    rows = [_window_taps(dy_pad, r0c[:, :, ci], presi[:, :, ci])
+            for ci in range(kc)]
+    for kk in range(weights.shape[0]):
+        jz = kk // (k3[1] * k3[2])
+        jy = (kk // k3[2]) % k3[1]
+        jx = kk % k3[2]
+        cz, cy, cx = jz // s3[0], jy // s3[1], jx // s3[2]
+        if cz >= nc[0] or cy >= nc[1] or cx >= nc[2]:
+            continue                                    # tap unreachable
+        pm = ((par[..., 0] == jz % s3[0]) & (par[..., 1] == jy % s3[1])
+              & (par[..., 2] == jx % s3[2]))
+        row = rows[cy * nc[2] + cx][nc[0] - 1 - cz] * pm[..., None].to(
+            dy.dtype)
+        out = out + _mm(row, weights[kk].transpose(0, 1))
     return out
 
 
@@ -447,3 +560,66 @@ def pack_windows(r0, pres):
     for j in range(pres.shape[-1]):
         packed = packed | (pres[..., j].long() << (_PACK_SHIFT + j))
     return packed.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The strided conv's inverse rulebook (training)
+# ---------------------------------------------------------------------------
+# Packed inverse words (B, V, Kc) int32: bits 0..23 r0i, bits 24..24+ncz-1
+# the z candidates' presence, bits 28..30 the (z, y, x) stride parities of
+# the row, broadcast into every candidate column (read from column 0).
+
+_PAR_SHIFT = 28
+
+
+def strided_inverse_rulebook_batch(in_coords, kernel, stride, padding,
+                                   out_bitmap, out_shape):
+    """The inverse rulebook of a strided conv, in OUTPUT rank space.
+
+    For input voxel q the outputs whose footprint covers it are o_d =
+    obase_d - c_d with obase = (q + pad) // s and c_d in [0, ncand_d),
+    through tap j_d = par_d + c_d s_d, par = (q + pad) mod s. With ncand_z
+    <= 2 the z candidates are adjacent outputs, hence consecutive output
+    ranks: one (ncand_z)-tap window per BEV candidate column (cy, cx).
+
+    in_coords: (B, V, 3) the conv's input rows in rank order; out_bitmap:
+    build_bitmap_batch of the output rows. Returns (r0i (B, V, Kc), presi
+    (B, V, Kc, ncz), par (B, V, 3)), or None when ncand > 2 in any dim.
+    Port of det3d_tpu/ops/sparse.py::strided_inverse_rulebook_batch."""
+    k, s, p = _as3(kernel), _as3(stride), _as3(padding)
+    nc = ncand_of(k, s)
+    if max(nc) > 2:
+        return None
+    co = in_coords.long()
+    # per dim with Python ints: a tensor made from (p, s) would be a copy
+    # from host memory, which a captured step cannot replay
+    t = [co[..., d] + p[d] for d in range(3)]
+    par = torch.stack([t[d] % s[d] for d in range(3)], dim=-1)
+    obase = torch.stack([t[d] // s[d] for d in range(3)], dim=-1)
+    ci = torch.arange(nc[1] * nc[2], device=co.device)
+    qy = obase[..., 1, None] - ci // nc[2]                # (B, V, Kc)
+    qx = obase[..., 2, None] - ci % nc[2]
+    z0 = (obase[..., 0] - (nc[0] - 1))[..., None]
+    r0i, presi = _bitmap_column_windows(out_bitmap, qy, qx, z0, nc[0],
+                                        out_shape)
+    presi = presi & (co[..., 0] >= 0)[..., None, None]
+    return r0i, presi, par
+
+
+def pack_inverse(r0i, presi, par):
+    """(r0i, presi, par) -> packed (B, V, Kc) int32 (canonical: r0i zeroed
+    where no candidate is present)."""
+    packed = pack_windows(r0i, presi).long()
+    for d in range(3):
+        packed = packed | ((par[..., d].long() & 1)
+                           << (_PAR_SHIFT + d))[..., None]
+    return packed.to(torch.int32)
+
+
+def unpack_inverse(packed, ncz: int):
+    """Packed inverse words -> (r0i (..., Kc) int64, presi (..., Kc, ncz)
+    bool, par (..., 3) int64)."""
+    r0i, presi = unpack_windows(packed, ncz)
+    par = torch.stack([(packed[..., 0].long() >> (_PAR_SHIFT + d)) & 1
+                       for d in range(3)], dim=-1)
+    return r0i, presi, par

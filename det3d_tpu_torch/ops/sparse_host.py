@@ -1,6 +1,6 @@
 """Host-side builders of the sparse middle's packed rulebook plan.
 
-Port of det3d_tpu/ops/sparse_host.py, the evaluation path. Rulebooks are
+Port of det3d_tpu/ops/sparse_host.py. Rulebooks are
 pure functions of integer voxel coordinates, so a serving process builds
 them on the CPU, beside its voxelizer, and the device step only reads
 them. Every function is per sample; ``build_plan`` returns one sample's
@@ -17,11 +17,12 @@ chip_smoke.py call them explicitly, nothing on the serving path does.
 Packed window words (the layout of ops/sparse.py::unpack_windows): bits
 0..23 hold r0, the rank of the window's first row, and bits 24..24+kz-1
 the presence of the kz taps. Ranks number the active voxels in (y, x, z)
-order. Where no tap is present r0 is 0.
-
-Left out: the inverse rulebooks of training (hostplan.cc builds them
-behind hp_transition's flag; nothing binds that half yet). The numpy
-versions need numpy >= 2.0 (``np.bitwise_count``).
+order. Where no tap is present r0 is 0. A training plan (``train=True``)
+adds each strided conv's packed inverse rulebook (the layout of
+ops/sparse.py::unpack_inverse): bits 0..23 r0i, bits 24.. the ncz
+presence bits, bits 28..30 the (z, y, x) stride parities, broadcast into
+every candidate column. The numpy versions need numpy >= 2.0
+(``np.bitwise_count``).
 """
 
 from __future__ import annotations
@@ -205,20 +206,35 @@ def down_windows(out_coords, in_coords, in_shape, kernel, stride, padding):
     return out
 
 
-def transition(coords, shape, kernel, stride, padding, max_out):
+def _ncand(kernel, stride):
+    k, s = _as3(kernel), _as3(stride)
+    return tuple(-(-k[d] // s[d]) for d in range(3))
+
+
+def transition(coords, shape, kernel, stride, padding, max_out,
+               build_inverse=False):
     """Downsample transition: the output coords of a strided conv (every
     output whose footprint covers an active input), deduplicated, the
     low-z prefix in zyx cell order kept under the cap, rows emitted in yxz
-    rank order. Returns (out_coords (max_out, 3) int32, oshape)."""
+    rank order. Returns (out_coords (max_out, 3) int32, oshape), and with
+    ``build_inverse`` the conv's packed inverse rulebook (V, ncy*ncx) int32
+    as a third item where ncand <= 2 in every dim."""
     co = _coords(coords, "coords")
     oshape = out_spatial_shape(shape, kernel, stride, padding)
+    nc = _ncand(kernel, stride)
+    want = bool(build_inverse) and max(nc) <= 2
     out = np.empty((int(max_out), 3), np.int32)
+    inv = np.empty((co.shape[0], nc[1] * nc[2]) if want else (1, 1),
+                   np.int32)
     built = ctypes.c_int32(0)
     _lib().hp_transition(co, co.shape[0], shape[0], shape[1], shape[2],
                          _c3(kernel), _c3(stride), _c3(padding),
-                         int(max_out), 0, out, np.empty((1, 1), np.int32),
+                         int(max_out), int(want), out, inv,
                          ctypes.byref(built))
-    return out, oshape
+    if want != bool(built.value):
+        raise RuntimeError("hp_transition built the inverse rulebook "
+                           f"{bool(built.value)}, asked {want}")
+    return (out, oshape, inv) if want else (out, oshape)
 
 
 def build_plan(points, num_points, *, voxel_size, pc_range, grid_size,
@@ -233,11 +249,8 @@ def build_plan(points, num_points, *, voxel_size, pc_range, grid_size,
       plan_co{i}       (cap_i,) int32 zyx-linear stage coords
       plan_down{i}     (cap_i, Kbev) packed down-conv windows
       plan_subm{i}     (cap_i, 9) packed subm windows (stages that keep one)
-    ``train=True`` (the inverse rulebooks of training) is not ported.
+      plan_inv{i}      (V_{i-1}, Kc) packed inverse rulebooks (train only)
     """
-    if train:
-        raise NotImplementedError("training plans (inverse rulebooks) are "
-                                  "not ported yet")
     lin = point_lin(points, num_points, voxel_size, pc_range, grid_size)
     perm = point_order(lin, grid_size, order)
     coords = voxel_coords(lin, grid_size, max_voxels, order, perm=perm)
@@ -255,7 +268,10 @@ def build_plan(points, num_points, *, voxel_size, pc_range, grid_size,
     shape = shape0
     for i, st in enumerate(spec["stages"], start=1):
         k, s, p, cap = st["kernel"], st["stride"], st["padding"], st["cap"]
-        out_co, oshape = transition(co, shape, k, s, p, cap)
+        res = transition(co, shape, k, s, p, cap, build_inverse=train)
+        out_co, oshape = res[:2]
+        if len(res) > 2:
+            out[f"plan_inv{i}"] = res[2]
         out[f"plan_down{i}"] = down_windows(out_co, co, shape, k, s, p)
         out[f"plan_co{i}"] = linearize(out_co, oshape)
         if st["subm"]:
@@ -449,9 +465,11 @@ def down_windows_ref(out_coords, in_lookup, in_shape, kernel, stride,
 
 
 def _down_candidates(coords, shape, k, s, p, oshape):
-    """The at most ceil(k/s) output candidates per dim of each input row."""
+    """The at most ceil(k/s) output candidates per dim of each input row:
+    (oz, oy, ox) broadcastable, ``ok`` where the candidate is in bounds
+    and its tap in the kernel, and per dim the in-bounds masks alone."""
     co = np.asarray(coords, np.int64)
-    cand, valid = [], []
+    cand, bounds, valid = [], [], []
     ncand = tuple(-(-k[d] // s[d]) for d in range(3))
     for d in range(3):
         pd = co[:, d]
@@ -461,25 +479,28 @@ def _down_candidates(coords, shape, k, s, p, oshape):
         j = pd[:, None] + p[d] - o * s[d]
         okb = (o >= 0) & (o < oshape[d]) & (pd >= 0)[:, None]
         cand.append(o)
+        bounds.append(okb)
         valid.append(okb & (j >= 0) & (j < k[d]))
     oz = cand[0][:, :, None, None]
     oy = cand[1][:, None, :, None]
     ox = cand[2][:, None, None, :]
     ok = (valid[0][:, :, None, None] & valid[1][:, None, :, None]
           & valid[2][:, None, None, :])
-    return oz, oy, ox, ok
+    okb = (bounds[0][:, :, None, None], bounds[1][:, None, :, None],
+           bounds[2][:, None, None, :])
+    return oz, oy, ox, ok, okb
 
 
-def transition_ref(coords, shape, kernel, stride, padding, max_out):
-    """Downsample transition: the output coords of a strided conv (every
-    output whose footprint covers an active input), deduplicated, the
-    low-z prefix in zyx cell order kept under the cap, rows emitted in yxz
-    rank order. Returns (out_coords (max_out, 3) int32, oshape)."""
+def transition_ref(coords, shape, kernel, stride, padding, max_out,
+                   build_inverse=False):
+    """``transition`` in numpy: the same output coords and, with
+    ``build_inverse`` (ncand <= 2), the same packed inverse rulebook."""
     k, s, p = _as3(kernel), _as3(stride), _as3(padding)
     oshape = out_spatial_shape(shape, k, s, p)
     do, ho, wo = oshape
-    oz, oy, ox, ok = _down_candidates(coords, shape, k, s, p, oshape)
-    lin = np.broadcast_to((oz * ho + oy) * wo + ox, ok.shape)
+    oz, oy, ox, ok, okb = _down_candidates(coords, shape, k, s, p, oshape)
+    full = ok.shape
+    lin = np.broadcast_to((oz * ho + oy) * wo + ox, full)
     occ = np.unique(lin[ok])            # zyx-major ascending
     kept_zyx = occ[:max_out]
     kz_, ky_, kx_ = (kept_zyx // (ho * wo), (kept_zyx // wo) % ho,
@@ -491,7 +512,36 @@ def transition_ref(coords, shape, kernel, stride, padding, max_out):
     out[:n, 0] = kz_[order]
     out[:n, 1] = ky_[order]
     out[:n, 2] = kx_[order]
-    return out, oshape
+    nc = _ncand(k, s)
+    if not build_inverse or max(nc) > 2:
+        return out, oshape
+    # the inverse rulebook from the same candidates: rank and presence
+    # against the kept output set, through its bitmap
+    base_t, bits_t = host_bitmap(np.sort(yxz), oshape)
+    okb_yx = np.broadcast_to(okb[1] & okb[2], full)
+    okbf = okb_yx & np.broadcast_to(okb[0], full)
+    col = np.where(okb_yx, np.broadcast_to(oy * wo + ox, full), 0)
+    word = bits_t[col]
+    zc = np.clip(np.broadcast_to(oz, full), 0, 31).astype(np.uint64)
+    rank = (base_t[col].astype(np.int64) + np.bitwise_count(
+        word & ((np.uint64(1) << zc) - np.uint64(1)))).astype(np.int32)
+    ozb = np.broadcast_to(oz, full)
+    inz = (ozb >= 0) & (ozb < do)
+    zq = np.where(inz, ozb, 0).astype(np.uint64)
+    kept_c = okbf & inz & (((word >> zq) & np.uint64(1)) != 0)
+    v = np.asarray(coords).shape[0]
+    ncz, ncy, ncx = nc
+    r0i = rank.reshape(v, ncz, ncy * ncx)[:, ncz - 1]
+    # candidate axis c_z descends in z; window tap m = ncz-1-c_z ascends
+    presi = kept_c.reshape(v, ncz, ncy * ncx).transpose(0, 2, 1)[:, :, ::-1]
+    co = np.asarray(coords, np.int64)
+    presi = presi & (co[:, 0] >= 0)[:, None, None]
+    par = (co + np.asarray(p, np.int64)[None]) % np.asarray(s, np.int64)[None]
+    packed = _pack_windows(r0i, presi)
+    for d in range(3):
+        packed = packed | ((par[:, d] & 1) << (28 + d)).astype(
+            np.int32)[:, None]
+    return out, oshape, packed
 
 
 def linearize(coords, shape):
@@ -512,9 +562,6 @@ def build_plan_ref(points, num_points, *, voxel_size, pc_range, grid_size,
                    max_voxels, order, spec,
                    train=False) -> Dict[str, np.ndarray]:
     """``build_plan`` in numpy: the same plan, array for array."""
-    if train:
-        raise NotImplementedError("training plans (inverse rulebooks) are "
-                                  "not ported yet")
     lin = point_lin_ref(points, num_points, voxel_size, pc_range, grid_size)
     perm = point_order_ref(lin, grid_size, order)
     coords = voxel_coords_ref(lin, grid_size, max_voxels, order, perm=perm)
@@ -533,7 +580,10 @@ def build_plan_ref(points, num_points, *, voxel_size, pc_range, grid_size,
     shape = shape0
     for i, st in enumerate(spec["stages"], start=1):
         k, s, p, cap = st["kernel"], st["stride"], st["padding"], st["cap"]
-        out_co, oshape = transition_ref(co, shape, k, s, p, cap)
+        res = transition_ref(co, shape, k, s, p, cap, build_inverse=train)
+        out_co, oshape = res[:2]
+        if len(res) > 2:
+            out[f"plan_inv{i}"] = res[2]
         out[f"plan_down{i}"] = down_windows_ref(out_co, lk, shape, k, s, p)
         out[f"plan_co{i}"] = linearize(out_co, oshape)
         lk = host_bitmap(yxz_keys(out_co, oshape), oshape)

@@ -16,14 +16,16 @@ with ``torch.autograd.grad`` and applies the optimizer's update. On the
 card it is a ``CapturedStep`` (parallel/graph.py): the whole step,
 backward and update included, replays as one CUDA graph a batch
 signature; the learning rate and momentum come from the optimizer's
-count on the device. The pillar path only: a sparse middle's window conv
-has no backward yet (ROADMAP queue 1, item 5), and its step raises
-rather than train without its gradients.
+count on the device. A sparse middle trains from the batch's host
+training plan (``plan_*`` keys, apis/train.py::host_plan_fn(train=True))
+or, without one, from the training plan it builds on the device; its
+window convs' backward runs the kernels of ops/window_conv_cuda.py.
 
 Batch layout (numpy arrays or tensors):
   points (B, P, C) float32, num_points (B,) int32,
   gt_boxes (B, G, nd) float32, gt_classes (B, G) int32 (global 1-based
-  ids), gt_valid (B, G) bool; host voxels as the predict step takes them.
+  ids), gt_valid (B, G) bool; host voxels as the predict step takes them,
+  and a sparse middle's host plan.
 """
 
 from __future__ import annotations
@@ -71,7 +73,9 @@ def build_example(batch: Dict[str, Any], voxel_generator: VoxelGenerator,
     ``anchor_area_threshold >= 0`` and, with ``with_targets``, each task's
     ``labels``, ``reg_targets`` and ``reg_weights`` from the batch's padded
     gt (``class_ids_per_task``: each task's global class ids;
-    ``generator``: the draws of positive_fraction subsampling). All tensors
+    ``generator``: the draws of positive_fraction subsampling). The
+    batch's ``plan_*`` keys go into ``example["plan"]`` without their
+    prefix (a sparse middle's host plan; absent without them). All tensors
     must be on one device."""
     if "voxels" in batch:
         vox = {"voxels": batch["voxels"], "coords": batch["coordinates"],
@@ -89,6 +93,9 @@ def build_example(batch: Dict[str, Any], voxel_generator: VoxelGenerator,
         "num_voxels": vox["num_voxels"],
         "anchors": [],
     }
+    plan = {k[5:]: v for k, v in batch.items() if k.startswith("plan_")}
+    if plan:
+        example["plan"] = plan
     if with_targets:
         example.update({"labels": [], "reg_targets": [], "reg_weights": []})
     use_amask = any(a.anchor_area_threshold >= 0 for a in assigners)
@@ -127,20 +134,12 @@ def _mode(model, training: bool):
         model.train(was)
 
 
-def _check_trainable(model):
-    backbone = getattr(model, "backbone", None)
-    if "SpMiddle" in type(backbone).__name__:
-        raise NotImplementedError(
-            f"make_train_step: the sparse middle {type(backbone).__name__} "
-            "has no backward for its window convs yet (ROADMAP queue 1, "
-            "item 5: the sparse-conv backward and training plans); the "
-            "port trains the pillar path only")
-
-
 def network_loss(model, example):
-    """The head's losses on the example, and their total."""
+    """The head's losses on the example, and their total. The example's
+    plan, where it has one, goes to the model's sparse middle."""
+    kw = {"plan": example["plan"]} if "plan" in example else {}
     preds = model(example["voxels"], example["num_points_per_voxel"],
-                  example["coordinates"])
+                  example["coordinates"], **kw)
     losses = model.loss(example, preds)
     return sum(losses["loss"]), losses
 
@@ -157,10 +156,8 @@ def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
 
     On a CUDA model the step is a CapturedStep (``train_step.eager`` the
     same step run eagerly; the capture's warm-up leaves the state as it
-    was); on a CPU model (the caller asked for the CPU) it runs eagerly.
-    Raises for a model with a sparse middle."""
+    was); on a CPU model (the caller asked for the CPU) it runs eagerly."""
     model, tx = state.model, state.tx
-    _check_trainable(model)
     params = list(model.parameters())
     device = params[0].device
 
@@ -189,7 +186,8 @@ def make_loss_eval_step(model, voxel_generator: VoxelGenerator,
                         ) -> Callable:
     """Returns ``loss_step(batch) -> {"loss": tensor}``: the validation
     loss with BatchNorm on its running statistics, nothing updated (the
-    reference workflow's ``('val', 1)``). Captured on a CUDA model."""
+    reference workflow's ``('val', 1)``), from the batch's host plan where
+    it has one. Captured on a CUDA model."""
     device = next(model.parameters()).device
 
     @torch.no_grad()

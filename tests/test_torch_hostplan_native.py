@@ -248,10 +248,6 @@ def test_builders_reject_what_the_native_code_cannot_take():
         sph.subm_windows(np.zeros((4, 3), np.int32), (65, 8, 8))
     with pytest.raises(ValueError, match="hashed"):
         sph.point_order(np.zeros(4, np.int32), (4, 4, 4), "appearance")
-    with pytest.raises(NotImplementedError):
-        sph.build_plan(np.zeros((4, 4), np.float32), 4, voxel_size=(1,) * 3,
-                       pc_range=(0,) * 6, grid_size=(4, 4, 4), max_voxels=4,
-                       order="yxz", spec={}, train=True)
 
 
 def test_library_is_keyed_by_source_and_flags():

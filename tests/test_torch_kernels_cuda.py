@@ -540,3 +540,134 @@ def test_window_conv_rejects_bad_inputs(dev):
         window_conv(torch.zeros(1, 64, 128, device=dev).bfloat16(),
                     torch.zeros(1, 64, 81, dtype=torch.int32, device=dev),
                     torch.zeros(243, 128, 64, device=dev).bfloat16(), False)
+
+
+# ---------------------------------------------------------------------------
+# the window conv's backward (csrc/window_conv_bwd.cu, and the forward
+# kernel as the subm dX)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def train_plan(dev):
+    """SECOND's host training plan (inverse rulebooks included) of two
+    training scans at full scale, the second short (padded rows)."""
+    from chip_smoke import POINTS, sparse_train_scene, train_config
+    from chip_smoke import with_train_plan
+    scene = sparse_train_scene("second", 2, train_config("second")[
+        "voxel_generator"]["range"], POINTS)
+    scene["num_points"][1] = 2000
+    return with_train_plan("second", scene)
+
+
+@pytest.mark.parametrize("name", CONV_SHAPES)
+def test_backward_kernels_equal_plain(dev, train_plan, name):
+    """dW (both conv kinds) and dX (the subm convs after the stem through
+    the forward kernel, the strided convs over the inverse rulebook) at
+    every conv of SECOND's middle against the plain twins in fp32, within
+    chip_smoke.py's BWD_TOL; dW bit-equal on a second call; each wrapper
+    counts one launch."""
+    from chip_smoke import BWD_TOL, SECOND_LAYERS, bwd_cases
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops import window_conv_cuda as wc
+    case = {c[0]: c for c in bwd_cases(train_plan, dev,
+                                       SECOND_LAYERS)}[name]
+    _, x, pk, w, subm, inv, dy = case
+    r0, pres = sp.unpack_windows(pk, 3)
+    dys = dy / (pk.shape[0] * pk.shape[1]) ** 0.5
+    before = wc.window_conv_dw.launches
+    dw = wc.window_conv_dw(x, pk, dys, subm)
+    again = wc.window_conv_dw(x, pk, dys, subm)
+    torch.cuda.synchronize()
+    assert wc.window_conv_dw.launches == before + 2
+    torch.testing.assert_close(dw, sp.window_conv_dw_ref(x, r0, pres, dys,
+                                                         subm), **BWD_TOL)
+    assert torch.equal(dw, again)
+    if subm and x.shape[-1] >= 16:
+        before = wc.window_conv_subm_dx.launches
+        dx = wc.window_conv_subm_dx(dy, pk, w)
+        ref = sp.window_conv_ref(dy, r0, pres,
+                                 w.flip(0).transpose(1, 2), True)
+        assert wc.window_conv_subm_dx.launches == before + 1
+    elif not subm:
+        r0i, presi, par = sp.unpack_inverse(inv, 2)
+        before = wc.window_conv_inv.launches
+        dx = wc.window_conv_inv(dy, inv, w, (3, 3, 3), (2, 2, 2),
+                                x.shape[1])
+        ref = sp.window_conv_inv_ref(dy, r0i, presi, par, w, (3, 3, 3),
+                                     (2, 2, 2))
+        assert wc.window_conv_inv.launches == before + 1
+    else:
+        return
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(dx, ref, **BWD_TOL)
+
+
+@pytest.mark.parametrize("cin,cout", [(4, 16), (5, 16), (16, 128),
+                                      (128, 128), (128, 64), (12, 8)])
+def test_dw_kernel_widths_and_ragged_rows(dev, cin, cout):
+    """dW at the widths the kernel takes (Cin 1-128, Cout a multiple of 4
+    up to 128: one, two and four 4x4 blocks a thread, row slices where
+    Cin*Cout is small) on random words over a row count that is no
+    multiple of the 64-row tile, subm and strided."""
+    from chip_smoke import BWD_TOL
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv_dw
+    g = torch.Generator().manual_seed(cin * cout)
+    for center_shift in (True, False):
+        pk = torch.as_tensor(random_words(1000, 1000, cin)).to(dev)
+        pk = pk & ((1 << 24) - 1 | (7 << 24))           # kz = 3 bits
+        x = torch.randn(1, 1000, cin, generator=g).to(dev)
+        dy = (torch.randn(1, 1000, cout, generator=g) / 30).to(dev)
+        r0, pres = sp.unpack_windows(pk, 3)
+        out = window_conv_dw(x, pk, dy, center_shift)
+        torch.testing.assert_close(
+            out, sp.window_conv_dw_ref(x, r0, pres, dy, center_shift),
+            **BWD_TOL)
+
+
+def test_inverse_kernel_on_the_z_conv(dev):
+    """The strided dX of SECOND's sparse z conv ((3, 1, 1) stride (2, 1,
+    1): one candidate column, two z candidates) on a device-built training
+    plan without the dense tail."""
+    from chip_smoke import BWD_TOL, sparse_train_scene, train_config
+    from chip_smoke import with_train_plan
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv_inv
+    cfg = train_config("second")
+    cfg["model"]["backbone"]["dense_tail"] = False
+    plan = with_train_plan("second", sparse_train_scene(
+        "second", 1, cfg["voxel_generator"]["range"], 4000), cfg=cfg)
+    inv = torch.as_tensor(plan["plan_inv4"], device=dev)
+    o = plan["plan_down4"].shape[1]
+    g = torch.Generator().manual_seed(4)
+    dy = torch.randn(1, o, 64, generator=g).to(dev)
+    w = torch.randn(3, 64, 64, generator=g).to(dev) / 14
+    dx = window_conv_inv(dy, inv, w, (3, 1, 1), (2, 1, 1), inv.shape[1])
+    r0i, presi, par = sp.unpack_inverse(inv, 2)
+    ref = sp.window_conv_inv_ref(dy, r0i, presi, par, w, (3, 1, 1),
+                                 (2, 1, 1))
+    torch.cuda.synchronize()
+    assert float(ref.abs().max()) > 0
+    torch.testing.assert_close(dx, ref, **BWD_TOL)
+
+
+def test_backward_kernels_reject_bad_inputs(dev):
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv_dw,
+                                                      window_conv_inv)
+    pk = torch.zeros(1, 64, 9, dtype=torch.int32, device=dev)
+    x = torch.zeros(1, 64, 16, device=dev)
+    with pytest.raises(ValueError, match="fp32"):
+        window_conv_dw(x.bfloat16(), pk, torch.zeros(1, 64, 16, device=dev),
+                       True)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        window_conv_dw(x, pk, torch.zeros(1, 64, 18, device=dev), True)
+    inv = torch.zeros(1, 64, 4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        window_conv_inv(torch.zeros(1, 64, 16, device=dev), inv,
+                        torch.zeros(27, 6, 16, device=dev), (3, 3, 3),
+                        (2, 2, 2), 64)
+    with pytest.raises(ValueError, match="candidate"):
+        window_conv_inv(torch.zeros(1, 64, 16, device=dev), inv,
+                        torch.zeros(27, 16, 16, device=dev), (3, 3, 3),
+                        (1, 1, 1), 64)

@@ -213,9 +213,9 @@ def fp32_middle(config, batch, monkeypatch):
         {k[len("backbone."):]: v for k, v in sd.items()}, strict=True)
     calls, real = [], backbones.window_conv
 
-    def spy(x, packed, w, center_shift):
+    def spy(x, packed, w, center_shift, *inverse):
         calls.append((x.dtype, w.dtype))
-        return real(x, packed, w, center_shift)
+        return real(x, packed, w, center_shift, *inverse)
     monkeypatch.setattr(backbones, "window_conv", spy)
     with torch.no_grad():
         out = model.backbone(torch.from_numpy(np.array(feats)),

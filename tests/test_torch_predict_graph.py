@@ -183,10 +183,11 @@ TRAIN_CFG = dict(optimizer=dict(TYPE="adam", VALUE=dict(amsgrad=0.0,
                                 pct_start=0.4))
 
 
-def train_steps(name, device):
+def train_steps(name, device, feed="points"):
     """(train step, loss-eval step, training scans, train state) of a
-    pillar path at its cut size on ``device``, weights from
-    torch.Generator().manual_seed(0)."""
+    pillar path, or of SECOND, at its cut size on ``device``, weights from
+    torch.Generator().manual_seed(0); SECOND's scans carry their host
+    training plan and voxels when ``feed`` is "host"."""
     from det3d_tpu_torch.apis.train import init_state
     from det3d_tpu_torch.parallel.train import (make_loss_eval_step,
                                                 make_train_step)
@@ -196,20 +197,31 @@ def train_steps(name, device):
     model = model.to(device)
     state, _ = init_state(cfg, model, 20)
     scans = cs.train_scene(2, 2000, cfg["voxel_generator"]["range"])
+    if feed == "host":
+        scans.update(host_plan_fn(model, vg, train=True, voxelize=True)(
+            scans["points"], scans["num_points"]))
     return (make_train_step(state, vg, asg, cids),
             make_loss_eval_step(model, vg, asg, cids), scans, state)
 
 
-@pytest.mark.parametrize("name", ["flagship", "kitti_pp"])
-def test_train_step_makes_no_host_round_trip(name):
+@pytest.mark.parametrize("name,feed", [("flagship", "points"),
+                                       ("kitti_pp", "points"),
+                                       ("second", "host"),
+                                       ("second", "points")])
+def test_train_step_makes_no_host_round_trip(name, feed, monkeypatch):
     """test_step_makes_no_host_round_trip for the train step (target
     assignment, forward, backward, the clip, the schedules and the
-    optimizer's update on the device count) and the loss-eval step."""
-    train, loss_eval, scans, _ = train_steps(name, "cpu")
+    optimizer's update on the device count) and the loss-eval step; for
+    SECOND from its host training plan and from points (the device
+    training plan), the window conv's plain versions left out."""
+    from det3d_tpu_torch.ops import window_conv_cuda as wc
+    train, loss_eval, scans, _ = train_steps(name, "cpu", feed)
     data = {k: torch.as_tensor(v) for k, v in scans.items()}
     train.eager(data)
     loss_eval.eager(data)
     mode = HostRoundTrips()
+    for fn in ("_forward", "window_conv_dw", "window_conv_inv"):
+        monkeypatch.setattr(wc, fn, pausing(mode, getattr(wc, fn)))
     with mode:
         metrics = train.eager(data)
         loss = loss_eval.eager(data)

@@ -25,9 +25,9 @@ gradients (the pillar net, RPN convs, the 0.5 branch, a transposed conv,
 a head) in training mode against JAX's within BF16_LAYER_GRAD_REL. ``from_jax`` carries every parameter and every gradient of both
 trained models (the flagship at full widths, KITTI car PointPillars).
 
-``make_loss_eval_step`` against JAX's; a VoxelNet config's train step
-raises and names ROADMAP queue 1, item 5; ``init_state`` builds the
-shipped optimizer and OneCycle schedule. The captured train step is held
+``make_loss_eval_step`` against JAX's; ``init_state`` builds the shipped
+optimizer and OneCycle schedule (the sparse middles' train steps:
+tests/test_torch_sparse_train.py). The captured train step is held
 to the eager one on the card in tests/test_torch_predict_graph.py, which
 imports no JAX.
 """
@@ -388,14 +388,6 @@ def test_from_jax_covers_every_parameter_and_gradient():
         assert sorted(g) == sorted(params)
         for k, p in params.items():
             assert g[k].shape == p.shape and carried[k].shape == p.shape, k
-
-
-def test_sparse_middle_train_step_raises():
-    model, vg, asg, cids, _ = build_stack(
-        cs.sparse_config(cs.SECOND_CFG, cut=(6.4, 512)), device="cpu")
-    state, _ = init_state(dict(OPT_CFG), model, TOTAL_STEPS)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 5"):
-        make_train_step(state, vg, asg, cids)
 
 
 def test_init_state_as_shipped():
