@@ -5,7 +5,7 @@
                           [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
-    python3 chip_smoke.py --only points|train
+    python3 chip_smoke.py --only points|train|data
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -21,8 +21,8 @@ They import det3d_tpu_torch from the checkout at DIR (by default this
 one): run them on two checkouts in turns on one card (parent, change,
 change, parent) to compare two versions of a kernel on the same
 yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
-and KITTI-all from points and under TTA) or only the training phases
-53-62.
+and KITTI-all from points and under TTA), only the training phases
+53-62, or only the data, trainer and evaluation phases 63-66.
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -39,7 +39,11 @@ freed, Lyft and KITTI-all from points and under TTA (51, 52), and the
 pillar path's training (53 to 57: targets, one step card vs CPU, timing,
 overfit, validation loss) for KITTI car PointPillars (bf16, B=2) and
 the flagship (fp32, B=8), then the sparse middles' training (58 to 62)
-for SECOND (B=4) and CBGS (B=2). It prints its running time at the end.
+for SECOND (B=4) and CBGS (B=2), then training and evaluating from a
+KITTI dataset through the public API (63 to 66: the data pipeline's
+native point ops, the loader, train_detector / resume / eval_detector on
+the shipped KITTI car configs, and the two learning-quality gates). It
+prints its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
 CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
@@ -307,6 +311,44 @@ captured. Phases 39-46 drive the captured step itself.
      card vs CPU on the +-12.8 m cut, launches (11 / 8 / 2 / 11), captured
      vs eager, from points, timing; each with its convolutions' device
      time by input shape (conv_shape_table);
+ 63. pointops: csrc/pointops.cc (built by g++ in phase 2) against its
+     numpy twins (core/augment.py) on the inputs GT-AUG gives it in the
+     synthetic tree of phase 64 (a train scene's points in its 6 boxes
+     and 15 from the gt database, the 21 boxes' BEV collisions, the
+     paired intersection areas of the scene's boxes with every database
+     box and of noise_per_object's 100 tries of one box with the other
+     20): masks and collisions array-equal, areas within 1e-6; ms a call
+     of each and of its twin, with the host's CPU;
+ 64. the data path: utils/mini_kitti.py writes the 16-scene tree (the
+     learning gates'); the train pipelines of mini_config and
+     mini_second_config (its HostPlan stage injected) through the
+     loader's 2 fork workers over two epochs equal their in-process
+     replay (datasets/loader/loader.py::replay: each worker's share from
+     its seed and its copy of the dataset); SECOND's batches carry the
+     training plans, equal to host_plan_ref_fn(train=True) of their
+     points; the loader's ms/batch with 2 workers and the pipeline's
+     ms/example in-process, with the host's CPU;
+ 65. the public API at full width: configs/kitti_car_pointpillars.py
+     (bf16 reader and neck) and configs/kitti_car_second.py (fp32 in
+     training, the HostPlan stage injected) as shipped, KITTI_DATA at a
+     64-scene tree (16 / 8 steps an epoch): train_detector for one epoch
+     with a work_dir, resume_from it for a second, eval_detector on val;
+     the official result holds Car_3d_easy and every val token, the
+     optimizer's count on the card equals the trainer's iter after the
+     resume; the kernels a call launches: twice one step's (the captured
+     step's eager warm-up and its capture; replays count nothing), so
+     2 x (10 forward, 6 subm dX, 3 inverse dX, 10 dW) for SECOND's
+     train_detector, none for PointPillars', 2 NMS (and SECOND's 2 x 10
+     window convs) for eval_detector, one NMS a batch; the trainer's
+     ms/step fed by the loader beside phase 55's / 60's captured step,
+     the device's busy share over the resumed epoch (runtime/hooks.py's
+     ProfilerHook), eval ms/frame;
+ 66. tests/test_learning_quality.py's two gates on the card, their recipe
+     (mini_config / mini_second_config, 16 scenes, 150 epochs, B=2, 2
+     workers, scale_batch_by_devices=False) and thresholds: PointPillars
+     Car_3d_easy_loose > 70 and Car_bbox_easy > 40, SECOND > 60 and > 40;
+     both APs, the steps, wall seconds and steps/s, the launches held as
+     phase 65's; a miss fails the run.
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -3598,6 +3640,7 @@ def training_phases(dev, smi):
         phase_train_targets(dev, key, name, batch)
         phase_train_step(dev, key, name, batch, smi)
         times[key] = phase_train_timing(dev, key, name, batch, smi)
+        CAPTURED_MS[key] = times[key]["captured"]
         phase_overfit(dev, key, name, smi)
         phase_loss_eval(dev, key, name, batch)
         gc.collect()
@@ -4084,6 +4127,7 @@ def sparse_training_phases(dev, smi):
         times[key] = phase_train_timing(dev, key, name, data, smi,
                                         label=label, warmup=SPARSE_WARMUP,
                                         repeat=SPARSE_REPEAT)
+        CAPTURED_MS[key] = times[key]["captured"]
         model, vg, asg, cids, state = train_stack(key, dev)
         step = make_train_step(state, vg, asg, cids)
         conv_shape_table(lambda: step.eager(data), label, smi)
@@ -4127,6 +4171,447 @@ def sparse_training_phases(dev, smi):
             plain_ms=t["plain"], bound_ms=t["bound_ms"],
             bound_by=t["bound_by"], library_ms=None))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The data path, the trainer and the KITTI evaluation (phases 63-66)
+# ---------------------------------------------------------------------------
+
+DATA_SCENES = 16        # phase 64's tree, the learning gates' (16 scenes)
+# phase 65's tree: 32 train scans, so that an epoch of the shipped configs
+# runs 16 (KITTI car PointPillars, B=2) or 8 (SECOND, B=4) steps
+API_SCENES = 64
+AREA_TOL = 1e-6         # pointops.cc's areas against the numpy twin
+HOST_REPS = 20          # host timings: median of 20 calls
+LOADER_EPOCHS = 4       # phase 64's loader timing, after two epochs
+# phase 65: the shipped configs through train_detector / eval_detector
+API_PATHS = (("kitti_pp", "KITTI car PointPillars", KITTI_PP_CFG),
+             ("second", "SECOND", SECOND_CFG))
+# the learning gates of tests/test_learning_quality.py: the recipe and
+# the thresholds (Car_3d_easy_loose, Car_bbox_easy)
+GATE_EPOCHS = 150
+GATES = (("pp", "PointPillars", "mini_config", (70.0, 40.0)),
+         ("second", "SECOND", "mini_second_config", (60.0, 40.0)))
+# phases 55 and 60: the captured train step's ms/step from numpy, by key
+CAPTURED_MS = {}
+
+
+def host_ms(fn, reps=HOST_REPS):
+    """Median ms of ``reps`` calls of ``fn()`` on the host's clock."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def same_tree(a, b):
+    """Equal nested dicts / lists / arrays (dtypes included) / scalars."""
+    if isinstance(b, dict):
+        return (isinstance(a, dict) and sorted(a) == sorted(b)
+                and all(same_tree(a[k], b[k]) for k in b))
+    if isinstance(b, (list, tuple)):
+        return len(a) == len(b) and all(map(same_tree, a, b))
+    if isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and a.dtype == b.dtype
+                and np.array_equal(a, b))
+    return type(a) is type(b) and a == b
+
+
+def same_batches(ours, ref, label):
+    """Batches equal key for key (dtypes, values, metadata)."""
+    if len(ours) != len(ref):
+        raise AssertionError(f"{label}: {len(ours)} batches, {len(ref)}")
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        bad = [k for k in set(a) | set(b)
+               if k not in a or k not in b or not same_tree(a[k], b[k])]
+        if bad:
+            raise AssertionError(f"{label}: batch {i} differs in {bad}")
+
+
+def phase_pointops(root):
+    """Phase 63: csrc/pointops.cc (built with the rest in phase 2) against
+    its numpy twins (core/augment.py) on GT-AUG's inputs from the tree at
+    ``root``: a train scene's points in its 6 boxes and the 15 pasted
+    from the gt database; the 21 boxes' BEV collisions; the scene's boxes
+    against every database box, and noise_per_object's 100 tries of one
+    box against the other 20, as paired intersection areas."""
+    import pickle
+    from det3d_tpu_torch.core import augment as aug
+    from det3d_tpu_torch.datasets import build_dataset
+    with open(root / "dbinfos_train.pkl", "rb") as f:
+        db = np.stack([d["box3d_lidar"] for d in pickle.load(f)["Car"]])
+    scene = build_dataset(dict(
+        type="KittiDataset", root_path=str(root), test_mode=True,
+        info_path=str(root / "kitti_infos_train.pkl"),
+        pipeline=[dict(type="LoadPointCloudFromFile"),
+                  dict(type="LoadPointCloudAnnotations")]))[0]["lidar"]
+    pts = scene["points"]
+    rng = np.random.RandomState(SEED)
+    boxes = np.concatenate([scene["annotations"]["boxes"],
+                            db[rng.choice(len(db), 15, replace=False)]])
+    bev = boxes[:, [0, 1, 3, 4, 6]]
+    tries = np.repeat(bev[:1], 100, 0)
+    tries[:, :2] += rng.normal(0, 0.25, (100, 2))
+    tries[:, 4] += rng.uniform(-0.15, 0.15, 100)
+    others = aug.corners_bev(bev[1:])
+    scene_c = aug.corners_bev(bev[:6])
+    db_c = aug.corners_bev(db[:, [0, 1, 3, 4, 6]])
+    ca = np.concatenate([np.repeat(aug.corners_bev(tries), 20, 0),
+                         np.repeat(scene_c, len(db_c), 0)])
+    cb = np.concatenate([np.tile(others, (100, 1, 1)),
+                         np.tile(db_c, (6, 1, 1))])
+    cases = (("points_in_rbbox", f"{len(pts)} points x {len(boxes)} boxes",
+              lambda: aug.points_in_rbbox(pts, boxes),
+              lambda: aug.points_in_rbbox_ref(pts, boxes)),
+             ("box_collision", f"{len(bev)} x {len(bev)} BEV boxes",
+              lambda: aug.box_collision(bev, bev),
+              lambda: aug.box_collision_ref(bev, bev)),
+             ("intersection_area", f"{len(ca)} pairs",
+              lambda: aug.intersection_area(ca, cb),
+              lambda: aug.intersection_area_corners(ca, cb)))
+    cpu = cpu_model()
+    for name, shape, native, twin in cases:
+        a, b = native(), twin()
+        if name == "intersection_area":
+            err = float(np.abs(a - b).max())
+            if err > AREA_TOL:
+                raise AssertionError(f"phase 63 {name}: {err} from the "
+                                     f"numpy twin (limit {AREA_TOL})")
+            what = f"max abs {err:.3g} from the twin, {(a > 0).sum()} > 0"
+        else:
+            if a.dtype != b.dtype or not np.array_equal(a, b):
+                raise AssertionError(f"phase 63 {name}: the native result "
+                                     "differs from the numpy twin")
+            what = f"array-equal to the twin, {int(a.sum())} true"
+        log(f"phase 63 pointops {name} ({shape}): {what}; native "
+            f"{host_ms(native):.4f} ms a call, numpy twin "
+            f"{host_ms(twin):.4f} ms [host: {cpu}]")
+
+
+def mini_dataset(root, config, split, host_plan=False, seed=0):
+    """A split of utils/mini_kitti.py's ``config`` (its name) over the
+    tree at ``root``, built under np.random.seed(seed), and the config;
+    with ``host_plan`` the HostPlan stage injected from the model's spec
+    (the model built on the CPU: only its shapes are read). Returns
+    (dataset, config)."""
+    from det3d_tpu_torch.apis.train import build_stack, inject_host_plan
+    from det3d_tpu_torch.datasets import build_dataset
+    from det3d_tpu_torch.utils import mini_kitti as mk
+    cfg = getattr(mk, config)(str(root), workers=2)
+    if host_plan:
+        model, vg = build_stack(cfg, device="cpu")[:2]
+        if not inject_host_plan(cfg, model, vg, split=split,
+                                train=split == "train"):
+            raise AssertionError(f"{config}: no HostPlan stage injected")
+    np.random.seed(seed)
+    return build_dataset(cfg["data"][split]), cfg
+
+
+def phase_data_path(root, smi):
+    """Phase 64: the train pipelines of the gates' configs (mini_config,
+    mini_second_config with the HostPlan stage) on the tree at ``root``
+    through the loader's 2 fork workers, two epochs: equal to replay (each
+    worker's share in-process, from its seed and its copy of the dataset);
+    SECOND's batches carry the training plans, equal to the numpy build
+    of their points; the loader's ms/batch with 2 workers over
+    LOADER_EPOCHS more epochs, and the pipeline's ms/example in-process."""
+    from det3d_tpu_torch.apis.train import build_stack, host_plan_ref_fn
+    from det3d_tpu_torch.datasets import build_dataloader
+    from det3d_tpu_torch.datasets.loader.loader import replay
+    cpu = cpu_model()
+    for key, config in (("pp", "mini_config"),
+                        ("second", "mini_second_config")):
+        ds, cfg = mini_dataset(root, config, "train",
+                               host_plan=key == "second")
+        loader = build_dataloader(ds, 2, workers_per_gpu=2, seed=0)
+        try:
+            got = []
+            for e in (0, 1):
+                loader.set_epoch(e)
+                got += list(loader)
+            t0 = time.perf_counter()
+            n = 0
+            for e in range(2, 2 + LOADER_EPOCHS):
+                loader.set_epoch(e)
+                n += sum(1 for _ in loader)
+            batch_ms = (time.perf_counter() - t0) * 1e3 / n
+        finally:
+            loader.close()
+        same_batches(got, replay(loader, (0, 1)), f"phase 64 {key}")
+        plans = sorted(k for k in got[0] if k.startswith("plan_"))
+        if key == "second":
+            model, vg = build_stack(cfg, device="cpu")[:2]
+            ref = host_plan_ref_fn(model, vg, train=True)
+            for b in got:
+                want = ref(b["points"], b["num_points"])
+                same_batches([{k: b[k] for k in want}], [want],
+                             "phase 64 second plans")
+            if not any(k.startswith("plan_inv") for k in plans):
+                raise AssertionError("phase 64: no inverse rulebooks")
+        elif plans:
+            raise AssertionError(f"phase 64 pp: plan keys {plans}")
+        np.random.seed(0)
+        one = host_ms(lambda: ds[0], reps=8)
+        log(f"phase 64 data {key} ({config}): {len(got)} batches of 2 over "
+            f"2 epochs on 2 workers equal to their in-process replay; "
+            f"{len(plans)} plan keys a batch"
+            + (" (equal to host_plan_ref_fn(train=True) of their points)"
+               if plans else "")
+            + f"; loader {batch_ms:.2f} ms/batch with 2 workers over "
+            f"{n} batches, the pipeline {one:.2f} ms/example in-process "
+            f"[host: {cpu}]")
+
+
+def epoch_timer():
+    """A runtime hook (runtime/hooks.py): the wall time of an epoch's
+    steps after its first (which captures the step), the card
+    synchronized at both ends: ``ms`` a step over ``steps``, ``wall``."""
+    from det3d_tpu_torch.runtime.hooks import Hook
+
+    class EpochTimer(Hook):
+        t0 = ms = steps = wall = None
+
+        def after_train_iter(self, trainer):
+            if trainer.inner_iter == 0:
+                torch.cuda.synchronize()
+                self.t0 = time.perf_counter()
+            elif self.end_of_epoch(trainer):
+                torch.cuda.synchronize()
+                self.wall = (time.perf_counter() - self.t0) * 1e3
+                self.steps = trainer.inner_iter
+                self.ms = self.wall / self.steps
+
+    return EpochTimer()
+
+
+def device_ms(prof):
+    """The CUDA kernels' device time in a torch.profiler profile, ms."""
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")) / 1e3
+
+
+def api_launches():
+    """The NMS kernel's and the window conv's four paths' counters."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    return dict(launch_counts(), rotated_nms_keep=rotated_nms_keep.launches)
+
+
+def reset_api_launches():
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    reset_launches()
+    rotated_nms_keep.launches = 0
+
+
+def check_launches(label, want):
+    got = api_launches()
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+    return got
+
+
+def phase_api(dev, root, smi):
+    """Phase 65: configs/kitti_car_pointpillars.py (bf16 reader and neck)
+    and configs/kitti_car_second.py (fp32 in training, the HostPlan stage
+    injected) as shipped, KITTI_DATA at the tree at ``root``, through the
+    public API: train_detector for one epoch with a work_dir, then
+    resume_from it for a second, then eval_detector on val. The official
+    result holds Car_3d_easy and every val token; the trainer's step
+    count equals the optimizer's on the card after the resume; the
+    kernels launched: a train_detector call runs its captured step's
+    warm-up (eager) and its capture once, so twice one step's launches
+    (TRAIN_LAUNCHES: 10 forward / 6 subm dX / 3 inverse dX / 10 dW for
+    SECOND, none for PointPillars), and an eval_detector call twice one
+    predict step's (1 NMS, SECOND's 10 window convs), whatever the
+    batches (replays count nothing); the trainer's ms/step fed by the
+    loader (the first epoch's steps after its first) beside phase 55's /
+    60's captured step, the device's busy share over the resumed epoch's
+    steps (runtime/hooks.py's ProfilerHook), eval ms/frame."""
+    import os
+    import tempfile
+    from det3d_tpu_torch.apis.train import train_detector
+    from det3d_tpu_torch.runtime.hooks import ProfilerHook
+    os.environ["KITTI_DATA"] = str(root)
+    zero = dict.fromkeys(api_launches(), 0)
+    # a process's first torch.profiler session sets CUPTI up, which takes
+    # seconds: do it here, outside the measured epochs (--only data runs
+    # no profile before this phase)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+    for key, name, path in API_PATHS:
+        label = f"phase 65 {name}"
+        cfg = (second_config() if key == "second" else pp_config(path))
+        cfg["total_epochs"] = 1
+        cfg["log_interval"] = 1000
+        per_step = TRAIN_LAUNCHES.get(key, dict.fromkeys(
+            TRAIN_LAUNCHES["second"], 0))
+        train_want = dict(zero, **{k: 2 * v for k, v in per_step.items()})
+        with tempfile.TemporaryDirectory() as work:
+            reset_api_launches()
+            timer = epoch_timer()
+            t0 = time.perf_counter()
+            tr = train_detector(cfg, work_dir=work, hooks=[timer])
+            first_s = time.perf_counter() - t0
+            check_launches(f"{label} train_detector", train_want)
+            stages = [s["type"] for s in cfg["data"]["train"]["pipeline"]]
+            if (key == "second") != (stages[-1] == "HostPlan"):
+                raise AssertionError(f"{label}: train stages {stages}")
+            steps = tr.iter
+            cfg["total_epochs"] = 2
+            reset_api_launches()
+            # the resumed epoch's steps after its first under
+            # runtime/hooks.py's ProfilerHook, timed by a second timer
+            # (which stops before the profiler writes its trace)
+            timed = epoch_timer()
+            prof = ProfilerHook(start=steps + 1, steps=steps - 1,
+                                log_dir=str(Path(work) / "profile"))
+            tr = train_detector(cfg, work_dir=work, resume_from=work,
+                                hooks=[timed, prof])
+            check_launches(f"{label} resumed train_detector", train_want)
+            count = int(tr.state.step)
+            if not (tr.epoch == 2 and tr.iter == count == 2 * steps):
+                raise AssertionError(f"{label}: after the resume epoch "
+                                     f"{tr.epoch}, iter {tr.iter}, the "
+                                     f"optimizer's count {count}")
+            reset_api_launches()
+            t0 = time.perf_counter()
+            results, dets, per_frame = eval_printed(cfg, tr.state, work)
+            eval_s = time.perf_counter() - t0
+            eval_want = dict(zero, rotated_nms_keep=2, window_conv=(
+                2 * SECOND_LAUNCHES if key == "second" else 0))
+            check_launches(f"{label} eval_detector", eval_want)
+        official = results["detail"]["eval.kitti"]["official"]
+        tokens = [str(i) for i in range(API_SCENES // 2, API_SCENES)]
+        if "Car_3d_easy" not in official or sorted(dets) != sorted(tokens):
+            raise AssertionError(f"{label}: result keys {sorted(official)}"
+                                 f"[:5], {len(dets)} val tokens")
+        for d in dets.values():
+            if not np.isfinite(d["box3d_lidar"]).all():
+                raise AssertionError(f"{label}: a detection is not finite")
+        captured = CAPTURED_MS.get(key)
+        beside = (f"phase {60 if key == 'second' else 55}'s captured step "
+                  f"from numpy {captured:.3f} ms/step" if captured else
+                  f"phase {60 if key == 'second' else 55} not run")
+        share = device_ms(prof.profile) / timed.wall
+        busy = (f"{share:.2f} busy ({1 - share:.2f} idle)" if share else
+                "not measured (no device time seen)")
+        log(f"{label}: train_detector {steps} steps an epoch on {API_SCENES}"
+            f" scenes ({first_s:.1f} s the first epoch, the build and "
+            f"capture included), resume to epoch {tr.epoch}, optimizer "
+            f"count {count} = the trainer's iter; Car_3d_easy "
+            f"{official['Car_3d_easy']:.2f} over {len(dets)} val tokens "
+            f"(random-init training, 2 epochs); launches a train_detector "
+            f"call {train_want}, an eval_detector call {eval_want}")
+        log(f"{label}: the trainer fed by the loader (2 workers) "
+            f"{timer.ms:.3f} ms/step over {timer.steps} steps beside "
+            f"{beside}; the resumed epoch under ProfilerHook "
+            f"{timed.ms:.3f} ms/step, the device {busy}; eval_detector "
+            f"{eval_s * 1e3 / len(dets):.2f} ms/frame over {len(dets)} "
+            f"frames, the build, the capture and the evaluation included, "
+            f"its own \"Total time per frame\" {per_frame} ms (the predict "
+            f"step and the read-back, the middle third of the batches) "
+            f"[{smi}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def eval_printed(cfg, state, work):
+    """eval_detector(cfg, state, work_dir=work), what it prints passed on;
+    returns (results, detections, its "Total time per frame" in ms or
+    None)."""
+    import contextlib
+    import io
+    from det3d_tpu_torch.apis.train import eval_detector
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        results, dets = eval_detector(cfg, state, work_dir=work)
+    print(out.getvalue(), end="", flush=True)
+    m = re.search(r"Total time per frame: ([0-9.]+) ms", out.getvalue())
+    return results, dets, float(m.group(1)) if m else None
+
+
+def phase_gates(root, smi):
+    """Phase 66: tests/test_learning_quality.py's two gates on the card,
+    their recipe and thresholds: utils/mini_kitti.py's mini_config and
+    mini_second_config over the 16-scene tree at ``root``, 150 epochs,
+    B=2, 2 workers, scale_batch_by_devices=False, checkpoint_interval=150,
+    then eval_detector on val; PointPillars must reach Car_3d_easy_loose
+    > 70 and Car_bbox_easy > 40, SECOND > 60 and > 40. A miss raises. The
+    kernels' launches are held as phase 65 holds them."""
+    import tempfile
+    from det3d_tpu_torch.apis.train import train_detector
+    from det3d_tpu_torch.utils import mini_kitti as mk
+    for key, name, config, (need_3d, need_bbox) in GATES:
+        cfg = getattr(mk, config)(str(root), total_epochs=GATE_EPOCHS,
+                                  workers=2)
+        cfg["checkpoint_interval"] = GATE_EPOCHS
+        cfg["log_interval"] = 100
+        cfg["scale_batch_by_devices"] = False
+        per_step = (TRAIN_LAUNCHES["second"] if key == "second" else
+                    dict.fromkeys(TRAIN_LAUNCHES["second"], 0))
+        zero = dict.fromkeys(api_launches(), 0)
+        with tempfile.TemporaryDirectory() as work:
+            reset_api_launches()
+            t0 = time.perf_counter()
+            tr = train_detector(cfg, work_dir=work)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check_launches(f"phase 66 {name} train_detector", dict(
+                zero, **{k: 2 * v for k, v in per_step.items()}))
+            reset_api_launches()
+            results, _, per_frame = eval_printed(cfg, tr.state, work)
+            check_launches(f"phase 66 {name} eval_detector", dict(
+                zero, rotated_nms_keep=2, window_conv=(
+                    2 * SECOND_LAUNCHES if key == "second" else 0)))
+        d = results["detail"]["eval.kitti"]["official"]
+        ap3d, apbbox = d["Car_3d_easy_loose"], d["Car_bbox_easy"]
+        log(f"phase 66 learning gate {name}: Car_3d_easy_loose {ap3d:.2f} "
+            f"(gate > {need_3d}), Car_bbox_easy {apbbox:.2f} (gate > "
+            f"{need_bbox}), Car_3d_easy {d['Car_3d_easy']:.2f}, "
+            f"Car_bev_easy_loose {d['Car_bev_easy_loose']:.2f}; {tr.iter} "
+            f"steps in {wall:.1f} s ({tr.iter / wall:.1f} steps/s, the "
+            f"build, the workers' start and the capture included; the "
+            f"window-conv and NMS launches twice one step's); eval "
+            f"{per_frame} ms/frame [{smi}]")
+        if not (ap3d > need_3d and apbbox > need_bbox):
+            raise AssertionError(f"phase 66 {name}: the learning gate "
+                                 f"missed: {ap3d:.2f}, {apbbox:.2f}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def data_phases(dev, smi):
+    """Phases 63-66 on two synthetic trees written under TMPDIR by
+    utils/mini_kitti.py: DATA_SCENES scenes (63, 64, 66) and API_SCENES
+    (65)."""
+    import tempfile
+    from det3d_tpu_torch.utils import mini_kitti as mk
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "gate"
+        mk.make_tree(root, n_scenes=DATA_SCENES)
+        log(f"phase 64 tree: {DATA_SCENES} scenes, infos and gt database "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        for phase, run in ((63, lambda: phase_pointops(root)),
+                           (64, lambda: phase_data_path(root, smi)),
+                           (65, lambda: phase_api(dev, api_tree(tmp), smi)),
+                           (66, lambda: phase_gates(root, smi))):
+            t = time.perf_counter()
+            run()
+            log(f"phase {phase} took {time.perf_counter() - t:.1f} s")
+
+
+def api_tree(tmp):
+    from det3d_tpu_torch.utils import mini_kitti as mk
+    root = Path(tmp) / "api"
+    mk.make_tree(root, n_scenes=API_SCENES)
+    return root
 
 
 def conv_timing_main(tree, prec, paths):
@@ -4489,10 +4974,11 @@ def main():
                     choices=("second", "kitti_all", "cbgs", "lyft"),
                     help="time only the device voxels and plan (phase 47) "
                     "on these paths' bench batches")
-    ap.add_argument("--only", choices=("points", "train"),
+    ap.add_argument("--only", choices=("points", "train", "data"),
                     help="run phase 1, the build and only phases 51-52 "
-                    "(Lyft and KITTI-all from points and under TTA) or "
-                    "only the training phases 53-62")
+                    "(Lyft and KITTI-all from points and under TTA), "
+                    "only the training phases 53-62 or only the data, "
+                    "trainer and evaluation phases 63-66")
     ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
                     "--build-timing: the checkout whose det3d_tpu_torch to "
                     "time (default: this one)")
@@ -4515,6 +5001,11 @@ def main():
         training_phases(dev, smi)
         log(f"training phases took {time.perf_counter() - t0:.1f} s")
         return 0
+    if args.only == "data":
+        data_phases(dev, smi)
+        log(f"data phases took {time.perf_counter() - t0:.1f} s with the "
+            f"build")
+        return 0
     kernels = serving_phases(dev, smi)
     # every serving stack and graph is freed before the last phases: Lyft's
     # TTA step alone holds tens of GB
@@ -4525,6 +5016,9 @@ def main():
         gc.collect()
         torch.cuda.empty_cache()
     kernels += training_phases(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    data_phases(dev, smi)
     log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
         f"device check, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)

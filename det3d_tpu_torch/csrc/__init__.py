@@ -16,6 +16,7 @@ built at import time.
 
     lib = load("rotated_nms")      # compiles rotated_nms.cu if needed
     lib = load("hostplan")         # compiles hostplan.cc if needed
+    lib = load("pointops")         # compiles pointops.cc if needed
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ BUILD_DIR = _HERE / "_build"
 
 CUDA_SOURCES = ("rotated_nms", "window_conv",       # *.cu, nvcc
                 "window_conv_bwd")
-HOST_SOURCES = ("hostplan",)                        # *.cc, g++
+HOST_SOURCES = ("hostplan", "pointops")            # *.cc, g++
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -86,7 +87,9 @@ def find_cxx() -> str:
     found = shutil.which("g++")
     if found is None:
         raise RuntimeError("g++ not found on PATH: the host-plan builders "
-                           "(csrc/hostplan.cc) need a C++17 compiler")
+                           "and the data pipeline's geometry (csrc/"
+                           "hostplan.cc, csrc/pointops.cc) need a C++17 "
+                           "compiler")
     return found
 
 
