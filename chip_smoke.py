@@ -5,7 +5,7 @@
                           [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
-    python3 chip_smoke.py --only points|train|data
+    python3 chip_smoke.py --only points|train|data|nusc
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -22,7 +22,8 @@ one): run them on two checkouts in turns on one card (parent, change,
 change, parent) to compare two versions of a kernel on the same
 yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
 and KITTI-all from points and under TTA), only the training phases
-53-62, or only the data, trainer and evaluation phases 63-66.
+53-62, only the data, trainer and evaluation phases 63-66, or only the
+nuScenes, Lyft and CLI phases 67-70.
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -42,8 +43,12 @@ the flagship (fp32, B=8), then the sparse middles' training (58 to 62)
 for SECOND (B=4) and CBGS (B=2), then training and evaluating from a
 KITTI dataset through the public API (63 to 66: the data pipeline's
 native point ops, the loader, train_detector / resume / eval_detector on
-the shipped KITTI car configs, and the two learning-quality gates). It
-prints its running time at the end.
+the shipped KITTI car configs, and the two learning-quality gates),
+then from nuScenes and Lyft trees and through the command line (67 to
+70: multi-sweep loading and CBGS resampling, train_detector / resume /
+eval_detector on the shipped CBGS, Lyft and nuScenes PointPillars
+configs, the 6-channel stem's window conv, the three CLIs). It prints
+its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
 CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
@@ -349,6 +354,39 @@ captured. Phases 39-46 drive the captured step itself.
      Car_3d_easy_loose > 70 and Car_bbox_easy > 40, SECOND > 60 and > 40;
      both APs, the steps, wall seconds and steps/s, the launches held as
      phase 65's; a miss fails the run.
+ 67. nuScenes data: utils/mini_nuscenes.py writes a nuScenes tree and a
+     Lyft tree at nuScenes' scan size (10 scenes of 4 keyframes, 9 sweeps
+     between keyframes, 29820 clutter points a sweep: 300000 points a
+     10-sweep scan), prepared by cli.py's data preparation (10-sweep
+     infos, the nuScenes gt database); the infos (9 past sweeps each, a
+     scene's first keyframe padded with itself, 9-dim boxes); CBGS's
+     train pipeline as shipped with the HostPlan stage through the
+     loader's 2 fork workers over two epochs equal to their in-process
+     replay; the examples 6 wide (xyz, intensity, ring, time lag) and
+     the stack's stem (27, 6, 16); the pipeline's ms/example and the
+     loader's ms/batch, with the host's CPU;
+ 68. configs/nusc_cbgs_voxelnet.py as shipped (samples_per_gpu cut from
+     16 to 2, workers from 6 to 2), NUSC_DATA at the tree: train_detector
+     one epoch (4 steps) with a work_dir, resumed for a second under
+     ProfilerHook, eval_detector on val with the NDS over every val
+     token; launches 2 x (11 / 8 / 2 / 11) a train_detector call, 2 NMS
+     and 2 x 11 bf16 window convs an eval_detector call; the trainer's
+     ms/step fed by the loader beside phase 62's captured step, the
+     device's busy share, eval ms/frame; then the window conv at Cin 6
+     (the stem on a nuScenes batch) against its plain twin in fp32 and
+     bf16, and its dW (fp32);
+ 69. configs/lyft_cbgs_voxelnet.py (samples_per_gpu cut from 6 to 2,
+     workers from 4 to 2) over the Lyft tree and
+     configs/nusc_pointpillars.py (B=4 as shipped) over the nuScenes
+     tree: train_detector one epoch and eval_detector, launches exact
+     (Lyft as CBGS, its window convs fp32; PointPillars 2 NMS an eval);
+     Lyft's ms/step and peak memory;
+ 70. the CLIs, each a process of its own: ``python -m
+     det3d_tpu_torch.cli create_data nuscenes_data_prep`` on a fresh
+     tree, ``train`` on configs/smoke_kitti_pointpillars.py (total_epochs
+     cut to 1 in a copy) over a 16-scene mini-KITTI tree and ``test`` on
+     its work dir; each exits with 0 and ``test`` prints the official
+     KITTI result.
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -3855,8 +3893,11 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
                 f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
                 f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB) [{smi}]")
     for kind, t in tot.items():
+        ran = t["bytes"] > 0            # the stem alone runs dW only
         t["bound_ms"], t["bound_by"] = bound(t.pop("bytes"), t.pop("flops"),
                                              FP32_FLOPS)
+        if not ran:
+            continue
         log(f"{label} {kind} over the middle's layers: a call {t['ms']:.4f} "
             f"ms, device {t['device']:.4f} ms, plain {t['plain']:.3f} ms, "
             f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max abs err "
@@ -3914,21 +3955,18 @@ def zero_grad_bias(names):
             and "Conv" in n and "backbone" in n}
 
 
-def phase_sparse_step(dev, key, name, data, smi, cut=None):
-    """Phase 60 (62 CBGS): one eager train step on the card and on the
-    CPU from the same weights and host training plan (``cut``: the CPU
-    comparison on that (config, batch) instead): the loss within
-    TRAIN_LOSS_REL, every gradient within TRAIN_GRAD_REL relative L2 but
-    the conv biases before a training BN (zero_grad_bias), which must be
-    below 1e-4 of their layer's weight gradient; the stem's figure
-    printed. Then on the full batch the window-conv kernels' launches of
-    one eager step (TRAIN_LAUNCHES). Returns the launch counts."""
+def step_card_vs_cpu(dev, label, stacks, batch, smi):
+    """One eager train step on the card and on the CPU from the same
+    weights and batch (``stacks(device)``: the (model, voxel_gen,
+    assigners, class ids, TrainState) on ``device``): the loss within
+    TRAIN_LOSS_REL, every gradient within SPARSE_GRAD_REL relative L2 (the
+    head's within SPARSE_HEAD_REL) but the conv biases before a training
+    BN (zero_grad_bias), which must be below 1e-4 of their layer's weight
+    gradient; the stem's figure printed."""
     from det3d_tpu_torch.parallel.train import make_train_step
-    label = f"phase {60 if key == 'second' else 62} {name}"
-    cfg, batch = cut or (train_config(key), data)
     runs = {}
     for device in (dev, "cpu"):
-        model, vg, asg, cids, state = train_stack(key, device, cfg=cfg)
+        model, vg, asg, cids, state = stacks(device)
         seen = spy_grads(state)
         t = time.perf_counter()
         m = make_train_step(state, vg, asg, cids).eager(batch)
@@ -3975,6 +4013,19 @@ def phase_sparse_step(dev, key, name, data, smi, cut=None):
     if bias_worst[0] > 1e-4:
         raise AssertionError(f"{label}: gradient of {bias_worst[1]} is not "
                              f"zero: {bias_worst[0]}")
+
+
+def phase_sparse_step(dev, key, name, data, smi, cut=None):
+    """Phase 60 (62 CBGS): one eager train step on the card and on the
+    CPU from the same weights and host training plan (step_card_vs_cpu;
+    ``cut``: the comparison on that (config, batch) instead). Then on the
+    full batch the window-conv kernels' launches of one eager step
+    (TRAIN_LAUNCHES). Returns the launch counts."""
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = f"phase {60 if key == 'second' else 62} {name}"
+    cfg, batch = cut or (train_config(key), data)
+    step_card_vs_cpu(dev, label, lambda d: train_stack(key, d, cfg=cfg),
+                     batch, smi)
     if cut is not None:
         model, vg, asg, cids, state = train_stack(key, dev)
         make_train_step(state, vg, asg, cids).eager(data)
@@ -4102,8 +4153,6 @@ def sparse_training_phases(dev, smi):
     overfit) and from points (61), CBGS's step (62: card vs CPU on the
     +-CBGS_CUT m cut, launches, captured vs eager, from points, timing).
     Returns the kernels' JSON entries."""
-    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv_dw,
-                                                      window_conv_inv)
     from det3d_tpu_torch.parallel.train import make_train_step
     layers = {"second": SECOND_LAYERS, "cbgs": CBGS_LAYERS}
     kern, launches, times = {}, {}, {}
@@ -4145,31 +4194,39 @@ def sparse_training_phases(dev, smi):
             f"eager peak {t['peak'][0] / 2**30:.2f} GiB, captured pool "
             f"reserved {t['peak'][1] / 2**30:.2f} GiB; window-conv launches "
             f"a step {launches[key]} [{smi}]")
+    return [e for key, _, _, _ in SPARSE_TRAIN
+            for e in bwd_entries(f"{key}_train", kern[key], launches[key])]
+
+
+def bwd_entries(path, kern, launches):
+    """The JSON line's entries of a train path's backward kernels: dW and
+    the inverse dX (window_conv_bwd.cu) and the subm dX (the forward
+    kernel), from phase_bwd_kernels' sums ``kern`` and the path's launch
+    counts ``launches``."""
+    from det3d_tpu_torch.ops.window_conv_cuda import (window_conv_dw,
+                                                      window_conv_inv)
     src = dict(route="cuda", source="det3d_tpu_torch/csrc/window_conv_bwd.cu",
-               replaces="det3d_tpu/ops/sparse.py:883", library_ms=None)
+               library_ms=None)
     out = []
-    for key, _, _, _ in SPARSE_TRAIN:
-        for kind, fn, rep in (("dw", window_conv_dw,
-                               "det3d_tpu/ops/sparse.py:883"),
-                              ("inv", window_conv_inv,
-                               "det3d_tpu/ops/sparse.py:1033")):
-            t = kern[key][kind]
-            out.append(dict(
-                src, name=fn.__name__, replaces=rep, path=f"{key}_train",
-                dtype="fp32", launches=launches[key][fn.__name__],
-                max_abs_err=t["err"], ms=t["ms"], device_ms=t["device"],
-                plain_ms=t["plain"], bound_ms=t["bound_ms"],
-                bound_by=t["bound_by"]))
-        t = kern[key]["subm_dx"]
+    for kind, fn, rep in (("dw", window_conv_dw,
+                           "det3d_tpu/ops/sparse.py:883"),
+                          ("inv", window_conv_inv,
+                           "det3d_tpu/ops/sparse.py:1033")):
+        t = kern[kind]
         out.append(dict(
-            name="window_conv", route="cuda",
-            source="det3d_tpu_torch/csrc/window_conv.cu",
-            replaces="det3d_tpu/ops/band_conv.py:216",
-            path=f"{key}_train_subm_dx", dtype="fp32",
-            launches=launches[key]["window_conv_subm_dx"],
-            max_abs_err=t["err"], ms=t["ms"], device_ms=t["device"],
-            plain_ms=t["plain"], bound_ms=t["bound_ms"],
-            bound_by=t["bound_by"], library_ms=None))
+            src, name=fn.__name__, replaces=rep, path=path, dtype="fp32",
+            launches=launches[fn.__name__], max_abs_err=t["err"], ms=t["ms"],
+            device_ms=t["device"], plain_ms=t["plain"],
+            bound_ms=t["bound_ms"], bound_by=t["bound_by"]))
+    t = kern["subm_dx"]
+    out.append(dict(
+        name="window_conv", route="cuda",
+        source="det3d_tpu_torch/csrc/window_conv.cu",
+        replaces="det3d_tpu/ops/band_conv.py:216", path=f"{path}_subm_dx",
+        dtype="fp32", launches=launches["window_conv_subm_dx"],
+        max_abs_err=t["err"], ms=t["ms"], device_ms=t["device"],
+        plain_ms=t["plain"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=None))
     return out
 
 
@@ -4366,12 +4423,19 @@ def phase_data_path(root, smi):
 
 def epoch_timer():
     """A runtime hook (runtime/hooks.py): the wall time of an epoch's
-    steps after its first (which captures the step), the card
-    synchronized at both ends: ``ms`` a step over ``steps``, ``wall``."""
+    steps after its first (the call's first captures the step; an epoch's
+    first waits for its loader's workers), the card synchronized at both
+    ends: ``ms`` a step over ``steps`` and ``wall`` over every epoch timed,
+    ``epochs`` the ms a step of each (between two synchronizations the
+    host may run a step ahead, so a single step's interval says nothing:
+    an epoch's mean is the sample)."""
     from det3d_tpu_torch.runtime.hooks import Hook
 
     class EpochTimer(Hook):
         t0 = ms = steps = wall = None
+
+        def __init__(self):
+            self.epochs, self.walls = [], []
 
         def after_train_iter(self, trainer):
             if trainer.inner_iter == 0:
@@ -4379,8 +4443,11 @@ def epoch_timer():
                 self.t0 = time.perf_counter()
             elif self.end_of_epoch(trainer):
                 torch.cuda.synchronize()
-                self.wall = (time.perf_counter() - self.t0) * 1e3
-                self.steps = trainer.inner_iter
+                wall = (time.perf_counter() - self.t0) * 1e3
+                self.walls.append((wall, trainer.inner_iter))
+                self.epochs.append(wall / trainer.inner_iter)
+                self.wall = sum(w for w, _ in self.walls)
+                self.steps = sum(n for _, n in self.walls)
                 self.ms = self.wall / self.steps
 
     return EpochTimer()
@@ -4413,6 +4480,18 @@ def check_launches(label, want):
     return got
 
 
+def warm_profiler(dev):
+    """A process's first torch.profiler session sets CUPTI up, which takes
+    seconds (about 10 s on the H100's host): run one here, outside the
+    measured epochs (--only data and --only nusc run no profile before
+    phases 65 and 68)."""
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1)
+    torch.cuda.synchronize()
+
+
 def phase_api(dev, root, smi):
     """Phase 65: configs/kitti_car_pointpillars.py (bf16 reader and neck)
     and configs/kitti_car_second.py (fp32 in training, the HostPlan stage
@@ -4436,14 +4515,7 @@ def phase_api(dev, root, smi):
     from det3d_tpu_torch.runtime.hooks import ProfilerHook
     os.environ["KITTI_DATA"] = str(root)
     zero = dict.fromkeys(api_launches(), 0)
-    # a process's first torch.profiler session sets CUPTI up, which takes
-    # seconds: do it here, outside the measured epochs (--only data runs
-    # no profile before this phase)
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]):
-        torch.ones(1, device=dev).add_(1)
-    torch.cuda.synchronize()
+    warm_profiler(dev)
     for key, name, path in API_PATHS:
         label = f"phase 65 {name}"
         cfg = (second_config() if key == "second" else pp_config(path))
@@ -4612,6 +4684,516 @@ def api_tree(tmp):
     root = Path(tmp) / "api"
     mk.make_tree(root, n_scenes=API_SCENES)
     return root
+
+
+# ---------------------------------------------------------------------------
+# nuScenes and Lyft data, their evaluations and the CLIs (phases 67-70)
+# ---------------------------------------------------------------------------
+
+# phase 67's trees (utils/mini_nuscenes.py): NUSC_SCENES scenes of 4
+# keyframes with 9 sweeps between keyframes, so that a keyframe past a
+# scene's first has its 9 past sweeps; each sweep 180 object points and
+# NUSC_CLUTTER clutter points, so that a 10-sweep scan holds exactly the
+# 300000 points of the shipped Reformat(max_points=300000). Half the
+# scenes are the train split: 20 train and 20 val keyframes. CBGS keeps
+# int(20 x 0.2) = 4 infos of each of the 2 classes present of its 10 (8
+# examples, 4 steps of B=2 an epoch), Lyft int(20 x 2/7) = 5 of 2 of 7
+# (5 steps), nuScenes PointPillars 8 (2 steps of its shipped B=4). The
+# cuts: scenes (a real split holds 28130 train keyframes) and epochs
+# (one, and one more resumed for CBGS; NUSC_PP_EPOCHS for nuScenes
+# PointPillars, whose trainer-fed step is timed at the second step of each
+# epoch; 20 shipped); CBGS's and Lyft's samples_per_gpu (16 and 6) cut to
+# NUSC_B, their workers_per_gpu (6, 4) to NUSC_WORKERS.
+NUSC_SCENES = 10
+NUSC_SWEEPS_BETWEEN = 9
+NUSC_CLUTTER = 29820
+NUSC_MAX_POINTS = 300000                # the shipped Reformat's
+NUSC_B = 2
+NUSC_WORKERS = 2
+NUSC_PP_EPOCHS = 6
+# the shipped nuScenes and Lyft configs, the data root's variable and the
+# dataset's result key
+NUSC_PATHS = {"cbgs": ("CBGS", CBGS_CFG, "NUSC_DATA", "nusc"),
+              "lyft": ("Lyft CBGS", LYFT_CFG, "LYFT_DATA", "lyft"),
+              "nusc_pp": ("nuScenes PointPillars", NUSC_PP_CFG, "NUSC_DATA",
+                          "nusc")}
+# the 6-channel stem of the CBGS and Lyft middles on a nuScenes batch,
+# and Lyft's middle (CBGS's) behind it
+STEM_6 = (("s0", 6, 16, True),)
+LYFT_TRAIN_LAYERS = STEM_6 + CBGS_LAYERS[1:]
+
+
+def nusc_tree(root, lyft=False):
+    """A mini tree at nuScenes' scan size at ``root``, prepared as a user
+    prepares one (cli.py's data preparation: 10-sweep infos and, for
+    nuScenes, the gt database; Lyft's categories renamed first)."""
+    from det3d_tpu_torch import cli
+    from det3d_tpu_torch.utils import mini_nuscenes as mn
+    t0 = time.perf_counter()
+    mn.make_tree(root, n_scenes=NUSC_SCENES,
+                 sweeps_between=NUSC_SWEEPS_BETWEEN, clutter=NUSC_CLUTTER)
+    if lyft:
+        mn.lyft_categories(root)
+        cli._lyft_data_prep(str(root), mn.VERSION)
+    else:
+        cli._nuscenes_data_prep(str(root), mn.VERSION)
+    return time.perf_counter() - t0
+
+
+def nusc_config(key, root, cut=None):
+    """A shipped nuScenes or Lyft config as a dict, its data root at
+    ``root``, with the cuts of NUSC_B and NUSC_WORKERS (nuScenes
+    PointPillars keeps its shipped batch of 4); ``cut``: sparse_config's
+    range and voxel cut."""
+    import os
+    _, path, env, _ = NUSC_PATHS[key]
+    os.environ[env] = str(root)
+    cfg = sparse_config(path, cut=cut)
+    if key != "nusc_pp":
+        cfg["data"]["samples_per_gpu"] = NUSC_B
+    cfg["data"]["workers_per_gpu"] = NUSC_WORKERS
+    cfg["total_epochs"] = 1
+    cfg["log_interval"] = 1000
+    cfg["tensorboard"] = False
+    return cfg
+
+
+def phase_nusc_data(root, smi):
+    """Phase 67: the tree's infos (20 train and 20 val keyframes, 9 past
+    sweeps each, the first keyframe of a scene padded with itself, 9-dim
+    boxes), CBGS's train pipeline as shipped with the HostPlan stage
+    (training plans) through the loader's 2 fork workers over two epochs
+    equal to their in-process replay, the examples' width (6: xyz,
+    intensity, ring, time lag) against the stack's stem, a scan's points
+    (10 sweeps of 180 + NUSC_CLUTTER); the pipeline's ms/example
+    in-process and the loader's ms/batch with 2 workers. Returns a loader
+    batch (with its plan)."""
+    import pickle
+    from det3d_tpu_torch.apis.train import (build_stack, example_width,
+                                            inject_host_plan)
+    from det3d_tpu_torch.datasets import build_dataloader, build_dataset
+    from det3d_tpu_torch.datasets.loader.loader import replay
+    cpu = cpu_model()
+    label = "phase 67 nuScenes data"
+    keyframes = NUSC_SCENES // 2 * 4
+    for split in ("train", "val"):
+        infos = pickle.load(open(root / f"infos_{split}_10sweeps_withvelo"
+                                 ".pkl", "rb"))
+        bad = [i["token"] for i in infos
+               if len(i["sweeps"]) != 9 or i["gt_boxes"].shape[1:] != (9,)
+               or not np.isfinite(i["gt_boxes"]).all()]
+        if len(infos) != keyframes or bad:
+            raise AssertionError(f"{label}: {len(infos)} {split} infos, bad "
+                                 f"{bad[:3]}")
+    first = infos[0]["sweeps"]
+    if first[0]["transform_matrix"] is not None or any(
+            s["sample_data_token"] != first[0]["sample_data_token"]
+            for s in first):
+        raise AssertionError(f"{label}: a scene's first keyframe is not "
+                             f"padded with itself")
+    cfg = nusc_config("cbgs", root)
+    width = example_width(cfg["data"]["train"])
+    model, vg = build_stack(cfg, device="cpu", point_width=width)[:2]
+    stem_w = tuple(model.backbone.SparseConvBN_0.weight.shape)
+    if width != 6 or stem_w != (27, 6, 16):
+        raise AssertionError(f"{label}: examples {width} wide, the stem "
+                             f"{stem_w}")
+    if not inject_host_plan(cfg, model, vg, split="train", train=True):
+        raise AssertionError(f"{label}: no HostPlan stage injected")
+    np.random.seed(0)
+    ds = build_dataset(cfg["data"]["train"])
+    loader = build_dataloader(ds, NUSC_B, workers_per_gpu=NUSC_WORKERS,
+                              seed=0)
+    try:
+        got = []
+        for e in (0, 1):
+            loader.set_epoch(e)
+            got += list(loader)
+        t0 = time.perf_counter()
+        loader.set_epoch(2)
+        n = sum(1 for _ in loader)
+        batch_ms = (time.perf_counter() - t0) * 1e3 / n
+    finally:
+        loader.close()
+    same_batches(got, replay(loader, (0, 1)), label)
+    b = got[0]
+    scan = [int(k) for k in b["num_points"]]
+    plans = sorted(k for k in b if k.startswith("plan_"))
+    want = 10 * (3 * 60 + NUSC_CLUTTER)         # 10 sweeps of a keyframe
+    if (b["points"].shape[1:] != (NUSC_MAX_POINTS, 6)
+            or scan != [want] * NUSC_B
+            or not any(k.startswith("plan_inv") for k in plans)):
+        raise AssertionError(f"{label}: points {b['points'].shape}, scans "
+                             f"{scan}, plan keys {plans}")
+    np.random.seed(0)
+    one = host_ms(lambda: ds[0], reps=4)
+    log(f"{label}: {len(ds)} CBGS-resampled train examples of "
+        f"{keyframes} keyframes a split, 9 past sweeps each; {len(got)} "
+        f"batches "
+        f"of {NUSC_B} over 2 epochs on {NUSC_WORKERS} workers equal to "
+        f"their in-process replay; {len(plans)} plan keys a batch "
+        f"(training plans); examples {width} wide (xyz, intensity, ring, "
+        f"time lag), the stem {stem_w}; {scan[0]} points a scan; the "
+        f"pipeline {one:.1f} ms/example in-process (10 sweeps read, "
+        f"augmented, the training plan built), the loader {batch_ms:.1f} "
+        f"ms/batch with {NUSC_WORKERS} workers [host: {cpu}]")
+    return b
+
+
+def phase_stem_6(dev, batch, smi):
+    """Phase 68's stem check: the window conv at Cin 6 (the stem of CBGS's
+    and Lyft's middles on a nuScenes batch: bf16 rows of 12 bytes, fp32
+    of 24) on the batch's plan, forward in fp32 and bf16 against its plain
+    twin (conv_vs_plain), and dW (fp32, the backward kernels' one
+    precision: training runs fp32) against window_conv_dw_ref
+    (phase_bwd_kernels)."""
+    for prec in ("fp32", "bf16"):
+        case = conv_cases(batch, dev, DTYPES[prec], STEM_6)[0]
+        conv_vs_plain(case, prec, "phase 68 stem Cin 6")
+    phase_bwd_kernels(dev, batch, STEM_6, "phase 68 stem Cin 6", smi)
+
+
+def lyft_batch(root):
+    """NUSC_B Lyft train examples as train_detector's loader gives them
+    (configs/lyft_cbgs_voxelnet.py's pipeline over the tree, 6 columns,
+    the HostPlan stage: training plans), built and collated in-process."""
+    from det3d_tpu_torch.apis.train import (build_stack, example_width,
+                                            inject_host_plan)
+    from det3d_tpu_torch.datasets import build_dataset
+    from det3d_tpu_torch.datasets.loader.loader import collate
+    cfg = nusc_config("lyft", root)
+    model, vg = build_stack(cfg, device="cpu", point_width=example_width(
+        cfg["data"]["train"]))[:2]
+    inject_host_plan(cfg, model, vg, split="train", train=True)
+    np.random.seed(0)
+    ds = build_dataset(cfg["data"]["train"])
+    return collate([ds[i] for i in range(NUSC_B)])
+
+
+def phase_lyft_kernels(dev, root, smi):
+    """Phase 69's checks of Lyft's train step at its own shapes, on a batch
+    of the tree (lyft_batch): the window conv's forward (fp32, within
+    CONV_TOL) and backward kernels (phase_bwd_kernels, within BWD_TOL)
+    against their plain twins at every conv of Lyft's middle, the Cin-6
+    stem included (LYFT_TRAIN_LAYERS; the (41, 2016, 2016) grid's training
+    plan); then one eager train step card vs CPU (step_card_vs_cpu) from
+    the same random weights (models/builder.py::init_weights, seed 0, as
+    train_detector draws them) on the range cut to +-CBGS_CUT m and
+    CBGS_CUT_VOXELS voxels, the batch's points planned anew for the cut.
+    Returns phase_bwd_kernels' sums."""
+    from det3d_tpu_torch.apis.train import TRAIN_KEYS, build_stack, init_state
+    from det3d_tpu_torch.models.builder import init_weights
+    label = "phase 69 Lyft"
+    batch = lyft_batch(root)
+    if not any(k.startswith("plan_inv") for k in batch):
+        raise AssertionError(f"{label}: no inverse rulebooks in the batch")
+    for case in conv_cases(batch, dev, torch.float32, LYFT_TRAIN_LAYERS):
+        conv_vs_plain(case, "fp32", label)
+    kern = phase_bwd_kernels(dev, batch, LYFT_TRAIN_LAYERS, label, smi)
+    cut = nusc_config("lyft", root, cut=(CBGS_CUT, CBGS_CUT_VOXELS))
+    data = with_train_plan(None, {k: batch[k] for k in TRAIN_KEYS}, cfg=cut)
+    width = batch["points"].shape[-1]
+    init = build_stack(cut, "cpu", point_width=width)[0]
+    init_weights(init, torch.Generator().manual_seed(0))
+    weights = init.state_dict()
+
+    def stacks(device):
+        model, vg, asg, cids, _ = build_stack(cut, device, point_width=width)
+        model.load_state_dict(weights)
+        return model, vg, asg, cids, init_state(cut, model, TRAIN_TOTAL)[0]
+
+    step_card_vs_cpu(dev, f"{label} at +-{CBGS_CUT} m ({CBGS_CUT_VOXELS} "
+                     f"voxels)", stacks, data, smi)
+    return kern
+
+
+def fed_ms(timer):
+    """An epoch_timer's reading: ms a step over its steps, and over two
+    epochs or more the median and spread of the epochs' means."""
+    out = f"{timer.ms:.3f} ms/step over {timer.steps} steps"
+    e = timer.epochs
+    if len(e) > 1:
+        out += (f" (the epochs' means: median {statistics.median(e):.3f}, "
+                f"{min(e):.3f}-{max(e):.3f} over {len(e)} epochs)")
+    return out
+
+
+def nusc_train(dev, key, cfg, work, want, hooks=(), resume=False):
+    """train_detector(cfg) on the card (resumed from ``work`` with
+    ``resume``), its launches held to ``want``; returns (trainer, wall
+    seconds, peak GiB)."""
+    from det3d_tpu_torch.apis.train import train_detector
+    reset_api_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = train_detector(cfg, work_dir=work,
+                        resume_from=work if resume else None, hooks=hooks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_launches(f"{NUSC_PATHS[key][0]} train_detector", want)
+    return tr, wall, torch.cuda.max_memory_allocated() / 2**30
+
+
+def nusc_eval(key, cfg, state, work, root, want):
+    """eval_detector(cfg, state) on val: its launches held to ``want``,
+    detections for every val token, 9-dim boxes whose centers are finite
+    and inside the post-center range, scores in [0, 1], the result's NDS
+    (nuScenes) or mAP (Lyft) line. (The sizes are exp of the head's
+    output: a head trained a few steps from random weights, with its
+    BatchNorms' running statistics still near their initial values,
+    decodes sizes that may overflow fp32, on the card as on the CPU.)
+    Returns (results, detections, seconds, its "Total time per frame",
+    the boxes whose sizes are not finite)."""
+    import pickle
+    name, _, _, result = NUSC_PATHS[key]
+    reset_api_launches()
+    t0 = time.perf_counter()
+    results, dets, per_frame = eval_printed(cfg, state, work)
+    secs = time.perf_counter() - t0
+    check_launches(f"{name} eval_detector", want)
+    prefix = "lyft_" if key == "lyft" else ""
+    suffix = "" if key == "lyft" else "_withvelo"
+    val = pickle.load(open(root / f"{prefix}infos_val_10sweeps{suffix}.pkl",
+                           "rb"))
+    text = results["results"][result]
+    if sorted(dets) != sorted(i["token"] for i in val) or (
+            ("NDS:" if result == "nusc" else "mAP") not in text):
+        raise AssertionError(f"{name}: {len(dets)} val tokens, result "
+                             f"{text[:80]!r}")
+    lo, hi = (np.asarray(r) for r in np.split(np.asarray(
+        cfg["test_cfg"]["post_center_limit_range"]), 2))
+    overflow = 0
+    for d in dets.values():
+        box, scores = d["box3d_lidar"], d["scores"]
+        centers = box[:, :3]
+        if (box.shape[1:] != (9,) or not np.isfinite(centers).all()
+                or (centers < lo).any() or (centers > hi).any()
+                or not ((scores >= 0) & (scores <= 1)).all()):
+            raise AssertionError(f"{name}: detections {box[:4]}, scores "
+                                 f"{scores[:4]}")
+        overflow += int((~np.isfinite(box)).any(1).sum())
+    return results, dets, secs, per_frame, overflow
+
+
+def api_want(zero, per_step=None, nms=0, convs=0):
+    """The launches of an API call: twice one step's (the captured step's
+    eager warm-up and its capture). ``per_step``: a train step's window-
+    conv launches by kernel path; ``nms`` and ``convs``: a predict step's
+    NMS and window-conv launches."""
+    step = dict(per_step or {}, rotated_nms_keep=nms)
+    step["window_conv"] = convs or step.get("window_conv", 0)
+    return dict(zero, **{k: 2 * v for k, v in step.items()})
+
+
+def phase_nusc_cbgs(dev, root, batch, smi):
+    """Phase 68: configs/nusc_cbgs_voxelnet.py as shipped (but NUSC_B and
+    NUSC_WORKERS) over the tree: train_detector one epoch with a work dir
+    (launches 2 x (11 / 8 / 2 / 11)), resumed for a second under
+    ProfilerHook (the device's busy share), eval_detector on val (1 NMS
+    and 11 bf16 window convs a predict step, twice: its warm-up and
+    capture) with the NDS over every val token; the trainer's ms/step fed
+    by the loader beside phase 62's captured step; then the stem at Cin 6
+    (phase_stem_6)."""
+    import tempfile
+    from det3d_tpu_torch.runtime.hooks import ProfilerHook
+    label = "phase 68 CBGS"
+    cfg = nusc_config("cbgs", root)
+    zero = dict.fromkeys(api_launches(), 0)
+    warm_profiler(dev)
+    train_want = api_want(zero, TRAIN_LAUNCHES["cbgs"])
+    with tempfile.TemporaryDirectory() as work:
+        timer = epoch_timer()
+        tr, first_s, peak = nusc_train(dev, "cbgs", cfg, work, train_want,
+                                       hooks=[timer])
+        steps = tr.iter
+        stem = tuple(tr.state.model.backbone.SparseConvBN_0.weight.shape)
+        cfg["total_epochs"] = 2
+        timed = epoch_timer()
+        prof = ProfilerHook(start=steps + 1, steps=steps - 1,
+                            log_dir=str(Path(work) / "profile"))
+        tr, _, _ = nusc_train(dev, "cbgs", cfg, work, train_want,
+                              hooks=[timed, prof], resume=True)
+        count = int(tr.state.step)
+        if not (tr.epoch == 2 and tr.iter == count == 2 * steps):
+            raise AssertionError(f"{label}: after the resume epoch "
+                                 f"{tr.epoch}, iter {tr.iter}, the "
+                                 f"optimizer's count {count}")
+        eval_want = api_want(zero, nms=1, convs=CBGS_LAUNCHES)
+        results, dets, eval_s, per_frame, overflow = nusc_eval(
+            "cbgs", cfg, tr.state, work, root, eval_want)
+    nds = results["detail"]["eval.nusc"]["nd_score"]
+    captured = CAPTURED_MS.get("cbgs")
+    beside = (f"phase 62's captured step from numpy {captured:.3f} ms/step"
+              if captured else "phase 62 not run")
+    share = device_ms(prof.profile) / timed.wall
+    busy = (f"{share:.2f} busy ({1 - share:.2f} idle)" if share else
+            "not measured (no device time seen)")
+    log(f"{label}: train_detector {steps} steps an epoch at B={NUSC_B} "
+        f"({first_s:.1f} s the first epoch, the build, the workers' start "
+        f"and the capture included; peak {peak:.2f} GiB), the stem "
+        f"{stem}; resume to epoch {tr.epoch}, optimizer count {count} = "
+        f"the trainer's iter; NDS {nds:.4f} over {len(dets)} val tokens "
+        f"(random-init training, 2 epochs; {overflow} boxes of "
+        f"{sum(len(d['scores']) for d in dets.values())} with sizes past "
+        f"fp32); launches a train_detector call "
+        f"{train_want}, an eval_detector call {eval_want}")
+    log(f"{label}: the trainer fed by the loader ({NUSC_WORKERS} workers) "
+        f"{fed_ms(timer)} beside {beside}; the resumed epoch under "
+        f"ProfilerHook {fed_ms(timed)}, the "
+        f"device {busy}; eval_detector {eval_s * 1e3 / len(dets):.2f} "
+        f"ms/frame over {len(dets)} frames (the build, the capture, the "
+        f"loading and the evaluation included), its own \"Total time per "
+        f"frame\" {per_frame} ms [{smi}]")
+    phase_stem_6(dev, batch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_nusc_others(dev, roots, smi):
+    """Phase 69: configs/lyft_cbgs_voxelnet.py (fp32 middle; NUSC_B,
+    NUSC_WORKERS) over the Lyft tree and configs/nusc_pointpillars.py
+    (bf16 reader and neck, B=4 as shipped, GT-AUG from the tree's gt
+    database; NUSC_PP_EPOCHS epochs) over the nuScenes tree: first Lyft's
+    kernels and one step card vs CPU (phase_lyft_kernels), then
+    train_detector (launches: Lyft 2 x (11 / 8 / 2 / 11), PointPillars
+    none), eval_detector on val (Lyft 2 x (1 NMS, 11 fp32 window convs),
+    PointPillars 2 NMS); Lyft's ms/step fed by the loader and its peak
+    memory. Returns the JSON line's entries of Lyft's backward kernels."""
+    import tempfile
+    zero = dict.fromkeys(api_launches(), 0)
+    kern = phase_lyft_kernels(dev, roots["lyft"], smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    entries = []
+    for key in ("lyft", "nusc_pp"):
+        name = NUSC_PATHS[key][0]
+        label = f"phase 69 {name}"
+        root = roots[key]
+        cfg = nusc_config(key, root)
+        if key == "nusc_pp":
+            cfg["total_epochs"] = NUSC_PP_EPOCHS
+        b = cfg["data"]["samples_per_gpu"]
+        per_step = TRAIN_LAUNCHES["cbgs"] if key == "lyft" else None
+        train_want = api_want(zero, per_step)
+        eval_want = api_want(zero, nms=1,
+                             convs=CBGS_LAUNCHES if key == "lyft" else 0)
+        with tempfile.TemporaryDirectory() as work:
+            timer = epoch_timer()
+            tr, wall, peak = nusc_train(dev, key, cfg, work, train_want,
+                                        hooks=[timer])
+            results, dets, eval_s, per_frame, overflow = nusc_eval(
+                key, cfg, tr.state, work, root, eval_want)
+        if key == "lyft":
+            entries = bwd_entries("lyft_train", kern, train_want)
+        detail = results["detail"]
+        metric = (f"mAP {detail['eval.lyft']['mAP']:.4f}" if key == "lyft"
+                  else f"NDS {detail['eval.nusc']['nd_score']:.4f}")
+        log(f"{label}: train_detector {tr.iter} steps ({tr.epoch} "
+            f"epoch{'s' if tr.epoch > 1 else ''}) at B={b} in {wall:.1f} s "
+            f"(the build, the workers' start and the capture included), fed "
+            f"by the loader {fed_ms(timer)}, peak {peak:.2f} GiB; {metric} "
+            f"over {len(dets)} val tokens (random-init training; "
+            f"{overflow} boxes with sizes past fp32); "
+            f"eval_detector {eval_s * 1e3 / len(dets):.2f} ms/frame, its "
+            f"own \"Total time per frame\" {per_frame} ms; launches a "
+            f"train_detector call {train_want}, an eval_detector call "
+            f"{eval_want} [{smi}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return entries
+
+
+def run_cli(args, label, env, must=()):
+    """``python -m det3d_tpu_torch.cli ARGS`` from the checkout, in a
+    process of its own: it must exit with 0 and print each of ``must``.
+    Returns (its output, seconds)."""
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "det3d_tpu_torch.cli"]
+                         + args, capture_output=True, text=True, env=env,
+                         cwd=str(root), timeout=600)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0 or any(m not in run.stdout for m in must):
+        raise AssertionError(f"{label}: exit {run.returncode}\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    return run.stdout, secs
+
+
+def phase_cli(tmp, smi):
+    """Phase 70: the command-line entry points, each a process of its own
+    on the card (the default --device cuda), the kernels from phase 2's
+    build: ``create_data nuscenes_data_prep`` on a fresh default mini
+    tree (2 scenes), then ``train`` on configs/smoke_kitti_pointpillars.py
+    (in a copy: total_epochs cut from 150 to 1, and a checkpoint at every
+    epoch, where it saves every 50) over a 16-scene
+    mini-KITTI tree (utils/mini_kitti.py) and ``test`` on its work dir,
+    which prints the official KITTI result."""
+    import os
+    from det3d_tpu_torch.utils import mini_kitti as mk
+    from det3d_tpu_torch.utils import mini_nuscenes as mn
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    fresh = tmp / "cli_nusc"
+    mn.make_tree(fresh)
+    _, prep_s = run_cli(["create_data", "nuscenes_data_prep", "--root_path",
+                         str(fresh), "--version", mn.VERSION], "phase 70 "
+                        "create_data", env, must=("train infos: 4, val: 4",))
+    for f in ("infos_train_10sweeps_withvelo.pkl",
+              "dbinfos_train_10sweeps.pkl"):
+        if not (fresh / f).is_file():
+            raise AssertionError(f"phase 70 create_data: no {f}")
+    kitti = tmp / "cli_kitti"
+    mk.make_tree(kitti, n_scenes=DATA_SCENES)
+    conf = tmp / "smoke_kitti_pointpillars_1epoch.py"
+    conf.write_text((root / "configs" / "smoke_kitti_pointpillars.py")
+                    .read_text()
+                    + "\ntotal_epochs = 1\ncheckpoint_interval = 1\n")
+    work = tmp / "cli_work"
+    env["KITTI_DATA"] = str(kitti)
+    _, train_s = run_cli(["train", str(conf), "--work_dir", str(work)],
+                         "phase 70 train", env, must=("trained to epoch 1",))
+    out, test_s = run_cli(["test", str(conf), str(work)], "phase 70 test",
+                          env, must=("restored checkpoint @ epoch 1",
+                                     "Car"))
+    official = [ln for ln in out.splitlines() if "Car" in ln][:2]
+    log(f"phase 70 CLIs: create_data nuscenes_data_prep {prep_s:.1f} s, "
+        f"train (1 epoch of {DATA_SCENES // 2} scenes at B=2) "
+        f"{train_s:.1f} s, test {test_s:.1f} s, each a process of its own "
+        f"with its start and imports, exit 0; test printed {official} "
+        f"[{smi}]")
+
+
+def nusc_phases(dev, smi):
+    """Phases 67-70 on synthetic trees written under TMPDIR by
+    utils/mini_nuscenes.py (nuScenes and Lyft, NUSC_SCENES scenes each)
+    and utils/mini_kitti.py (phase 70). Returns the JSON line's entries
+    of Lyft's backward kernels (phase 69)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        roots = {"cbgs": tmp / "nusc", "lyft": tmp / "lyft"}
+        roots["nusc_pp"] = roots["cbgs"]
+        for key in ("cbgs", "lyft"):
+            secs = nusc_tree(roots[key], lyft=key == "lyft")
+            log(f"phase 67 tree ({'Lyft' if key == 'lyft' else 'nuScenes'}"
+                f"): {NUSC_SCENES} scenes of 4 keyframes, "
+                f"{NUSC_SWEEPS_BETWEEN} sweeps between keyframes, "
+                f"{NUSC_CLUTTER} clutter points a sweep, 10-sweep infos"
+                + ("" if key == "lyft" else " and the gt database")
+                + f" written in {secs:.1f} s [host: {cpu_model()}]")
+        t = time.perf_counter()
+        batch = phase_nusc_data(roots["cbgs"], smi)
+        log(f"phase 67 took {time.perf_counter() - t:.1f} s")
+        out = {}
+        for phase, run in (
+                (68, lambda: phase_nusc_cbgs(dev, roots["cbgs"], batch,
+                                             smi)),
+                (69, lambda: phase_nusc_others(dev, roots, smi)),
+                (70, lambda: phase_cli(tmp, smi))):
+            t = time.perf_counter()
+            out[phase] = run()
+            log(f"phase {phase} took {time.perf_counter() - t:.1f} s")
+    return out[69]
 
 
 def conv_timing_main(tree, prec, paths):
@@ -4974,11 +5556,12 @@ def main():
                     choices=("second", "kitti_all", "cbgs", "lyft"),
                     help="time only the device voxels and plan (phase 47) "
                     "on these paths' bench batches")
-    ap.add_argument("--only", choices=("points", "train", "data"),
+    ap.add_argument("--only", choices=("points", "train", "data", "nusc"),
                     help="run phase 1, the build and only phases 51-52 "
                     "(Lyft and KITTI-all from points and under TTA), "
-                    "only the training phases 53-62 or only the data, "
-                    "trainer and evaluation phases 63-66")
+                    "only the training phases 53-62, only the data, "
+                    "trainer and evaluation phases 63-66 or only the "
+                    "nuScenes, Lyft and CLI phases 67-70")
     ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
                     "--build-timing: the checkout whose det3d_tpu_torch to "
                     "time (default: this one)")
@@ -5006,6 +5589,11 @@ def main():
         log(f"data phases took {time.perf_counter() - t0:.1f} s with the "
             f"build")
         return 0
+    if args.only == "nusc":
+        nusc_phases(dev, smi)
+        log(f"nuScenes, Lyft and CLI phases took "
+            f"{time.perf_counter() - t0:.1f} s with the build")
+        return 0
     kernels = serving_phases(dev, smi)
     # every serving stack and graph is freed before the last phases: Lyft's
     # TTA step alone holds tens of GB
@@ -5019,6 +5607,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     data_phases(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += nusc_phases(dev, smi)
     log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
         f"device check, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -120,7 +120,43 @@ def _device(device) -> torch.device:
     return dev
 
 
-def build_stack(cfg, device="cuda"):
+def with_point_width(model_cfg, width: int):
+    """``model_cfg`` with its first layers' input widths set to ``width``,
+    the columns of a point in the data: the reader's
+    ``num_input_features`` and, behind a mean reader
+    (``VoxelFeatureExtractorV3``, whose rows are the points' means), the
+    middle's.
+
+    The JAX package's layers take these widths from the batch (flax infers
+    a layer's input width at ``init``), whatever the config says: its
+    nuScenes and Lyft examples carry 6 columns (pipelines/loading.py)
+    where the shipped configs say 5, so its first layers take 6. The
+    port's layers take theirs from the config; the entry points over a
+    dataset set them from its first example (``example_width``)."""
+    reader = dict(model_cfg.get("reader") or {}, num_input_features=width)
+    out = dict(model_cfg, reader=reader)
+    if (reader.get("type") == "VoxelFeatureExtractorV3"
+            and model_cfg.get("backbone")):
+        out["backbone"] = dict(model_cfg["backbone"],
+                               num_input_features=width)
+    return out
+
+
+def example_width(split_cfg) -> int:
+    """The columns of a point in a split's examples: its first example's
+    ``points``, run through the split's pipeline on a dataset of its own.
+    The loading and the augmentations draw from the global
+    ``np.random``; its state is restored after, so that the draws of the
+    run that follows do not move."""
+    from det3d_tpu_torch.datasets import build_dataset
+    saved = np.random.get_state()
+    try:
+        return int(build_dataset(split_cfg)[0]["points"].shape[-1])
+    finally:
+        np.random.set_state(saved)
+
+
+def build_stack(cfg, device="cuda", point_width=None):
     """Build (model, voxel_gen, assigners, class_ids_per_task, test_cfg).
 
     The model is in eval mode on ``device`` (the card unless the caller
@@ -131,7 +167,9 @@ def build_stack(cfg, device="cuda"):
     ``models/builder.py::init_weights`` before serving. Readers, middles
     and necks run in the precision their config gives (fp32 or bf16); the
     voxelizer in the config's order ("appearance" when it sets none, as in
-    the JAX package).
+    the JAX package). ``point_width``: the columns of a point in the data
+    the model will see (``with_point_width``); None keeps the config's
+    widths.
     """
     vg_cfg = cfg["voxel_generator"]
     # mean readers get the fused-mean voxelizer unless the config opts out
@@ -150,6 +188,8 @@ def build_stack(cfg, device="cuda"):
     # order="yxz" emits voxel rows in the sparse middle's rank order: the
     # backbone skips its res0 reorder
     model_cfg = cfg["model"]
+    if point_width is not None:
+        model_cfg = with_point_width(model_cfg, point_width)
     bb_cfg = model_cfg.get("backbone") or {}
     if (voxel_gen.order == "yxz"
             and "SpMiddle" in str(bb_cfg.get("type", ""))):
@@ -263,7 +303,8 @@ def train_detector(cfg, work_dir: Optional[str] = None,
     holds the trained model.
 
     The stack is built on ``device`` (the card unless the caller asks
-    for the CPU) with random weights from ``torch.Generator().
+    for the CPU), its first layers as wide as the train split's points
+    (``example_width``), with random weights from ``torch.Generator().
     manual_seed(seed)`` (models/builder.py::init_weights), before the
     loader forks its workers (seeded ``seed * 1000 + w``); sparse middles
     get the HostPlan stage. On the card the train step is captured at
@@ -286,10 +327,11 @@ def train_detector(cfg, work_dir: Optional[str] = None,
                                                TextLoggerHook)
     from det3d_tpu_torch.runtime.trainer import Trainer
 
-    model, voxel_gen, assigners, class_ids, _ = build_stack(cfg, device)
+    data_cfg = cfg["data"]
+    model, voxel_gen, assigners, class_ids, _ = build_stack(
+        cfg, device, point_width=example_width(data_cfg["train"]))
     init_weights(model, torch.Generator().manual_seed(seed))
 
-    data_cfg = cfg["data"]
     inject_host_plan(cfg, model, voxel_gen)
     train_ds = build_dataset(data_cfg["train"])
     samples_per_gpu = data_cfg.get("samples_per_gpu", 2)
@@ -366,7 +408,9 @@ def eval_detector(cfg, state, work_dir: Optional[str] = None,
 
     Parity: tools/dist_test.py:130-241 (minus the NCCL plumbing). The
     stack is built on ``device`` (the card unless the caller asks for the
-    CPU) and ``state.model``'s weights copied in; the predict step
+    CPU), as wide as ``state.model``'s first layers (its reader's
+    ``num_input_features``), and ``state.model``'s weights copied in;
+    the predict step
     (captured on the card: one graph, the tail batch padded by repeating
     its last example) gives each batch's
     detections, read back once a batch. Sparse middles get the HostPlan
@@ -378,10 +422,10 @@ def eval_detector(cfg, state, work_dir: Optional[str] = None,
     from det3d_tpu_torch.datasets.loader.loader import collate
     from det3d_tpu_torch.parallel.predict import make_predict_step
 
-    model, voxel_gen, assigners, class_ids, test_cfg = build_stack(
-        cfg, device)
-    model.load_state_dict(state.model.state_dict())
     data_cfg = cfg["data"]
+    model, voxel_gen, assigners, class_ids, test_cfg = build_stack(
+        cfg, device, point_width=state.model.reader.num_input_features)
+    model.load_state_dict(state.model.state_dict())
     if not test_cfg.get("double_flip", False):
         inject_host_plan(cfg, model, voxel_gen, split=split, train=False)
     ds = build_dataset(data_cfg[split])

@@ -42,6 +42,7 @@ class VoxelFeatureExtractorV3(nn.Module):
                  norm_cfg: Optional[dict] = None,
                  name_str: str = "VoxelFeatureExtractorV3"):
         super().__init__()
+        self.num_input_features = num_input_features
 
     def forward(self, voxels, num_points, coors=None):
         if voxels.dim() == 3:
@@ -91,6 +92,7 @@ class PillarFeatureNet(nn.Module):
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
                  name_str: str = "PillarFeatureNet"):
         super().__init__()
+        self.num_input_features = num_input_features
         self.with_distance = with_distance
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.pc_range = tuple(float(v) for v in pc_range)

@@ -131,20 +131,47 @@ def _nest(flat: Dict[str, np.ndarray], section: str) -> Dict:
     return tree
 
 
+def _fetch_url(url: str) -> str:
+    """Download a remote weights file to the local cache (once); the
+    cached file's path. The cache is ``~/.cache/det3d_tpu_torch``, each
+    file named by a hash of its URL and the URL's base name."""
+    import hashlib
+    import urllib.request
+
+    cache = os.path.join(os.path.expanduser("~"), ".cache",
+                         "det3d_tpu_torch")
+    os.makedirs(cache, exist_ok=True)
+    name = (hashlib.sha1(url.encode()).hexdigest()[:16] + "_"
+            + os.path.basename(url.split("?")[0]))
+    dst = os.path.join(cache, name)
+    if not os.path.exists(dst):
+        tmp = dst + ".part"
+        with urllib.request.urlopen(url) as r, open(tmp, "wb") as f:
+            while True:
+                chunk = r.read(1 << 20)
+                if not chunk:
+                    break
+                f.write(chunk)
+        os.replace(tmp, dst)
+    return dst
+
+
 def load_weights(state, src: str, epoch: Optional[int] = None):
     """Weights-only load for finetune (reference cfg.load_from semantics,
     apis/train.py:320-323): the model's parameters and BatchNorm
     statistics, written in place; the optimizer's state untouched.
 
-    ``src``:
+    ``src`` (the reference's load_checkpoint dispatch,
+    torchie/trainer/checkpoint.py:121-174):
+      * an http(s):// or file:// URL of such a ``.npz``: downloaded to
+        ``~/.cache/det3d_tpu_torch`` once (``_fetch_url``), then loaded;
       * a ``.npz`` written by the JAX package's ``save_weights_npz``
         (params + batch_stats under '/'-joined flax paths), carried over
         by utils/convert.py::from_jax;
       * a checkpoint directory of this package's ``CheckpointManager``
-        (the latest epoch, or ``epoch``).
-
-    Loading from a URL (the JAX package's ``_fetch_url``) waits for
-    ROADMAP queue 1, item 8."""
+        (the latest epoch, or ``epoch``)."""
+    if src.startswith(("http://", "https://", "file://")):
+        src = _fetch_url(src)
     if os.path.isfile(src):
         from det3d_tpu_torch.utils.convert import from_jax
         with np.load(src) as z:
