@@ -5,7 +5,7 @@
                           [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
-    python3 chip_smoke.py --only points|train|data|nusc
+    python3 chip_smoke.py --only points|train|data|nusc|dist
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -22,8 +22,9 @@ one): run them on two checkouts in turns on one card (parent, change,
 change, parent) to compare two versions of a kernel on the same
 yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
 and KITTI-all from points and under TTA), only the training phases
-53-62, only the data, trainer and evaluation phases 63-66, or only the
-nuScenes, Lyft and CLI phases 67-70.
+53-62, only the data, trainer and evaluation phases 63-66, only the
+nuScenes, Lyft and CLI phases 67-70, or only the ranks' phases 71-72
+(this last form ends with the JSON result line too).
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -47,8 +48,10 @@ the shipped KITTI car configs, and the two learning-quality gates),
 then from nuScenes and Lyft trees and through the command line (67 to
 70: multi-sweep loading and CBGS resampling, train_detector / resume /
 eval_detector on the shipped CBGS, Lyft and nuScenes PointPillars
-configs, the 6-channel stem's window conv, the three CLIs). It prints
-its running time at the end.
+configs, the 6-channel stem's window conv, the three CLIs), then
+training and evaluating over torch.distributed ranks (71 and 72: two
+gloo ranks sharing the card against one process, and one NCCL rank whose
+collectives are captured). It prints its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
 CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
@@ -387,6 +390,28 @@ captured. Phases 39-46 drive the captured step itself.
      cut to 1 in a copy) over a 16-scene mini-KITTI tree and ``test`` on
      its work dir; each exits with 0 and ``test`` prints the official
      KITTI result.
+ 71. two ranks under gloo, processes of their own sharing this card
+     (NCCL refuses two ranks on one GPU), at full width: SECOND as
+     shipped (B=4 as 2 + 2 from host training plans) and the flagship
+     (fp32, B=8 as 4 + 4), one train step a rank against the
+     one-process eager step on the whole batch: the loss within 1e-4
+     relative, the head's gradients within 1e-4 and every other within
+     5e-2 relative L2, the BN running statistics as phase 54 holds
+     them; both ranks' gradients and parameters after the update
+     bit-equal; each rank's window-conv launches exact (SECOND 10 / 6 /
+     3 / 10, the flagship none); the 2-rank eager step's ms/step beside
+     the one-process captured step's (phases 55, 60), and the host time
+     of its all-reduces; then configs/kitti_car_pointpillars.py over a
+     16-scene mini-KITTI tree: train_detector one epoch over the ranks
+     (rank 1 with a work dir of its own, in which nothing may appear)
+     against one process (half the steps at twice the global batch, the
+     ranks' parameters bit-equal), and eval_detector of rank 0's
+     checkpoint over the ranks against one process: detections equal
+     token by token and the official result equal;
+ 72. one NCCL rank (a world-size-1 group): SECOND's train step (B=4,
+     host training plans) through its collectives, captured: two eager
+     steps bit-equal and the captured step bit-equal to them (cuDNN
+     deterministic), launches exact, captured ms/step beside phase 60's.
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -415,7 +440,11 @@ inputs, then the fp32 window conv and the NMS kernel with ``"path":
 "lyft"`` and ``"path": "kitti_all"``, then those of the steps fed points
 alone, ``"path"`` ``"second_points"``, ``"cbgs_points"``, ``"cbgs_tta"``
 (the fp32 window conv on each step's device plan and the NMS kernel on
-its inputs) and ``"nusc_pp_tta"`` (the NMS kernel); ``ms``: a call from
+its inputs) and ``"nusc_pp_tta"`` (the NMS kernel), then the training
+paths' backward kernels, then the ranks' paths of phases 71-72,
+``"second_dist"``, ``"second_nccl"`` and ``"kitti_pp_dist_eval"``
+(dist_entries: launches counted on the path, times measured on its
+nearest path); ``ms``: a call from
 Python,
 interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
 result line. The NMS bound counts
@@ -5196,6 +5225,505 @@ def nusc_phases(dev, smi):
     return out[69]
 
 
+# ---------------------------------------------------------------------------
+# Ranks over torch.distributed (phases 71-72)
+# ---------------------------------------------------------------------------
+
+# phase 71: two ranks share the one card under gloo (NCCL refuses two ranks
+# on one GPU). Its train steps, each (key, name, global batch), a rank
+# taking half: SECOND as shipped (fp32 in training, host training plans)
+# at phase 60's B=4, the flagship (fp32) at phase 54's B=8
+DIST_WORLD = 2
+DIST_STEPS = (("second", "SECOND", 4), ("flagship", "flagship (fp32)", B))
+DIST_TIMED = 5           # the 2-rank eager step: ms/step over 5, after one
+DIST_SCENES = DATA_SCENES   # train_detector's tree: 8 train, 8 val scans
+DIST_TIMEOUT = 600          # seconds a rank may take
+NCCL_STEPS = 8              # phase 72's captured steps timed, after 2
+
+
+def free_port():
+    """A TCP port on localhost that nothing listens on now."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def dist_rank(port, rank, world, inputs, out):
+    """One rank of phase 71, a process of its own (``python -c "import
+    chip_smoke; chip_smoke.dist_rank(...)"``): TF32 off as phase 1 sets
+    it, the gloo group over localhost:``port``, then on ``inputs``' device
+    each train step of ``inputs["steps"]`` on this rank's half of its
+    batch (dist_step), then train_detector and eval_detector
+    (dist_api); writes what it computed to ``out.<rank>``."""
+    from det3d_tpu_torch.parallel import dist_utils
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    dist_utils.initialize_distributed(f"localhost:{port}", world, rank,
+                                      backend="gloo")
+    case = torch.load(inputs, weights_only=False)
+    dev = torch.device(case["device"])
+    res = {"steps": {}}
+    for key, c in case["steps"].items():
+        res["steps"][key] = dist_step(dev, c, rank, world)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    res["api"] = dist_api(dev, case["api"], rank)
+    torch.save(res, f"{out}.{rank}")
+    torch.distributed.destroy_process_group()
+
+
+def dist_step(dev, c, rank, world):
+    """One rank's train step (make_train_step as a user calls it: eager
+    under gloo) from ``c["weights"]`` on rows rank*b .. rank*b+b-1 of
+    ``c["batch"]``: its metrics, the gradients its optimizer got, the
+    state dict after, the kernels' launches; then ms/step over DIST_TIMED
+    more steps (the card synchronized at both ends), and the host time of
+    the step's all-reduces (each ``c10d::allreduce_`` waits for its
+    collective) under torch.profiler (CPU activity only)."""
+    from det3d_tpu_torch.apis.train import build_stack, init_state
+    from det3d_tpu_torch.parallel.graph import CapturedStep
+    from det3d_tpu_torch.parallel.train import make_train_step
+    model, vg, asg, cids, _ = build_stack(c["cfg"], device=dev)
+    model.load_state_dict(c["weights"])
+    state, _ = init_state(c["cfg"], model, c["total_steps"])
+    seen = spy_grads(state)
+    step = make_train_step(state, vg, asg, cids)
+    if isinstance(step, CapturedStep):
+        raise AssertionError("phase 71: a gloo rank's train step was "
+                             "captured")
+    b = c["batch"]["points"].shape[0] // world
+    part = {k: v[rank * b:(rank + 1) * b] for k, v in c["batch"].items()}
+    reset_api_launches()
+    metrics = step(part)
+    sync(dev)
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": [g.cpu() for g in seen[0]],
+           "names": [n for n, _ in model.named_parameters()],
+           "state": {k: v.to("cpu", copy=True)
+                     for k, v in model.state_dict().items()},
+           "launches": api_launches()}
+    seen.clear()
+    t = time.perf_counter()
+    for _ in range(DIST_TIMED):
+        step(part)
+    sync(dev)
+    out["ms"] = (time.perf_counter() - t) * 1e3 / DIST_TIMED
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        step(part)
+        sync(dev)
+    reduces = [e for e in prof.key_averages()
+               if e.key.startswith("c10d::allreduce")]
+    out["allreduce"] = (sum(e.count for e in reduces),
+                        sum(e.cpu_time_total for e in reduces) / 1e3)
+    return out
+
+
+def dist_api(dev, api, rank):
+    """One rank's train_detector over ``api["cfg"]`` with the work dir
+    ``api["works"][rank]`` (the step eager, rank 0 alone writing), then
+    eval_detector of rank 0's checkpoint sharded over the ranks: the
+    trainer's counts, the state dict after, the detections and results,
+    each call's launches."""
+    from det3d_tpu_torch.apis.train import (build_stack, eval_detector,
+                                            example_width, init_state,
+                                            train_detector)
+    from det3d_tpu_torch.runtime.checkpoint import CheckpointManager
+    cfg = api["cfg"]
+    reset_api_launches()
+    tr = train_detector(copy.deepcopy(cfg), work_dir=api["works"][rank],
+                        device=dev)
+    sync(dev)
+    out = {"iter": tr.iter, "count": int(tr.state.step),
+           "state": {k: v.to("cpu", copy=True) for k, v in
+                     tr.state.model.state_dict().items()},
+           "train_launches": api_launches()}
+    del tr
+    model = build_stack(cfg, dev, point_width=example_width(
+        cfg["data"]["val"]))[0]
+    state, _ = init_state(cfg, model, total_steps=1)
+    CheckpointManager(api["ckpt"]).restore(state)
+    reset_api_launches()
+    results, dets = eval_detector(copy.deepcopy(cfg), state, device=dev)
+    out.update(results=results["results"], detections=dets,
+               eval_launches=api_launches())
+    return out
+
+
+def one_process_step(dev, c):
+    """The one-process train step (eager) on the whole batch: metrics,
+    gradients, state after (as dist_step records them)."""
+    from det3d_tpu_torch.apis.train import build_stack, init_state
+    from det3d_tpu_torch.parallel.train import make_train_step
+    model, vg, asg, cids, _ = build_stack(c["cfg"], device=dev)
+    model.load_state_dict(c["weights"])
+    state, _ = init_state(c["cfg"], model, c["total_steps"])
+    seen = spy_grads(state)
+    metrics = make_train_step(state, vg, asg, cids).eager(c["batch"])
+    sync(dev)
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": [g.cpu() for g in seen[0]],
+            "names": [n for n, _ in model.named_parameters()],
+            "state": {k: v.to("cpu", copy=True)
+                     for k, v in model.state_dict().items()}}
+
+
+def dist_batch(key, b):
+    """phase 71's global batch: SECOND's train scene with its host
+    training plan (phase 60's), the flagship's train_batch."""
+    if key == "second":
+        pc = train_config(key)["voxel_generator"]["range"]
+        return with_train_plan(key, sparse_train_scene(key, b, pc, POINTS))
+    return train_batch(key, b)
+
+
+def check_dist_step(label, ranks, ref, want, smi):
+    """2 ranks against one process: the metrics (the loss within
+    TRAIN_LOSS_REL; num_pos / num_neg equal), the head's gradients within
+    SPARSE_HEAD_REL and every other within SPARSE_GRAD_REL (relative L2;
+    the conv biases before a training BN by size, as step_card_vs_cpu
+    holds them), the BN running statistics within TRAIN_STATS_TOL; the
+    two ranks' gradients, metrics and state after the update bit-equal;
+    each rank's launches ``want``."""
+    a, b = ranks
+    names = ref["names"]
+    for k in a["state"]:
+        if not torch.equal(a["state"][k], b["state"][k]):
+            raise AssertionError(f"{label}: the ranks' {k} differ after the "
+                                 f"update")
+    if a["metrics"] != b["metrics"] or not all(
+            torch.equal(x, y) for x, y in zip(a["grads"], b["grads"])):
+        raise AssertionError(f"{label}: the ranks' gradients or metrics "
+                             f"differ")
+    loss_err = abs(a["metrics"]["loss"] - ref["metrics"]["loss"]) / abs(
+        ref["metrics"]["loss"])
+    counts = {k: (a["metrics"][k], ref["metrics"][k]) for k in ref["metrics"]
+              if k.startswith(("num_pos", "num_neg"))}
+    zb = zero_grad_bias(names)
+    errs = {n: e for n, e in grads_rel(a["grads"], ref["grads"],
+                                       names).items() if n not in zb}
+    worst = max(errs, key=errs.get)
+    head = {n: e for n, e in errs.items() if n.startswith("bbox_head")}
+    head_worst = max(head, key=head.get)
+    bias = max((float(g.norm()) / max(float(ref["grads"][names.index(
+        n.rsplit(".", 1)[0] + ".weight")].norm()), 1e-30), n)
+        for n, g in zip(names, a["grads"]) if n in zb) if zb else (0.0, None)
+    stats = max((float((a["state"][k] - ref["state"][k]).abs().max()), k)
+                for k in ref["state"] if k.endswith((".mean", ".var")))
+    log(f"{label}: 2 ranks (gloo, one card) against one process: loss "
+        f"{a['metrics']['loss']:.6f} / {ref['metrics']['loss']:.6f} (rel "
+        f"err {loss_err:.2e}, tolerance {TRAIN_LOSS_REL}); num_pos / num_neg "
+        f"{counts}; gradients relative L2 worst {errs[worst]:.3e} ({worst}),"
+        f" median {statistics.median(errs.values()):.3e} (tolerance "
+        f"{SPARSE_GRAD_REL}), the head's worst {head[head_worst]:.3e} "
+        f"(tolerance {SPARSE_HEAD_REL}), {len(zb)} conv biases before a "
+        f"training BN at most {bias[0]:.2e} of their weight gradient; BN "
+        f"running statistics max abs err {stats[0]:.2e} ({stats[1]}); the "
+        f"ranks' gradients and parameters after the update bit-equal; "
+        f"launches a rank {a['launches']} [{smi}]")
+    if loss_err > TRAIN_LOSS_REL or any(x != y for x, y in counts.values()):
+        raise AssertionError(f"{label}: loss {loss_err}, counts {counts}")
+    if errs[worst] > SPARSE_GRAD_REL or head[head_worst] > SPARSE_HEAD_REL:
+        raise AssertionError(f"{label}: gradient {worst} {errs[worst]}, "
+                             f"head {head_worst} {head[head_worst]}")
+    if bias[0] > 1e-4:
+        raise AssertionError(f"{label}: gradient of {bias[1]} is not zero: "
+                             f"{bias[0]}")
+    for k in ref["state"]:
+        if k.endswith((".mean", ".var")) and not torch.allclose(
+                a["state"][k], ref["state"][k], **TRAIN_STATS_TOL["fp32"]):
+            raise AssertionError(f"{label}: BN statistic {k}")
+    for r in ranks:
+        if r["launches"] != want:
+            raise AssertionError(f"{label}: launches {r['launches']}, "
+                                 f"expected {want}")
+
+
+def phase_dist(dev, smi):
+    """Phase 71: DIST_WORLD ranks under gloo, processes of their own
+    (dist_rank) on this one card, at full width. The train steps of
+    DIST_STEPS, each rank on half the global batch from the same
+    calibrated weights (train_weights), against the one-process eager step
+    on the whole batch (check_dist_step; launches a rank: SECOND's
+    TRAIN_LAUNCHES, none for the flagship); each rank's ms/step (eager)
+    beside phase 60's / 55's captured step, and its all-reduces' host
+    time. Then configs/kitti_car_pointpillars.py as shipped over a
+    DIST_SCENES-scene mini-KITTI tree: train_detector one epoch over the
+    ranks (rank 1 given a work dir of its own, where nothing may appear)
+    against one process (half the steps at twice the global batch, the
+    ranks' parameters bit-equal, the optimizer's count the trainer's
+    iter), and eval_detector of rank 0's checkpoint sharded over the
+    ranks against one process: the merged detections equal token by
+    token, the official result equal; 2 NMS launches a rank's eval (its
+    predict step's warm-up and capture). Returns rank 0's launches on
+    each path."""
+    import os
+    import tempfile
+    from det3d_tpu_torch.apis.train import (build_stack, eval_detector,
+                                            example_width, init_state,
+                                            train_detector)
+    from det3d_tpu_torch.runtime.checkpoint import CheckpointManager
+    from det3d_tpu_torch.utils import mini_kitti as mk
+    zero = dict.fromkeys(api_launches(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        steps, refs = {}, {}
+        for key, name, b in DIST_STEPS:
+            steps[key] = {"cfg": train_config(key),
+                          "weights": train_weights(key),
+                          "batch": dist_batch(key, b),
+                          "total_steps": TRAIN_TOTAL}
+            refs[key] = one_process_step(dev, steps[key])
+            gc.collect()
+            torch.cuda.empty_cache()
+        root = tmp / "kitti"
+        mk.make_tree(root, n_scenes=DIST_SCENES)
+        os.environ["KITTI_DATA"] = str(root)
+        cfg = pp_config(KITTI_PP_CFG)
+        cfg.update(total_epochs=1, log_interval=1000)
+        works = [tmp / f"work{r}" for r in range(DIST_WORLD)]
+        api = {"cfg": cfg, "works": [str(w) for w in works],
+               "ckpt": str(works[0] / "ckpt")}
+        inputs = tmp / "inputs.pt"
+        torch.save({"device": "cuda", "steps": steps, "api": api}, inputs)
+        t0 = time.perf_counter()
+        ranks = dist_spawn(inputs, tmp / "rank")
+        ranks_s = time.perf_counter() - t0
+        label = "phase 71"
+        for key, name, b in DIST_STEPS:
+            want = dict(zero, **TRAIN_LAUNCHES.get(key, {}))
+            check_dist_step(f"{label} {name} B={b} as {DIST_WORLD} x "
+                            f"{b // DIST_WORLD}", [r["steps"][key]
+                                                   for r in ranks],
+                            refs[key], want, smi)
+            r0 = ranks[0]["steps"][key]
+            n, secs = r0["allreduce"]
+            captured = CAPTURED_MS.get(key)
+            beside = (f"the one-process captured step {captured:.3f} "
+                      f"ms/step (phase {60 if key == 'second' else 55})"
+                      if captured else "the one-process captured step "
+                      "not timed in this run (phases 55 and 60 not run)")
+            log(f"{label} {name}: the 2-rank eager step {r0['ms']:.3f} "
+                f"ms/step (rank 0, {DIST_TIMED} steps, both ranks on one "
+                f"card) beside {beside}; its {n} all-reduces took "
+                f"{secs:.3f} ms of host time in one step [{smi}]")
+        # train_detector and eval_detector: the ranks against one process
+        a, b_ = (r["api"] for r in ranks)
+        for k in a["state"]:
+            if not torch.equal(a["state"][k], b_["state"][k]):
+                raise AssertionError(f"{label} train_detector: the ranks' "
+                                     f"{k} differ")
+        written = [p for p in works[1].rglob("*") if p.is_file()]
+        ckpts = sorted(p.name for p in (works[0] / "ckpt").glob("*.pt"))
+        if written or ckpts != ["epoch_1.pt"]:
+            raise AssertionError(f"{label}: rank 1 wrote {written}; rank 0's "
+                                 f"checkpoints {ckpts}")
+        one_work = tmp / "one"
+        reset_api_launches()
+        tr = train_detector(copy.deepcopy(cfg), work_dir=str(one_work),
+                            device=dev)
+        one_iter, one_count = tr.iter, int(tr.state.step)
+        del tr
+        if not (a["iter"] == a["count"] and one_iter == one_count
+                and one_iter == DIST_WORLD * a["iter"]):
+            raise AssertionError(f"{label} train_detector: {a['iter']} steps "
+                                 f"(count {a['count']}) over the ranks, "
+                                 f"{one_iter} ({one_count}) in one process")
+        for r in ranks:
+            if r["api"]["train_launches"] != zero:
+                raise AssertionError(f"{label} train_detector: launches "
+                                     f"{r['api']['train_launches']}")
+        model = build_stack(cfg, dev, point_width=example_width(
+            cfg["data"]["val"]))[0]
+        state, _ = init_state(cfg, model, total_steps=1)
+        CheckpointManager(api["ckpt"]).restore(state)
+        results, dets = eval_detector(copy.deepcopy(cfg), state, device=dev)
+        for r in ranks:
+            got = r["api"]
+            if got["eval_launches"] != dict(zero, rotated_nms_keep=2):
+                raise AssertionError(f"{label} eval_detector: launches "
+                                     f"{got['eval_launches']}")
+            if list(got["detections"]) != list(dets) or got["results"] != \
+                    results["results"]:
+                raise AssertionError(f"{label} eval_detector: tokens or "
+                                     f"results differ from one process")
+            for tok, d in dets.items():
+                g = got["detections"][tok]
+                for k in ("box3d_lidar", "scores", "label_preds"):
+                    if not np.array_equal(g[k], d[k]):
+                        raise AssertionError(f"{label} eval_detector: {tok} "
+                                             f"{k} differs")
+    official = results["detail"]["eval.kitti"]["official"]
+    log(f"{label} train_detector (configs/kitti_car_pointpillars.py, "
+        f"{DIST_SCENES} scenes): {a['iter']} steps at a global B="
+        f"{DIST_WORLD * cfg['data']['samples_per_gpu']} over {DIST_WORLD} "
+        f"ranks, {one_iter} at B={cfg['data']['samples_per_gpu']} in one "
+        f"process; the ranks' parameters bit-equal after training; rank 1 "
+        f"wrote nothing, rank 0 {ckpts}; eval_detector of rank 0's "
+        f"checkpoint sharded over the ranks: {len(dets)} tokens' detections "
+        f"equal to one process's, Car_3d_easy {official['Car_3d_easy']:.2f} "
+        f"on both; the ranks took {ranks_s:.1f} s with their start [{smi}]")
+    return {"second": ranks[0]["steps"]["second"]["launches"],
+            "eval": ranks[0]["api"]["eval_launches"]}
+
+
+def dist_spawn(inputs, out):
+    """DIST_WORLD processes of dist_rank on ``inputs``, from this
+    checkout; waits for them (each within DIST_TIMEOUT), fails on any exit
+    code but 0 with the rank's output, and returns their results."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    port = free_port()
+    logs = [Path(f"{out}.log{r}") for r in range(DIST_WORLD)]
+    procs = []
+    for r in range(DIST_WORLD):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", f"import chip_smoke; chip_smoke."
+                 f"dist_rank({port}, {r}, {DIST_WORLD}, {str(inputs)!r}, "
+                 f"{str(out)!r})"],
+                cwd=str(root), env=env, stdout=f, stderr=subprocess.STDOUT))
+    try:
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            raise AssertionError(f"phase 71 rank {r}: exit {p.returncode}\n"
+                                 f"{logs[r].read_text()[-4000:]}")
+    return [torch.load(f"{out}.{r}", weights_only=False)
+            for r in range(DIST_WORLD)]
+
+
+def phase_nccl(dev, smi):
+    """Phase 72: a world-size-1 NCCL group on the card, where SECOND's
+    train step (configs/kitti_car_second.py, B=4, host training plans)
+    runs its collectives (the BN sums, the gradients' and the metrics'
+    all-reduces): make_train_step gives a CapturedStep under NCCL
+    (parallel/graph.py::stepper). From the same weights, under cuDNN's
+    deterministic algorithms: two eager steps equal to the bit (the step
+    is reproducible), then the captured step equal to them to the bit
+    (metrics, parameters, BN statistics, the optimizer's moments and
+    count); the launches of its first call twice one eager step's
+    (TRAIN_LAUNCHES: the warm-up and the capture); then ms/step of the
+    captured step over NCCL_STEPS beside phase 60's. Returns the captured
+    call's launches."""
+    from det3d_tpu_torch.parallel.graph import CapturedStep
+    from det3d_tpu_torch.parallel.train import make_train_step
+    label = "phase 72 SECOND over one NCCL rank"
+    key = "second"
+    data = dist_batch(key, 4)
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for how in ("eager", "eager again", "captured"):
+            model, vg, asg, cids, state = train_stack(key, dev)
+            step = make_train_step(state, vg, asg, cids)
+            if not isinstance(step, CapturedStep):
+                raise AssertionError(f"{label}: the step is not captured")
+            reset_launches()
+            m = (step if how == "captured" else step.eager)(data)
+            sync(dev)
+            runs[how] = ({k: float(v) for k, v in m.items()},
+                         [t.detach().clone() for t in state.tensors()],
+                         launch_counts())
+            if how == "captured":
+                for _ in range(2):
+                    step(data)
+                sync(dev)
+                t = time.perf_counter()
+                for _ in range(NCCL_STEPS):
+                    step(data)
+                sync(dev)
+                ms = (time.perf_counter() - t) * 1e3 / NCCL_STEPS
+            del model, state, step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+        torch.distributed.destroy_process_group()
+    (me, te, le), (ma, ta, _), (mc, tc, lc) = (
+        runs["eager"], runs["eager again"], runs["captured"])
+    for other, what in (((ma, ta), "a second eager step"),
+                        ((mc, tc), "the captured step")):
+        if other[0] != me or not all(torch.equal(x, y)
+                                     for x, y in zip(other[1], te)):
+            raise AssertionError(f"{label}: {what} is not the eager step's "
+                                 f"to the bit: {other[0]} against {me}")
+    want = {k: 2 * v for k, v in TRAIN_LAUNCHES[key].items()}
+    if le != TRAIN_LAUNCHES[key] or lc != want:
+        raise AssertionError(f"{label}: launches eager {le}, captured {lc}")
+    captured = CAPTURED_MS.get(key)
+    log(f"{label}: the captured step (the collectives in its graph) equal "
+        f"to the eager step to the bit in every metric and each of "
+        f"{len(te)} state tensors after one step, as two eager steps are "
+        f"(cuDNN deterministic); loss {mc['loss']:.6f}; launches: eager "
+        f"{le}, the captured step's first call {lc}; captured "
+        f"{ms:.3f} ms/step over {NCCL_STEPS} beside "
+        + (f"phase 60's captured step without a group {captured:.3f}"
+           if captured else "phase 60 not run")
+        + f" [{smi}]")
+    return lc
+
+
+def dist_phases(dev, smi):
+    """Phases 71 and 72. Returns {71: phase_dist's launches, 72:
+    phase_nccl's}."""
+    out = {}
+    for phase, run in ((71, lambda: phase_dist(dev, smi)),
+                       (72, lambda: phase_nccl(dev, smi))):
+        t = time.perf_counter()
+        out[phase] = run()
+        log(f"phase {phase} took {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_entries(kernels, dist):
+    """The JSON line's entries of phases 71-72's paths: each kernel's
+    numbers as this run measured them on the nearest path (the fp32 window
+    conv at SECOND's shapes, phase 48; its backward kernels and subm dX on
+    SECOND's training plan, phase 58; the NMS kernel at the flagship's
+    shape, phases 3, 6 and 13), its launches counted on the path: path
+    "second_dist" (one rank's train step, phase 71), "second_nccl" (the
+    first call of phase 72's captured step: its warm-up and capture),
+    "kitti_pp_dist_eval" (one rank's eval_detector, phase 71)."""
+    by = {(e["name"], e.get("path")): e for e in kernels}
+    out = []
+    for path, n in (("second_dist", dist[71]["second"]),
+                    ("second_nccl", dist[72])):
+        out += [dict(by[("window_conv", "second_points")], path=path,
+                     launches=n["window_conv"]),
+                dict(by[("window_conv", "second_train_subm_dx")],
+                     path=f"{path}_subm_dx",
+                     launches=n["window_conv_subm_dx"]),
+                dict(by[("window_conv_dw", "second_train")], path=path,
+                     launches=n["window_conv_dw"]),
+                dict(by[("window_conv_inv", "second_train")], path=path,
+                     launches=n["window_conv_inv"])]
+    nms = {k: v for k, v in by[("rotated_nms_keep", None)].items()
+           if k != "launches_by_path"}
+    out.append(dict(nms, path="kitti_pp_dist_eval",
+                    launches=dist[71]["eval"]["rotated_nms_keep"]))
+    return out
+
+
 def conv_timing_main(tree, prec, paths):
     """--conv-timing: phase 1, then for each of ``paths`` its host plan
     (plan_builder: the tree's own host_plan_fn) and the window-conv timing
@@ -5556,12 +6084,14 @@ def main():
                     choices=("second", "kitti_all", "cbgs", "lyft"),
                     help="time only the device voxels and plan (phase 47) "
                     "on these paths' bench batches")
-    ap.add_argument("--only", choices=("points", "train", "data", "nusc"),
+    ap.add_argument("--only", choices=("points", "train", "data", "nusc",
+                                       "dist"),
                     help="run phase 1, the build and only phases 51-52 "
                     "(Lyft and KITTI-all from points and under TTA), "
                     "only the training phases 53-62, only the data, "
-                    "trainer and evaluation phases 63-66 or only the "
-                    "nuScenes, Lyft and CLI phases 67-70")
+                    "trainer and evaluation phases 63-66, only the "
+                    "nuScenes, Lyft and CLI phases 67-70 or only the "
+                    "ranks' phases 71-72")
     ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
                     "--build-timing: the checkout whose det3d_tpu_torch to "
                     "time (default: this one)")
@@ -5594,6 +6124,14 @@ def main():
         log(f"nuScenes, Lyft and CLI phases took "
             f"{time.perf_counter() - t0:.1f} s with the build")
         return 0
+    if args.only == "dist":
+        dist_phases(dev, smi)
+        log(f"the ranks' phases took {time.perf_counter() - t0:.1f} s with "
+            f"the build")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     kernels = serving_phases(dev, smi)
     # every serving stack and graph is freed before the last phases: Lyft's
     # TTA step alone holds tens of GB
@@ -5610,6 +6148,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     kernels += nusc_phases(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += dist_entries(kernels, dist_phases(dev, smi))
     log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
         f"device check, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)

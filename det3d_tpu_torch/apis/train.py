@@ -33,6 +33,7 @@ from det3d_tpu_torch.ops import sparse_host as sph
 from det3d_tpu_torch.ops.voxelize_host import (host_voxelize,
                                                host_voxelize_ref,
                                                stack_voxels)
+from det3d_tpu_torch.parallel import dist_utils
 from det3d_tpu_torch.parallel.train import TrainState
 from det3d_tpu_torch.solver.optim import build_optimizer
 from det3d_tpu_torch.solver.schedules import build_lr_schedule
@@ -315,8 +316,25 @@ def train_detector(cfg, work_dir: Optional[str] = None,
     A ``("val", n)`` workflow entry runs the validation loss over
     ``cfg["data"]["val"]``. ``hooks``: more runtime/hooks.py hooks (a
     profiler, a timer), registered after the standard ones at NORMAL.
-    ``use_mesh`` is accepted for the JAX package's signature; one card
-    takes the whole batch."""
+    ``use_mesh`` is accepted for the JAX package's signature.
+
+    Ranks: call it on every rank after ``parallel/dist_utils.py::
+    initialize_distributed``. Each rank builds the stack on its own device
+    (``rank_device``: under NCCL card ``rank % device_count``; ranks that
+    share a card under gloo all use ``device``), with the seed's weights,
+    then broadcasts rank 0's; its loader shards each epoch
+    (DistributedGroupSampler) and takes ``samples_per_gpu`` a rank, so the
+    global batch is ``samples_per_gpu`` x the world size (the reference's
+    build_dataloader; ``scale_batch_by_devices = False`` pins the global
+    batch to ``samples_per_gpu`` instead, which the world size must
+    divide); the steps an epoch and the schedules' ``total_steps`` follow
+    the sampler's length; the train step is the global step
+    (parallel/train.py); rank 0 alone writes the logs and checkpoints.
+    The JAX package counts ``n_dev = len(jax.devices())``, every
+    process's devices, and hands each process's local batch to a step
+    jitted over the global mesh, a path none of its tests runs; the port
+    follows the tested semantics (tests/test_multiprocess.py), the global
+    batch split over the ranks (ROADMAP queue 3)."""
     from det3d_tpu_torch.datasets import build_dataloader, build_dataset
     from det3d_tpu_torch.models.builder import init_weights
     from det3d_tpu_torch.parallel.train import (make_loss_eval_step,
@@ -328,23 +346,29 @@ def train_detector(cfg, work_dir: Optional[str] = None,
     from det3d_tpu_torch.runtime.trainer import Trainer
 
     data_cfg = cfg["data"]
+    _, world = dist_utils.get_dist_info()
+    device = dist_utils.rank_device(device)
     model, voxel_gen, assigners, class_ids, _ = build_stack(
         cfg, device, point_width=example_width(data_cfg["train"]))
     init_weights(model, torch.Generator().manual_seed(seed))
+    dist_utils.broadcast_tensors(list(model.parameters())
+                                 + list(model.buffers()))
 
     inject_host_plan(cfg, model, voxel_gen)
     train_ds = build_dataset(data_cfg["train"])
     samples_per_gpu = data_cfg.get("samples_per_gpu", 2)
-    # reference semantics: per-device batch times device count (one card
-    # here); scale_batch_by_devices=False pins the global batch
-    n_dev = 1
-    if cfg.get("scale_batch_by_devices", True):
-        batch_size = samples_per_gpu * n_dev
-    else:
-        batch_size = samples_per_gpu
+    # one rank's batch: samples_per_gpu (the reference's per-device batch;
+    # the global batch is world times it), or with
+    # scale_batch_by_devices=False a world-th of a global samples_per_gpu
+    batch_size = samples_per_gpu
+    if not cfg.get("scale_batch_by_devices", True):
+        if samples_per_gpu % world:
+            raise ValueError(f"train_detector: a global batch of "
+                             f"{samples_per_gpu} over {world} ranks")
+        batch_size = samples_per_gpu // world
     workers = data_cfg.get("workers_per_gpu", 0)
     loader = build_dataloader(train_ds, batch_size, workers_per_gpu=workers,
-                              seed=seed)
+                              dist=world > 1, seed=seed)
 
     total_epochs = int(cfg.get("total_epochs", 20))
     total_steps = len(loader) * total_epochs
@@ -417,12 +441,21 @@ def eval_detector(cfg, state, work_dir: Optional[str] = None,
     stage (not under double-flip TTA, which flips the points in the
     step). Prints "Total time per frame" over the middle third of the
     batches, as the JAX package does. ``use_mesh`` is accepted for the
-    JAX package's signature."""
+    JAX package's signature.
+
+    Ranks: each rank predicts the strided shard ``range(len(ds))[rank::
+    world]`` on its own device (``rank_device``), its tail batch padded
+    as above, and the detections of every rank are gathered
+    (``all_gather_objects``) in the split's order before the evaluation,
+    which every rank runs on them all and returns; rank 0 alone writes
+    its files into ``work_dir`` (det3d_tpu/apis/train.py:355-405)."""
     from det3d_tpu_torch.datasets import build_dataset
     from det3d_tpu_torch.datasets.loader.loader import collate
     from det3d_tpu_torch.parallel.predict import make_predict_step
 
     data_cfg = cfg["data"]
+    rank, world = dist_utils.get_dist_info()
+    device = dist_utils.rank_device(device)
     model, voxel_gen, assigners, class_ids, test_cfg = build_stack(
         cfg, device, point_width=state.model.reader.num_input_features)
     model.load_state_dict(state.model.state_dict())
@@ -430,16 +463,20 @@ def eval_detector(cfg, state, work_dir: Optional[str] = None,
         inject_host_plan(cfg, model, voxel_gen, split=split, train=False)
     ds = build_dataset(data_cfg[split])
     batch_size = data_cfg.get("samples_per_gpu", 2)
+    shard = list(range(len(ds)))[rank::world]
+    order: Dict[str, int] = {}
 
     def batches():
         # fixed batch shape: pad the tail chunk by repeating its last
         # example (duplicate tokens just overwrite in the detections dict)
-        for i in range(0, len(ds), batch_size):
-            examples = [ds[j] for j in range(i, min(i + batch_size,
-                                                    len(ds)))]
-            while len(examples) < batch_size:
-                examples.append(examples[-1])
-            yield collate(examples)
+        for i in range(0, len(shard), batch_size):
+            idx = shard[i:i + batch_size]
+            examples = [ds[j] for j in idx]
+            examples += examples[-1:] * (batch_size - len(examples))
+            batch = collate(examples)
+            for j, meta in zip(idx, batch["metadata"]):
+                order[str(meta["token"])] = j
+            yield batch
 
     predict_step = make_predict_step(model, voxel_gen, assigners, class_ids,
                                      test_cfg)
@@ -462,5 +499,11 @@ def eval_detector(cfg, state, work_dir: Optional[str] = None,
         mid = times[len(times) // 3: 2 * len(times) // 3]
         per_frame = float(np.mean(mid)) / batch_size
         print(f"Total time per frame: {per_frame * 1e3:.1f} ms")
-    results, _ = ds.evaluation(detections, work_dir)
+    if world > 1:
+        merged, where = {}, {}
+        for d, o in dist_utils.all_gather_objects((detections, order)):
+            merged.update(d)
+            where.update(o)
+        detections = {k: merged[k] for k in sorted(merged, key=where.get)}
+    results, _ = ds.evaluation(detections, work_dir if rank == 0 else None)
     return results, detections

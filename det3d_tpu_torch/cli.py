@@ -16,8 +16,14 @@ the card and raises where there is none; ``--device cpu`` runs on the CPU.
 The JAX package's mains call ``utils/env.py::setup_jax_from_env``, which
 picks a JAX platform from the environment; the explicit device does that
 job here. ``create_data`` runs on the host alone and takes no device.
-``--coordinator``, ``--num_processes`` and ``--process_id`` are accepted
-and raise: distributed training waits for ROADMAP queue 1, item 10.
+
+``train`` and ``test`` run as ranks when launched once a rank with
+``--coordinator HOST:PORT --num_processes W --process_id R`` (the three
+together; rank 0 listens on the port), as the JAX package's mains do:
+``parallel/dist_utils.py::initialize_distributed`` over NCCL with the
+default ``--device cuda`` (one card a rank), over gloo with ``--device
+cpu``. ``train`` is then the global step over the ranks' batches, and
+``test`` shards the split and gathers the detections (apis/train.py).
 """
 
 from __future__ import annotations
@@ -26,14 +32,41 @@ import argparse
 import sys
 from pathlib import Path
 
+import torch
+
 from det3d_tpu_torch.apis.train import (_device, build_stack, eval_detector,
                                         example_width, init_state,
                                         train_detector)
+from det3d_tpu_torch.parallel import dist_utils
 
 
 def _add_device(parser):
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
+
+
+def _add_ranks(parser):
+    parser.add_argument("--coordinator", default=None,
+                        help="HOST:PORT of rank 0, for a run over ranks")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+
+
+def _join_ranks(parser, args):
+    """Join the run's ranks when the flags name them (all three or none),
+    over the backend of ``--device``: NCCL on the card, gloo on the CPU."""
+    flags = (args.coordinator, args.num_processes, args.process_id)
+    if any(f is not None for f in flags) and None in flags:
+        parser.error("--coordinator, --num_processes and --process_id go "
+                     "together")
+    dist_utils.initialize_distributed(
+        args.coordinator, args.num_processes, args.process_id,
+        backend="gloo" if args.device == "cpu" else "nccl")
+
+
+def _leave_ranks():
+    if dist_utils.active():
+        torch.distributed.destroy_process_group()
 
 
 def _load_config(path):
@@ -52,24 +85,19 @@ def train_main(argv=None):
     parser.add_argument("--work_dir", default=None)
     parser.add_argument("--resume_from", default=None)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--coordinator", default=None,
-                        help="coordinator addr for multi-host runs")
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+    _add_ranks(parser)
     _add_device(parser)
     args = parser.parse_args(argv)
-
-    if (args.coordinator is not None or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "--coordinator / --num_processes / --process_id: distributed "
-            "training is not ported yet (ROADMAP queue 1, item 10)")
     _device(args.device)
-    cfg = _load_config(args.config)
-    work_dir = args.work_dir or f"work_dirs/{Path(args.config).stem}"
-    trainer = train_detector(cfg, work_dir=work_dir,
-                             resume_from=args.resume_from, seed=args.seed,
-                             device=args.device)
+    _join_ranks(parser, args)
+    try:
+        cfg = _load_config(args.config)
+        work_dir = args.work_dir or f"work_dirs/{Path(args.config).stem}"
+        trainer = train_detector(cfg, work_dir=work_dir,
+                                 resume_from=args.resume_from,
+                                 seed=args.seed, device=args.device)
+    finally:
+        _leave_ranks()
     print(f"trained to epoch {trainer.epoch}, iter {trainer.iter}; "
           f"checkpoints in {Path(work_dir) / 'ckpt'}")
     return 0
@@ -82,24 +110,30 @@ def test_main(argv=None):
     parser.add_argument("--work_dir", default=None)
     parser.add_argument("--split", default="val")
     parser.add_argument("--epoch", type=int, default=None)
+    _add_ranks(parser)
     _add_device(parser)
     args = parser.parse_args(argv)
     _device(args.device)
     from det3d_tpu_torch.runtime.checkpoint import CheckpointManager
 
-    cfg = _load_config(args.config)
-    # the state is built as wide as an example of the split, then the
-    # checkpoint written into it
-    model = build_stack(cfg, args.device, point_width=example_width(
-        cfg["data"][args.split]))[0]
-    state, _ = init_state(cfg, model, total_steps=1)
-    mgr = CheckpointManager(str(Path(args.checkpoint) / "ckpt"))
-    state, epoch = mgr.restore(state, epoch=args.epoch)
-    print(f"restored checkpoint @ epoch {epoch}")
+    _join_ranks(parser, args)
+    try:
+        cfg = _load_config(args.config)
+        # the state is built as wide as an example of the split, then the
+        # checkpoint written into it
+        device = dist_utils.rank_device(args.device)
+        model = build_stack(cfg, device, point_width=example_width(
+            cfg["data"][args.split]))[0]
+        state, _ = init_state(cfg, model, total_steps=1)
+        mgr = CheckpointManager(str(Path(args.checkpoint) / "ckpt"))
+        state, epoch = mgr.restore(state, epoch=args.epoch)
+        print(f"restored checkpoint @ epoch {epoch}")
 
-    results, _ = eval_detector(cfg, state,
-                               work_dir=args.work_dir or args.checkpoint,
-                               split=args.split, device=args.device)
+        results, _ = eval_detector(cfg, state,
+                                   work_dir=args.work_dir or args.checkpoint,
+                                   split=args.split, device=args.device)
+    finally:
+        _leave_ranks()
     for text in results["results"].values():
         print(text)
     return 0

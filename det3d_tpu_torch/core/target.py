@@ -26,6 +26,7 @@ from det3d_tpu_torch.utils.registry import build_from_cfg
 from det3d_tpu_torch.core import box_ops
 from det3d_tpu_torch.core.anchors import ANCHOR_GENERATORS
 from det3d_tpu_torch.core.geometry import rotated_iou_matrix
+from det3d_tpu_torch.parallel.dist_utils import get_dist_info
 
 
 # ---------------------------------------------------------------------------
@@ -134,13 +135,23 @@ def _subsample(fg0, bg, any_gt, cls_of_argmax, positive_fraction,
                sample_size, generator):
     """create_target's RPN-style minibatch labels: a random num_fg of the
     foreground kept, ``sample_size - n_fg`` background anchors enabled,
-    drawn with replacement (with no gt every anchor is background)."""
+    drawn with replacement (with no gt every anchor is background). Under
+    ranks (parallel/dist_utils.py) example i of rank r draws what the
+    global batch's example r * B + i draws (every rank takes the global
+    batch's draws from its generator and keeps its own rows)."""
     b, a = fg0.shape
     dev = fg0.device
+    rank, world = get_dist_info()
+
+    def draw_rows(n):
+        # the rows of this rank's examples among the global batch's draws
+        u = torch.rand((world * b, n), generator=generator, device=dev)
+        return u[rank * b:(rank + 1) * b]
+
     labels = torch.where(fg0 & any_gt, cls_of_argmax, -1)
     num_fg = int(positive_fraction * sample_size)
     fg = labels > 0
-    u = torch.rand((b, a), generator=generator, device=dev)
+    u = draw_rows(a)
     fg_order = torch.argsort(torch.where(fg, u, 2.0), dim=1)
     fg_rank = torch.empty_like(fg_order).scatter_(
         1, fg_order, torch.arange(a, device=dev).expand(b, a).contiguous())
@@ -151,7 +162,7 @@ def _subsample(fg0, bg, any_gt, cls_of_argmax, positive_fraction,
     num_bg = torch.clamp(sample_size - n_fg, min=0)
     n_bg = bg_pool.sum(dim=1, keepdim=True)
     bg_order = torch.argsort((~bg_pool).to(torch.int8), dim=1, stable=True)
-    draw = torch.rand((b, sample_size), generator=generator, device=dev)
+    draw = draw_rows(sample_size)
     u_bg = torch.minimum((draw * torch.clamp(n_bg, min=1)).long(),
                          torch.clamp(n_bg - 1, min=0))
     chosen = torch.gather(bg_order, 1, u_bg)

@@ -1,7 +1,8 @@
 from det3d_tpu_torch.datasets.loader.loader import (DataLoader,
                                                     build_dataloader,
                                                     collate, replay)
-from det3d_tpu_torch.datasets.loader.sampler import GroupSampler
+from det3d_tpu_torch.datasets.loader.sampler import (DistributedGroupSampler,
+                                                     GroupSampler)
 
 __all__ = ["DataLoader", "build_dataloader", "collate", "replay",
-           "GroupSampler"]
+           "DistributedGroupSampler", "GroupSampler"]

@@ -31,7 +31,9 @@ from typing import Any, Dict, List
 import numpy as np
 
 from det3d_tpu_torch import csrc
-from det3d_tpu_torch.datasets.loader.sampler import GroupSampler
+from det3d_tpu_torch.datasets.loader.sampler import (
+    DistributedGroupSampler, GroupSampler)
+from det3d_tpu_torch.parallel.dist_utils import get_dist_info
 
 
 def collate(examples: List[Dict[str, Any]]) -> Dict[str, Any]:
@@ -195,13 +197,21 @@ def replay(loader: DataLoader, epochs) -> List[Dict[str, Any]]:
 
 def build_dataloader(dataset, batch_size, workers_per_gpu=0, dist=False,
                      shuffle=True, seed=0, **kwargs):
-    """Parity: datasets/loader/build_loader.py:23-57. ``dist`` (an epoch
-    sharded across processes) waits for distributed training: ROADMAP
-    queue 1, item 10."""
-    if dist:
-        raise NotImplementedError("build_dataloader(dist=True): distributed "
-                                  "loading is not ported yet")
-    sampler = GroupSampler(dataset, batch_size, seed=seed) if shuffle \
-        else None
+    """Parity: datasets/loader/build_loader.py:23-57. ``batch_size`` is
+    one rank's; ``dist`` shards a shuffled epoch across the ranks
+    (DistributedGroupSampler, rank and world from
+    parallel/dist_utils.py::get_dist_info); without ``shuffle`` every rank
+    loads the whole split in order, as the JAX package's does. Every
+    rank's workers are seeded ``seed * 1000 + w``, as the JAX package's
+    are. Make the loader after the process group is up: its workers fork
+    at its first pass and touch neither the group nor CUDA."""
+    sampler = None
+    if shuffle and dist:
+        rank, world = get_dist_info()
+        sampler = DistributedGroupSampler(dataset, batch_size,
+                                          num_replicas=world, rank=rank,
+                                          seed=seed)
+    elif shuffle:
+        sampler = GroupSampler(dataset, batch_size, seed=seed)
     return DataLoader(dataset, batch_size, sampler=sampler,
                       num_workers=workers_per_gpu, seed=seed)

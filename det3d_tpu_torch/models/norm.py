@@ -15,8 +15,19 @@ from sums: ``mean = s1 / cnt``, ``var = max(s2 / cnt - mean², 0)`` with
 running statistics are then updated outside autograd, ``running = (1 -
 momentum) * running + momentum * batch``, the variance with its unbiased
 estimate ``var * cnt / max(cnt - 1, 1)``. ``nn.BatchNorm`` takes no mask
-and computes its variance otherwise. The synced variant (SyncBN over a
-mesh) is queue 1's distributed item; on one card every BN is plain BN.
+and computes its variance otherwise.
+
+Synced statistics: while a process group is up (parallel/dist_utils.py),
+every training-mode ``MaskedBatchNorm`` sums ``cnt``, ``s1`` and ``s2``
+over the ranks before it forms the mean and variance, as one flat
+tensor (one collective a layer forward, one backward: the gradient of a
+rank's sums is the sum of every rank's), the JAX package's ``psum``
+(det3d_tpu/models/norm.py:66-71). Every layer syncs, not only those a
+config calls ``SyncBN``: every shipped config says SyncBN, and under the
+JAX package's mesh step every BN's sums are global anyway (one program
+over the whole batch, det3d_tpu/parallel/train.py:19-21). So the
+statistics, the running statistics and the gradients are the global
+batch's, the same on every rank. Eval mode does not communicate.
 """
 
 from __future__ import annotations
@@ -25,6 +36,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from det3d_tpu_torch.parallel.dist_utils import active as dist_active
+from det3d_tpu_torch.parallel.dist_utils import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -43,7 +57,8 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(num_features))
 
     def batch_stats(self, xf, mask=None):
-        """(mean, var, count) of the fp32 input's selected rows."""
+        """(mean, var, count) of the fp32 input's selected rows, over every
+        rank's rows while a process group is up."""
         dims = tuple(range(xf.dim() - 1))
         if mask is None:
             cnt = xf.new_full((), float(xf.numel() // xf.shape[-1]))
@@ -54,6 +69,10 @@ class MaskedBatchNorm(nn.Module):
             cnt = m[..., 0].sum()
             s1 = (xf * m).sum(dims)
             s2 = (xf * xf * m).sum(dims)
+        if dist_active():
+            c = s1.shape[0]
+            sums = all_reduce_sum(torch.cat([cnt.reshape(1), s1, s2]))
+            cnt, s1, s2 = sums[0], sums[1:c + 1], sums[c + 1:]
         cnt = torch.clamp(cnt, min=1.0)
         mean = s1 / cnt
         var = torch.clamp(s2 / cnt - mean * mean, min=0.0)

@@ -16,6 +16,8 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from det3d_tpu_torch.parallel.dist_utils import backend
+
 
 class _Graph:
     """One batch signature's graph: its static device inputs, the pinned
@@ -131,11 +133,22 @@ class CapturedStep:
 
 
 def stepper(run: Callable, device: torch.device,
-            state: Optional[Callable[[], List[torch.Tensor]]] = None):
+            state: Optional[Callable[[], List[torch.Tensor]]] = None,
+            collective: bool = False):
     """``run`` as the step a user calls: on the card a CapturedStep, on the
     CPU (the caller asked for it) an eager function of host arrays or
-    tensors, which is also its own ``.eager``."""
-    if device.type == "cuda":
+    tensors, which is also its own ``.eager``.
+
+    ``collective``: the step runs torch.distributed collectives (the train
+    and loss-eval steps of ranks, parallel/train.py). The rule is the
+    backend's: NCCL's collectives are captured in the step's CUDA graph
+    like its kernels, so under NCCL the step is a CapturedStep, whose
+    warm-up (eager, collectives included) every rank runs alike at its
+    first call; gloo's collectives stage through the host and cannot be
+    captured, so under gloo the step on the card is eager. This is decided
+    from the backend before any capture, never from a capture that
+    failed."""
+    if device.type == "cuda" and not (collective and backend() == "gloo"):
         return CapturedStep(run, device, state)
 
     def step(batch):

@@ -4,7 +4,7 @@ build: points -> voxels -> anchors and targets.
 Port of det3d_tpu/parallel/train.py: ``TrainState``, ``build_example``
 (voxelization, each task's anchors, the anchor-area mask and, with
 ``with_targets``, target assignment), ``make_train_step`` and
-``make_loss_eval_step``, without the mesh (one card).
+``make_loss_eval_step``. The mesh becomes ranks: see "Ranks" below.
 
 The JAX train step is one jitted function of (state, batch); here the
 model holds the parameters and BatchNorm statistics and the optimizer
@@ -20,6 +20,24 @@ count on the device. A sparse middle trains from the batch's host
 training plan (``plan_*`` keys, apis/train.py::host_plan_fn(train=True))
 or, without one, from the training plan it builds on the device; its
 window convs' backward runs the kernels of ops/window_conv_cuda.py.
+
+Ranks (torch.distributed, parallel/dist_utils.py): while a process group
+is up, each rank steps on its own B/W examples and the step is the JAX
+package's global step over the W ranks' batches concatenated in rank
+order (det3d_tpu/parallel/train.py:14-21; the mesh's one program over
+the whole batch): the BatchNorm statistics are every rank's
+(models/norm.py), the gradients of each rank's loss are summed over the
+ranks as one flat buffer and divided by W, the gradient of the mean of
+the ranks' losses, which is the global batch's loss (each task's losses
+are sums over examples over the batch size), before the optimizer's
+update, so that its global-norm clip and ``grad_norm`` see the global
+gradient and every rank applies the same update; no
+DistributedDataParallel, whose hooks ``torch.autograd.grad`` would not
+fire. The metrics are the global batch's: the losses and ``num_voxels``
+are means over the ranks, ``num_pos`` / ``num_neg`` rank 0's, as the
+JAX package counts them on the global batch's first example, rank 0's
+first (det3d_tpu/models/heads.py:264). Under NCCL the step is captured
+as on one card; under gloo it runs eagerly (parallel/graph.py::stepper).
 
 Batch layout (numpy arrays or tensors):
   points (B, P, C) float32, num_points (B,) int32,
@@ -37,6 +55,7 @@ import torch
 
 from det3d_tpu_torch.core.target import TargetAssigner
 from det3d_tpu_torch.core.voxelize import VoxelGenerator
+from det3d_tpu_torch.parallel import dist_utils
 from det3d_tpu_torch.parallel.graph import stepper
 
 METRIC_KEYS = ("loc_loss_reduced", "cls_loss_reduced", "dir_loss_reduced",
@@ -144,6 +163,32 @@ def network_loss(model, example):
     return sum(losses["loss"]), losses
 
 
+def mean_over_ranks(tensors):
+    """Each tensor's mean over the ranks: one all-reduce of their flat
+    concatenation, divided by the world size."""
+    tensors = list(tensors)
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    torch.distributed.all_reduce(flat)
+    flat = flat / torch.distributed.get_world_size()
+    return [v.view_as(t) for t, v in
+            zip(tensors, flat.split([t.numel() for t in tensors]))]
+
+
+def global_metrics(metrics: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+    """The global batch's metrics from each rank's 0-d fp32 ones, in one
+    all-reduce: the means over the ranks, and ``num_pos*`` / ``num_neg*``
+    rank 0's (every other rank contributes zero to the sum)."""
+    keys = sorted(metrics)
+    rank, world = dist_utils.get_dist_info()
+    first = [k.startswith(("num_pos", "num_neg")) for k in keys]
+    vec = torch.stack([metrics[k] * (0.0 if f and rank else 1.0)
+                       for k, f in zip(keys, first)])
+    torch.distributed.all_reduce(vec)
+    return {k: v if f else v / world
+            for k, v, f in zip(keys, vec.unbind(), first)}
+
+
 def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
                     assigners: Sequence[TargetAssigner],
                     class_ids_per_task: Sequence[Sequence[int]],
@@ -156,10 +201,19 @@ def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
 
     On a CUDA model the step is a CapturedStep (``train_step.eager`` the
     same step run eagerly; the capture's warm-up leaves the state as it
-    was); on a CPU model (the caller asked for the CPU) it runs eagerly."""
+    was), eager under gloo ranks (parallel/graph.py::stepper); on a CPU
+    model (the caller asked for the CPU) it runs eagerly.
+
+    While a process group is up, each rank's call is its share of the
+    global step (see the module's docstring; every rank calls it with
+    its batch, in step). ``generator``: the draws of positive_fraction
+    subsampling (core/target.py::create_target), where rank r's example
+    i draws as the global batch's example r * B + i; no shipped config
+    subsamples, and their steps draw nothing."""
     model, tx = state.model, state.tx
     params = list(model.parameters())
     device = params[0].device
+    ranks = dist_utils.active()
 
     def run(batch):
         with torch.no_grad():
@@ -169,15 +223,20 @@ def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
         with _mode(model, True), torch.enable_grad():
             total, losses = network_loss(model, example)
             grads = torch.autograd.grad(total, params)
+        if ranks:
+            grads = mean_over_ranks(grads)
         grad_norm = tx.update(grads)
-        metrics = {"loss": total.detach(), "grad_norm": grad_norm,
+        metrics = {"loss": total.detach(),
                    "num_voxels": example["num_voxels"].float().mean()}
         for k in METRIC_KEYS:
             for t, v in enumerate(losses[k]):
                 metrics[f"{k}_task{t}"] = v.detach().float()
+        if ranks:
+            metrics = global_metrics(metrics)
+        metrics["grad_norm"] = grad_norm
         return metrics
 
-    return stepper(run, device, state.tensors)
+    return stepper(run, device, state.tensors, collective=ranks)
 
 
 def make_loss_eval_step(model, voxel_generator: VoxelGenerator,
@@ -187,14 +246,17 @@ def make_loss_eval_step(model, voxel_generator: VoxelGenerator,
     """Returns ``loss_step(batch) -> {"loss": tensor}``: the validation
     loss with BatchNorm on its running statistics, nothing updated (the
     reference workflow's ``('val', 1)``), from the batch's host plan where
-    it has one. Captured on a CUDA model."""
+    it has one. Captured on a CUDA model (eager under gloo ranks). While a
+    process group is up the loss is the mean over the ranks' batches."""
     device = next(model.parameters()).device
+    ranks = dist_utils.active()
 
     @torch.no_grad()
     def run(batch):
         example = build_example(batch, voxel_generator, assigners,
                                 class_ids_per_task, with_targets=True)
         with _mode(model, False):
-            return {"loss": network_loss(model, example)[0]}
+            out = {"loss": network_loss(model, example)[0]}
+        return global_metrics(out) if ranks else out
 
-    return stepper(run, device)
+    return stepper(run, device, collective=ranks)

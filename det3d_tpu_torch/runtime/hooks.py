@@ -19,6 +19,8 @@ import time
 from enum import IntEnum
 from typing import Optional
 
+from det3d_tpu_torch.parallel.dist_utils import get_dist_info
+
 
 class Priority(IntEnum):
     HIGHEST = 0
@@ -145,7 +147,7 @@ class TextLoggerHook(Hook):
     def before_run(self, trainer):
         self.start_iter = trainer.iter
         self.t_start = time.time()
-        if trainer.work_dir:
+        if trainer.work_dir and get_dist_info()[0] == 0:
             os.makedirs(trainer.work_dir, exist_ok=True)
             self.json_path = os.path.join(
                 trainer.work_dir, f"{trainer.timestamp}.log.json")
@@ -202,6 +204,8 @@ class TensorboardLoggerHook(Hook):
 
     def before_run(self, trainer):
         from det3d_tpu_torch.utils.tfevents import TfEventWriter
+        if get_dist_info()[0] != 0:
+            return                      # rank 0 alone writes tfevents
         self.writer = TfEventWriter(
             self.log_dir or os.path.join(trainer.work_dir, "tf_logs"))
 

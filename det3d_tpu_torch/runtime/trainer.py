@@ -10,6 +10,13 @@ the step, ``train_step(batch) -> metrics``, and the trainer owns only
 orchestration, timing and IO. The learning rate comes from the
 optimizer's count on the card, so LrUpdaterHook becomes ``current_lr()``
 introspection.
+
+Under ranks (parallel/dist_utils.py) only rank 0 writes: the log file,
+the checkpoints (then every rank waits at a barrier, so that none reads
+a half-written file) and, in runtime/hooks.py, the JSON log and the
+tfevents; the other ranks log at ERROR only
+(det3d_tpu/runtime/trainer.py:36-43,126-127). ``resume`` reads the
+checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from det3d_tpu_torch.parallel.dist_utils import get_dist_info, synchronize
 from det3d_tpu_torch.runtime.checkpoint import CheckpointManager
 from det3d_tpu_torch.runtime.hooks import Hook, get_priority
 from det3d_tpu_torch.runtime.log_buffer import LogBuffer
@@ -35,12 +43,15 @@ def _get_host_logger(work_dir: Optional[str], timestamp: str) -> logging.Logger:
         sh.setFormatter(logging.Formatter(
             "%(asctime)s - %(levelname)s - %(message)s"))
         logger.addHandler(sh)
-    if work_dir:
+    rank = get_dist_info()[0]
+    if work_dir and rank == 0:
         os.makedirs(work_dir, exist_ok=True)
         fh = logging.FileHandler(os.path.join(work_dir, f"{timestamp}.log"))
         fh.setFormatter(logging.Formatter(
             "%(asctime)s - %(levelname)s - %(message)s"))
         logger.addHandler(fh)
+    if rank != 0:
+        logger.setLevel(logging.ERROR)
     return logger
 
 
@@ -125,12 +136,15 @@ class Trainer:
 
     # -- checkpoint ------------------------------------------------------
     def save_checkpoint(self, out_dir: Optional[str] = None) -> None:
-        mgr = self._ckpt if out_dir in (None, self.work_dir) else \
-            CheckpointManager(os.path.join(out_dir, "ckpt"))
-        meta = dict(self.meta, iter=self._iter,
-                    timestamp=self.timestamp)
-        mgr.save(self._epoch + 1, self.state, meta=meta)
-        self.logger.info("saved checkpoint @ epoch %d", self._epoch + 1)
+        """Rank 0 writes the checkpoint; then every rank waits for it."""
+        if get_dist_info()[0] == 0:
+            mgr = self._ckpt if out_dir in (None, self.work_dir) else \
+                CheckpointManager(os.path.join(out_dir, "ckpt"))
+            meta = dict(self.meta, iter=self._iter,
+                        timestamp=self.timestamp)
+            mgr.save(self._epoch + 1, self.state, meta=meta)
+            self.logger.info("saved checkpoint @ epoch %d", self._epoch + 1)
+        synchronize()
 
     def resume(self, checkpoint_dir: Optional[str] = None) -> None:
         """Restore state + epoch/iter counters (trainer.py:475-488), the

@@ -1,7 +1,8 @@
 """The port's command-line entry points (det3d_tpu_torch/cli.py) and the
 utilities that came with them, on the CPU (``--device cpu``): train and
 test against the public API, the three data preparations against the
-JAX package's, the device and distributed flags, ``python -m
+JAX package's, the device flag and an incomplete set of the ranks'
+flags (ranks themselves: tests/test_torch_dist.py), ``python -m
 det3d_tpu_torch.cli``, the packaging of the scripts and the native
 sources, ``load_weights`` from a ``file://`` URL, and fileio, cloudpath
 and config_tool against the JAX package's copies.
@@ -145,10 +146,14 @@ def test_create_data_takes_no_device(tmp_path):
 @pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
                                   ["--num_processes", "2"],
                                   ["--process_id", "0"]])
-def test_distributed_flags_raise(kitti, tmp_path, flag):
+def test_distributed_flags_raise(kitti, tmp_path, flag, capsys):
+    """A run over ranks needs the three flags together (ranks over gloo:
+    tests/test_torch_dist.py); one alone is an error of the command line,
+    before anything is built."""
     conf = write_config(tmp_path / "mini.json", mini(kitti, 1))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(SystemExit):
         cli.main(["train", conf, "--device", "cpu"] + flag)
+    assert "go together" in capsys.readouterr().err
 
 
 def test_unknown_command_prints_usage(capsys):

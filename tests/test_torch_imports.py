@@ -35,7 +35,7 @@ def imported_modules(path):
 def test_sources_found():
     names = {p.name for p in port_sources()}
     assert {"chip_smoke.py", "window_conv_cuda.py", "backbones.py",
-            "sparse_host.py"} <= names
+            "sparse_host.py", "dist_utils.py", "sampler.py"} <= names
 
 
 @pytest.mark.parametrize("path", port_sources(),
