@@ -5,7 +5,7 @@
                           [--prec bf16|fp32] [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
-    python3 chip_smoke.py --only points|train|data|nusc|dist
+    python3 chip_smoke.py --only points|train|data|nusc|dist|variants
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -23,7 +23,8 @@ change, parent) to compare two versions of a kernel on the same
 yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
 and KITTI-all from points and under TTA), only the training phases
 53-62, only the data, trainer and evaluation phases 63-66, only the
-nuScenes, Lyft and CLI phases 67-70, or only the ranks' phases 71-72
+nuScenes, Lyft and CLI phases 67-70, only the ranks' phases 71-72 or
+only the variants' phases 73-76
 (this last form ends with the JSON result line too).
 
 The first form drives the port's seven serving paths through the entry
@@ -51,7 +52,11 @@ eval_detector on the shipped CBGS, Lyft and nuScenes PointPillars
 configs, the 6-channel stem's window conv, the three CLIs), then
 training and evaluating over torch.distributed ranks (71 and 72: two
 gloo ranks sharing the card against one process, and one NCCL rank whose
-collectives are captured). It prints its running time at the end.
+collectives are captured), then the modules no shipped config names
+(73 to 76: the original VoxelNet, SpMiddleFHDNobn and RCNNSpMiddleFHD at
+SECOND's full grid, the two-stage crop-and-refine path, a grid deeper
+than 64, and utils/flops.py's count of every captured step with its
+share of peak). It prints its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
 CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
@@ -412,6 +417,39 @@ captured. Phases 39-46 drive the captured step itself.
      host training plans) through its collectives, captured: two eager
      steps bit-equal and the captured step bit-equal to them (cuDNN
      deterministic), launches exact, captured ms/step beside phase 60's.
+ 73. the modules no shipped config names at SECOND's full grid
+     (configs/kitti_car_second.py, B=2 x 16384 points, host plans):
+     (a) the original VoxelNet (VoxelFeatureExtractor (32, 128) before
+     SpMiddleFHD(num_input_features=128)) and (b) SpMiddleFHDNobn in
+     SECOND's stack, each through build_stack and make_predict_step
+     (bf16 middle as shipped; BN statistics calibrated on the card):
+     exactly 10 window-conv launches, the NMS kernel's keep equal to its
+     twin's on the step's inputs, the window conv at each layer against
+     its twin (times, bound), phase_captured, card vs CPU at B=1 (heads,
+     decode) and Nobn's middle card vs CPU by relative L2; (c)
+     RCNNSpMiddleFHD alone on its training plan (B=4, fp32): the
+     forward, dW, inverse-dX and subm-dX kernels against their twins
+     at every conv with times and bounds, one forward and backward card
+     vs CPU with the launches exact; (d) VFEV3_ablation and SimpleVoxel
+     on the VoxelNet step's voxels, card vs CPU;
+ 74. SECOND as shipped, captured (the NMS kernel inside the graph),
+     feeds its detections to crop_detections (512 points a RoI),
+     PointModule (1536 -> 1024 -> 128) and RegHead: crop indices and
+     empty card vs CPU equal, RegHead within 1e-4, crop + refine timed;
+     the refiner trained 300 Adam steps on tests/test_second_stage_e2e.
+     py's scene (B=2, 30 boxes a scan) to below a tenth of its first
+     loss; the six new losses and the five metrics card vs CPU;
+ 75. SECOND with 0.05 m z voxels, a (81, 1600, 1408) grid (the dense
+     table and flat rulebooks at res0, windows after): the predict step
+     from points at B=2 (7 window-conv launches, captured, peak
+     memory), card vs CPU at B=1; the middle's training forward and
+     backward on a +-6.4 m cut card vs CPU (the flat per-tap
+     backward); a k3/s1 strided window conv's backward (3 candidates a
+     dim: the flat per-tap dX) card vs CPU;
+ 76. utils/flops.py's count (GFLOP, GB, GFLOP in the port's kernels) of
+     every step an earlier phase of this run captured and timed, and its
+     share of peak and of HBM at that phase's captured ms; the
+     flagship's count at B=8 on the card and on the CPU, stage by stage.
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -444,7 +482,9 @@ its inputs) and ``"nusc_pp_tta"`` (the NMS kernel), then the training
 paths' backward kernels, then the ranks' paths of phases 71-72,
 ``"second_dist"``, ``"second_nccl"`` and ``"kitti_pp_dist_eval"``
 (dist_entries: launches counted on the path, times measured on its
-nearest path); ``ms``: a call from
+nearest path), then phases 73-75's ``"voxelnet"``, ``"nobn"``,
+``"second_two_stage"``, ``"deep_points"`` and ``"rcnn_train"``
+(variant_entries); ``ms``: a call from
 Python,
 interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
 result line. The NMS bound counts
@@ -470,6 +510,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from det3d_tpu_torch.utils import flops as flop_counts
+from det3d_tpu_torch.utils.flops import (BF16_FLOPS, FP32_FLOPS, bound,
+                                         conv_taps, conv_work, nms_bound,
+                                         tap_rows)
 
 B, POINTS, SEED = 8, 16384, 3
 IOU_THR = 0.5
@@ -540,11 +585,9 @@ LYFT_CFG = (Path(__file__).resolve().parent / "configs"
 KITTI_ALL_CFG = (Path(__file__).resolve().parent / "configs"
                  / "kitti_all_second.py")
 
-# H100 SXM published peaks: HBM bytes/s, fp32
-# CUDA-core FLOP/s, bf16 dense tensor-core FLOP/s
-HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
-NMS_FLOPS_PER_PAIR = 250        # ~ fp32 operations of one pair IoU
-NMS_FLOPS_PER_TEST = 10         # ~ fp32 operations of one circumcircle test
+# the H100's published peaks (HBM bytes/s, fp32 CUDA-core FLOP/s, bf16
+# dense tensor-core FLOP/s) and the bound rules of the port's kernels live
+# in det3d_tpu_torch/utils/flops.py (imported at the top)
 
 
 def log(msg):
@@ -1102,74 +1145,6 @@ def phase_timing(dev, stack, batch, smi):
 # bounds: the least time the card could take for the same work
 # ---------------------------------------------------------------------------
 
-def bound(nbytes, flops, peak):
-    """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    operations over ``peak``."""
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def nms_bound(corners, area, valid):
-    """Rotated NMS keep, the work these inputs need: a distance test
-    (NMS_FLOPS_PER_TEST) for every pair of valid boxes and a full IoU
-    (NMS_FLOPS_PER_PAIR) for the pairs near_pairs keeps; inputs read once,
-    the keep mask written once. Returns (bound_ms, bound_by,
-    all_pairs_ms): the last the earlier bound, a full IoU for every valid
-    pair, kept for continuity."""
-    from det3d_tpu_torch.ops.nms_cuda import near_pairs
-    v = valid.sum(dim=1).double()
-    pairs = float((v * (v - 1) / 2).sum())
-    near = float(near_pairs(corners, area, valid).sum())
-    nbytes = (corners.numel() * 4 + area.numel() * 4 + 2 * valid.numel())
-    b_ms, b_by = bound(nbytes, pairs * NMS_FLOPS_PER_TEST
-                       + near * NMS_FLOPS_PER_PAIR, FP32_FLOPS)
-    return b_ms, b_by, bound(nbytes, pairs * NMS_FLOPS_PER_PAIR,
-                             FP32_FLOPS)[0]
-
-
-def tap_rows(packed, v, center_shift):
-    """(rows, sel), each (B, O, K, kz): the input row tap j of column k
-    reads for output o, and whether it reads one (the tap is present and
-    the row lies in [0, V)). The rules are window_conv_ref's."""
-    from det3d_tpu_torch.ops.sparse import unpack_windows
-    r0, pres = unpack_windows(packed, 3)
-    o, kbev, kz = pres.shape[1:]
-    off = pres.long().cumsum(-1) - pres.long()       # popcount(pres[:j])
-    rows = r0.clamp(max=v - 1)[..., None] + off
-    if center_shift:
-        rows[:, :, kbev // 2] = (torch.arange(o, device=rows.device)[:, None]
-                                 - 1 + torch.arange(kz, device=rows.device))
-    return rows, pres & (rows >= 0) & (rows < v)
-
-
-def conv_taps(packed, v, center_shift):
-    """(taps, rows) of one window conv on this plan: the present taps that
-    read an input row (rows past V or before 0 read zero), and the distinct
-    input rows they read, over the batch."""
-    rows, sel = tap_rows(packed, v, center_shift)
-    b = rows.shape[0]
-    batch = torch.arange(b, device=rows.device).view(b, 1, 1, 1)
-    hit = torch.zeros(b, v, dtype=torch.bool, device=rows.device)
-    hit[batch.expand_as(rows)[sel], rows[sel]] = True
-    return int(sel.sum()), int(hit.sum())
-
-
-def conv_work(features, packed, weights, center_shift):
-    """(bytes, flops, peak) of one window conv: the input rows that present
-    taps read, each once, the packed plan and the weights read once, the
-    fp32 output written once; 2 Cin Cout flops per tap that reads a row.
-    fp32 operands at the CUDA-core rate, bf16 at the tensor-core rate."""
-    b, o, _ = packed.shape
-    cin, cout = weights.shape[1:]
-    taps, rows = conv_taps(packed, features.shape[1], center_shift)
-    elt = features.element_size()
-    nbytes = (rows * cin * elt + packed.numel() * 4
-              + weights.numel() * elt + b * o * cout * 4)
-    peak = BF16_FLOPS if features.dtype == torch.bfloat16 else FP32_FLOPS
-    return nbytes, 2.0 * cin * cout * taps, peak
-
-
 def im2col_matmul(features, packed, weights, center_shift):
     """Phase 11's yardstick, which the port never calls: the same conv as a
     gather of every output row's kz*K taps into an im2col matrix
@@ -1334,7 +1309,7 @@ def conv_cases(plan, dev, dtype, layers=SECOND_LAYERS):
     ``dtype``. The cases of one (Cin, Cout, center_shift) repeat with the
     forward."""
     g = torch.Generator().manual_seed(0)
-    b, v = plan["plan_s0"].shape[:2]
+    b, v = plan[f"plan_{layers[0][0]}"].shape[:2]
 
     def feats(cin, rows):
         return torch.randn(b, rows, cin, generator=g).to(dev, dtype)
@@ -1349,6 +1324,8 @@ def conv_cases(plan, dev, dtype, layers=SECOND_LAYERS):
     out, rows = [], v
     for key, cin, cout, subm in layers:
         pk = packed(f"plan_{key}")
+        if subm:                        # a subm conv's rows are its outputs
+            rows = pk.shape[1]
         name = f"{'subm' if subm else 'strided'} ({cin},{cout}) {key}"
         out.append((name, feats(cin, rows), pk,
                     weights(3 * pk.shape[-1], cin, cout), subm))
@@ -1769,6 +1746,23 @@ def conv_timing(dev, host_plan, smi, prec, layers=SECOND_LAYERS,
     return fwd
 
 
+# phase 76: utils/flops.py's count of each step an earlier phase of this
+# run captured and timed, by label: (FlopCounter, captured ms from the
+# card, B)
+STEP_COUNTS = {}
+
+
+def count_step(label, run, ms, b):
+    """Count one eager ``run()`` of a step (utils/flops.py) and keep it with
+    the captured step's ms from the card for phase 76."""
+    counter = flop_counts.count_step(run)
+    STEP_COUNTS[label] = (counter, ms, b)
+    t = counter.totals()
+    log(f"{label} count of one step: {t['flops'] / 1e9:.3f} GFLOP, "
+        f"{t['bytes'] / 1e9:.3f} GB, {t['kernel_flops'] / 1e9:.3f} GFLOP in "
+        f"the port's kernels {dict(sorted(counter.by_kernel.items()))}")
+
+
 def phase_captured(dev, step, data, launches, smi, label, warmup=WARMUP,
                    rounds=REPEAT):
     """The predict step as a user calls it: ``step`` (make_predict_step's
@@ -1849,6 +1843,7 @@ def phase_captured(dev, step, data, launches, smi, label, warmup=WARMUP,
         f"{on_card['captured']:.3f} "
         f"({on_card['eager'] / on_card['captured']:.2f}x); device memory "
         f"reserved {torch.cuda.memory_reserved() / 2**20:.0f} MiB [{smi}]")
+    count_step(label, lambda: step.eager(data_d), on_card["captured"], b)
     return {"launches": captured, "eager": ms["eager"],
             "captured": ms["captured"], "copy": copy, "on_card": on_card}
 
@@ -2904,11 +2899,15 @@ def card_vs_cpu_points(dev, card_stack, cpu_stack, one, label, tta=False):
         planned = ""
         if "SpMiddle" in type(card.backbone).__name__:
             spec = middle_plan_spec(card.backbone, vg.grid_size,
-                                    vg.max_voxels)
+                                    vg.max_voxels, host=False)
             plan_d = build_plan_device(ex_d["coordinates"], spec)
             plan_c = build_plan_device(ex_c["coordinates"], spec)
             for k in plan_c:
-                if not torch.equal(plan_d[k].cpu(), plan_c[k]):
+                # a deep grid's flat rulebooks are (idx, mask) pairs
+                pairs = (zip(plan_d[k], plan_c[k])
+                         if isinstance(plan_c[k], tuple)
+                         else [(plan_d[k], plan_c[k])])
+                if not all(torch.equal(a.cpu(), c) for a, c in pairs):
                     raise AssertionError(f"{label}: device plan {k}, card "
                                          f"vs CPU, differs")
             planned = f", the {len(plan_c)} device plan keys equal"
@@ -3609,6 +3608,8 @@ def phase_train_timing(dev, key, name, batch, smi, label=None,
     busy = log_profile(f"{label} captured", wall, kernels, 5,
                        batch["points"].shape[0], smi)
     b = batch["points"].shape[0]
+    count_step(f"{label} train step", lambda: step.eager(data_d),
+               on_card["captured"], b)
     log(f"{label} train step B={b} ms/step from the numpy batch, in turns "
         f"(e c c e): eager {ms['eager']:.3f}, captured {ms['captured']:.3f} "
         f"({ms['eager'] / ms['captured']:.2f}x; "
@@ -5681,6 +5682,736 @@ def phase_nccl(dev, smi):
     return lc
 
 
+# ---------------------------------------------------------------------------
+# phases 73-76: the modules no shipped config uses, and whole-step counts
+# ---------------------------------------------------------------------------
+
+# RCNNSpMiddleFHD's window convs in forward order on its plan
+RCNN_LAYERS = (("s0", 4, 16, True), ("s0", 16, 16, True),
+               ("down1", 16, 32, False), ("subm1", 32, 32, True),
+               ("down2", 32, 64, False), ("subm2", 64, 64, True),
+               ("down3", 64, 64, False), ("subm3", 64, 64, True),
+               ("down4", 64, 64, False))
+RCNN_B = 4                              # SECOND's training batch
+# the window conv's launches in one RCNN forward and backward: 9 convs,
+# subm dX past the stem, 4 strided dX over inverse rulebooks, 9 dW
+RCNN_LAUNCHES = {"window_conv": 9, "window_conv_subm_dx": 4,
+                 "window_conv_dw": 9, "window_conv_inv": 4}
+VARIANT_OUT_REL = 1e-4      # a middle's output card vs CPU, relative L2
+READER_TOL = dict(rtol=1e-5, atol=1e-6)
+REFINE_SAMPLED, REFINE_LAYERS = 512, (1024, 128)
+REFINE_STEPS, REFINE_LR = 300, 3e-3
+REFINE_BOXES = 30                       # the refiner's scene: boxes a scan
+REFINE_TOL = dict(rtol=1e-4, atol=1e-4)
+LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+DEEP_VOXEL = [0.05, 0.05, 0.05]         # SECOND's z size halved: depth 81
+DEEP_RPN_IN = 256                       # 64 channels x 4 depths
+# the deep grid's window convs a forward from points: res0's two convs
+# and stage 1's down conv are flat; stage 1's 2 subm, stage 2's down and
+# 3 subm and stage 3's transition down conv are windows
+DEEP_LAUNCHES = 7
+DEEP_TRAIN_LAUNCHES = {"window_conv": 7, "window_conv_subm_dx": 5,
+                       "window_conv_dw": 7, "window_conv_inv": 2}
+DEEP_CUT = (6.4, 512)
+# the window convs of the VoxelNet and Nobn middles on SECOND's host plan
+VARIANT_LAYERS = {"voxelnet": (("s0", 128, 16, True),) + SECOND_LAYERS[1:],
+                  "nobn": SECOND_LAYERS}
+# the deep grid's window convs on its device plan (after the flat ones)
+DEEP_LAYERS = (("subm1", 32, 32, True),) * 2 + (("down2", 32, 64, False),) \
+    + (("subm2", 64, 64, True),) * 3 + (("down3", 64, 64, False),)
+VARIANT_NAMES = {"voxelnet": "the original VoxelNet (VoxelFeatureExtractor "
+                             "(32, 128) + SpMiddleFHD(128))",
+                 "nobn": "SpMiddleFHDNobn in SECOND's stack"}
+
+
+def variant_config(kind, precision=None, cut=None):
+    """configs/kitti_car_second.py with a variant the repo ships no config
+    for: "voxelnet" (the original VoxelNet reader, VoxelFeatureExtractor
+    with num_filters (32, 128), before SpMiddleFHD(num_input_features=
+    128)), "nobn" (SpMiddleFHDNobn), "rcnn" (RCNNSpMiddleFHD) or "deep"
+    (the voxel's z size halved: a (81, 1600, 1408) grid, the RPN
+    DEEP_RPN_IN wide); ``precision`` and ``cut`` as sparse_config's."""
+    cfg = sparse_config(SECOND_CFG, precision, cut)
+    m = cfg["model"]
+    bbc = m["backbone"]
+    norm = bbc.get("norm_cfg")
+    if kind == "voxelnet":
+        m["reader"] = dict(type="VoxelFeatureExtractor", num_input_features=4,
+                           num_filters=(32, 128), norm_cfg=norm)
+        bbc["num_input_features"] = 128
+    elif kind == "nobn":
+        m["backbone"] = dict(type="SpMiddleFHDNobn", num_input_features=4,
+                             norm_cfg=norm, serve_band=bbc.get("serve_band"),
+                             serve_precision=bbc.get("serve_precision"))
+    elif kind == "rcnn":
+        m["backbone"] = dict(type="RCNNSpMiddleFHD", num_input_features=4,
+                             norm_cfg=norm)
+    elif kind == "deep":
+        cfg["voxel_generator"]["voxel_size"] = list(DEEP_VOXEL)
+        m["neck"]["num_input_features"] = DEEP_RPN_IN
+    return cfg
+
+
+def phase_variant_stacks(dev, sec_batch, smi):
+    """Phase 73 (a), (b), (d): the original VoxelNet and SpMiddleFHDNobn
+    in SECOND's stack at its full grid from host plans (random weights,
+    BN statistics calibrated on the card in fp32 on one scan): the
+    predict step (bf16 middle as shipped) with exactly 10 window-conv
+    launches, the NMS kernel's keep equal to the plain twin's on what the
+    step feeds it, the captured step (phase_captured), card vs CPU at B=1
+    in fp32 (card_vs_cpu: heads within SECOND_HEAD_TOL, the decode within
+    DET_TOL) and, for Nobn, the middle's output within VARIANT_OUT_REL
+    relative L2; then VFEV3_ablation and SimpleVoxel on the VoxelNet
+    step's per-point voxels, card vs CPU within READER_TOL. Returns
+    {kind: {"nms", "conv", "launches"}}."""
+    from det3d_tpu_torch.models.registry import READERS
+    from det3d_tpu_torch.parallel.predict import build_example
+    one = {k: v[:1] for k, v in sec_batch.items()}
+    caps = {}
+    for kind, sub in (("voxelnet", "a"), ("nobn", "b")):
+        label = f"phase 73 ({sub}) {VARIANT_NAMES[kind]}"
+        cfg32 = variant_config(kind, "fp32")
+        state = calibrated_state(cfg32, one, dev)
+        stack = load_stack(variant_config(kind), state, dev)
+        plan = stack[5](sec_batch["points"], sec_batch["num_points"])
+        st, launches = sparse_predict(dev, stack, sec_batch, plan,
+                                      (SECOND_B, 100, 7), SECOND_LAUNCHES,
+                                      label)
+        res = {"nms": nms_entry(step_nms_inputs(lambda: st[4].eager(st[5])),
+                                label, smi),
+               "conv": conv_entry(dev, plan, VARIANT_LAYERS[kind], "bf16",
+                                  label, smi)}
+        res["launches"] = phase_captured(dev, st[4], st[5], launches, smi,
+                                         label)["launches"]
+        caps[kind] = res
+        card32 = load_stack(cfg32, state, dev)
+        cpu32 = load_stack(cfg32, state, "cpu")
+        card_vs_cpu(dev, card32, cpu32, one, label)
+        if kind == "nobn":
+            err = rel_l2(middle_on(card32, one, dev), middle_on(cpu32, one,
+                                                                "cpu"))
+            log(f"{label} middle output card vs CPU (fp32, no BN): relative "
+                f"L2 {err:.3e} (limit {VARIANT_OUT_REL})")
+            if not err <= VARIANT_OUT_REL:
+                raise AssertionError(f"{label}: middle card vs CPU {err}")
+        if kind == "voxelnet":
+            t = {k: torch.as_tensor(v, device=dev)
+                 for k, v in dict(sec_batch, **plan).items()}
+            with torch.no_grad():
+                ex = build_example(t, stack[1], stack[2])
+            vox, npts = ex["voxels"], ex["num_points_per_voxel"]
+            for name in ("VFEV3_ablation", "SimpleVoxel"):
+                reader = READERS.get(name)(num_input_features=4)
+                got = reader(vox, npts).cpu()
+                ref = reader(vox.cpu(), npts.cpu())
+                err = float((got - ref).abs().max())
+                log(f"phase 73 (d) {name} on the VoxelNet step's voxels "
+                    f"{tuple(vox.shape)}: card vs CPU max abs err {err:.3e} "
+                    f"(tolerance {READER_TOL})")
+                if not torch.allclose(got, ref, **READER_TOL):
+                    raise AssertionError(f"phase 73 (d) {name}: {err}")
+        del stack, st, card32, cpu32
+        gc.collect()
+        torch.cuda.empty_cache()
+    return caps
+
+
+def conv_entry(dev, plan, layers, prec, label, smi):
+    """The forward window-conv kernel at every layer of ``layers`` on
+    ``plan`` in ``prec``: against its plain twin (conv_vs_plain), a call
+    (cuda_ms), the device time (graph_ms), the twin's time and the bound
+    (conv_work), summed over the layers."""
+    from det3d_tpu_torch.ops.sparse import unpack_windows, window_conv_ref
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    t = {"err": 0.0, "ms": 0.0, "device": 0.0, "plain": 0.0, "bytes": 0,
+         "flops": 0, "dtype": prec}
+    for case in conv_cases(plan, dev, DTYPES[prec], layers):
+        name, x, pk, w, subm = case
+        t["err"] = max(t["err"], conv_vs_plain(case, prec, label))
+        r0, pres = unpack_windows(pk, 3)
+        nbytes, fl, _ = conv_work(x, pk, w, subm)
+        t["ms"] += cuda_ms(lambda: window_conv(x, pk, w, subm))
+        t["device"] += graph_ms(lambda: window_conv(x, pk, w, subm))
+        t["plain"] += cuda_ms(lambda: window_conv_ref(x, r0, pres, w, subm),
+                              warmup=1, repeat=3)
+        t["bytes"] += nbytes
+        t["flops"] += fl
+    t["bound_ms"], t["bound_by"] = bound(
+        t.pop("bytes"), t.pop("flops"),
+        BF16_FLOPS if prec == "bf16" else FP32_FLOPS)
+    log(f"{label} forward window conv ({prec}) over the {len(layers)} "
+        f"layers: a call {t['ms']:.4f} ms, device {t['device']:.4f} ms, "
+        f"plain {t['plain']:.3f} ms, bound {t['bound_ms']:.6f} ms "
+        f"({t['bound_by']}), max abs err {t['err']:.2e} [{smi}]")
+    return t
+
+
+def nms_entry(nms_in, label, smi):
+    """The NMS kernel on a step's inputs: its keep equal to the plain
+    twin's, a call, the device time, the twin's and the bound."""
+    from det3d_tpu_torch.ops.nms_cuda import (rotated_nms_keep,
+                                              rotated_nms_keep_ref)
+    corners, area, valid, thr = nms_in
+    keep = rotated_nms_keep(corners, area, valid, thr)
+    if not torch.equal(keep, rotated_nms_keep_ref(corners, area, valid,
+                                                  thr)):
+        raise AssertionError(f"{label}: NMS kernel keep differs from plain")
+    b_ms, b_by, _ = nms_bound(corners, area, valid)
+    t = {"ms": cuda_ms(lambda: rotated_nms_keep(corners, area, valid, thr)),
+         "device": graph_ms(lambda: rotated_nms_keep(corners, area, valid,
+                                                     thr)),
+         "plain": cuda_ms(lambda: rotated_nms_keep_ref(corners, area, valid,
+                                                       thr),
+                          warmup=1, repeat=3),
+         "bound_ms": b_ms, "bound_by": b_by}
+    log(f"{label} NMS fed N={corners.shape[0]} K={corners.shape[1]} thr "
+        f"{thr}: the kernel's keep equals the plain twin's "
+        f"({int(keep.sum())} kept of {int(valid.sum())} valid); a call "
+        f"{t['ms']:.4f} ms, device {t['device']:.4f} ms, plain "
+        f"{t['plain']:.3f} ms, bound {b_ms:.7f} ms ({b_by}) [{smi}]")
+    return t
+
+
+def middle_fwd_bwd(model, data, device, grid):
+    """One training forward and backward of a middle alone on ``data``'s
+    host voxel means, coords and (training) plan, or the device plan
+    without plan keys, the cotangent seeded: (output, gradients by name,
+    the window conv's launches)."""
+    t = {k: torch.as_tensor(v, device=device) for k, v in data.items()}
+    plan = {k[5:]: v for k, v in t.items() if k.startswith("plan_")}
+    kw = {"plan": plan} if plan else {}
+    reset_launches()
+    model.train()
+    out = model(t["voxels"], t["coordinates"], grid, **kw)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(2))
+    (out * cot.to(device)).sum().backward()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = launch_counts()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return out.detach().cpu(), grads, launches
+
+
+def check_fwd_bwd(label, card, cpu, launches_want):
+    """A middle's forward and backward, card against CPU: the output within
+    VARIANT_OUT_REL, each gradient within SPARSE_GRAD_REL relative L2
+    (training BN amplifies rounding), the window conv's launches exact."""
+    (out_d, g_d, n_d), (out_c, g_c, _) = card, cpu
+    err = rel_l2(out_d, out_c)
+    errs = {n: rel_l2(g_d[n], g_c[n]) for n in g_c
+            if float(g_c[n].norm()) > 0}
+    worst = max(errs, key=errs.get)
+    log(f"{label} forward and backward, card vs CPU (plain twins): output "
+        f"relative L2 {err:.3e} (limit {VARIANT_OUT_REL}); {len(errs)} "
+        f"gradients worst {errs[worst]:.3e} ({worst}), median "
+        f"{statistics.median(errs.values()):.3e} (limit {SPARSE_GRAD_REL}); "
+        f"the card's launches {n_d}")
+    if not err <= VARIANT_OUT_REL:
+        raise AssertionError(f"{label}: output card vs CPU {err}")
+    if not errs[worst] <= SPARSE_GRAD_REL:
+        raise AssertionError(f"{label}: gradient {worst} {errs[worst]}")
+    if n_d != launches_want:
+        raise AssertionError(f"{label}: launches {n_d}, expected "
+                             f"{launches_want}")
+
+
+def phase_rcnn_middle(dev, smi):
+    """Phase 73 (c): RCNNSpMiddleFHD alone on SECOND's training plan (B=
+    RCNN_B structured training scans at its full grid; the plan
+    host_plan_fn(train=True) builds for RCNN's stages), fp32: the forward
+    kernel and the backward kernels against their twins at every conv,
+    with a call's ms, the device ms, the plain twin's and the bound
+    (utils/flops.py); one forward and backward card vs CPU with the
+    launches exact. Returns {"forward", "dw", "subm_dx", "inv"} timings
+    and the launches."""
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.models.builder import init_weights
+    label = "phase 73 (c) RCNNSpMiddleFHD"
+    cfg = variant_config("rcnn", "fp32")
+    pc = cfg["voxel_generator"]["range"]
+    data = with_train_plan("second", sparse_train_scene(
+        "second", RCNN_B, pc, POINTS), cfg=cfg)
+    plan = {k: v for k, v in data.items() if k.startswith("plan_")}
+    times = {"forward": conv_entry(dev, plan, RCNN_LAYERS, "fp32", label,
+                                   smi)}
+    times.update(phase_bwd_kernels(dev, plan, RCNN_LAYERS, label, smi))
+    model, vg = build_stack(cfg, device="cpu")[:2]
+    init_weights(model, torch.Generator().manual_seed(0))
+    mid = model.backbone
+    keys = [k for k in data if k.startswith("plan_")] + ["voxels",
+                                                          "coordinates"]
+    sub = {k: data[k] for k in keys}
+    cpu = middle_fwd_bwd(mid, sub, "cpu", vg.grid_size)
+    card = middle_fwd_bwd(copy.deepcopy(mid).to(dev), sub, dev, vg.grid_size)
+    check_fwd_bwd(label, card, cpu, RCNN_LAUNCHES)
+    return times, card[2]
+
+
+def refine_scene(rng, b=SECOND_B, m=REFINE_BOXES, n=POINTS):
+    """tests/test_second_stage_e2e.py::_scene in numpy: ``m`` boxes a scan
+    at the anchor's size, each holding n // m points inside its true z and
+    height, the first stage's boxes with the true x, y and the anchor's z,
+    h; returns (points, those boxes, the (dz, dh) residuals)."""
+    pts = np.zeros((b, n, 3), np.float32)
+    noisy = np.zeros((b, m, 7), np.float32)
+    resid = np.zeros((b, m, 2), np.float32)
+    for i in range(b):
+        for j in range(m):
+            cx, cy = rng.uniform(-8, 8, 2)
+            dz = rng.uniform(-0.3, 0.3)
+            dh = rng.uniform(-0.2, 0.2)
+            true_z, true_h = -1.0 + dz, 1.56 + dh
+            noisy[i, j] = [cx, cy, -1.0, 1.6, 3.9, 1.56, 0.0]
+            resid[i, j] = [dz, dh]
+            k = n // m
+            local = rng.uniform([-1.8, -0.7, -true_h / 2],
+                                [1.8, 0.7, true_h / 2], (k, 3))
+            pts[i, j * k:(j + 1) * k] = local + [cx, cy, true_z]
+    return pts, noisy, resid
+
+
+class Refiner(torch.nn.Module):
+    """The second stage of tests/test_second_stage_e2e.py::Refiner at the
+    JAX package's default widths: crop_detections (REFINE_SAMPLED points a
+    RoI), PointModule(3 * REFINE_SAMPLED, REFINE_LAYERS), RegHead."""
+
+    def __init__(self, extra_width=1.0):
+        from det3d_tpu_torch.models.necks import PointModule
+        from det3d_tpu_torch.models.second_stage import RegHead
+        super().__init__()
+        self.extra_width = extra_width
+        self.point = PointModule(3 * REFINE_SAMPLED, REFINE_LAYERS)
+        self.head = RegHead(tasks=[dict(num_class=1, class_names=["Car"])],
+                            in_channels=REFINE_LAYERS[-1])
+
+    def forward(self, points, boxes):
+        from det3d_tpu_torch.models.second_stage import crop_detections
+        crops, empty = crop_detections(points, None, boxes,
+                                       pool_extra_width=self.extra_width,
+                                       sampled_pt_num=REFINE_SAMPLED)
+        b, m = crops.shape[:2]
+        preds = self.head(self.point(crops.reshape(b * m, -1)))
+        return [p.reshape(b, m, 2) for p in preds], empty
+
+
+def loss_metric_cases(rng):
+    """Seeded inputs of the six losses no shipped config uses and of the
+    five streaming metrics: (kind, name, object, numpy args)."""
+    from det3d_tpu_torch.models import losses as L
+    from det3d_tpu_torch.models import metrics as M
+    logits = rng.normal(0, 2, (2, 64, 3)).astype(np.float32)
+    target = (rng.uniform(size=(2, 64, 3)) > 0.7).astype(np.float32)
+    reg = rng.normal(0, 1, (2, 64, 7)).astype(np.float32)
+    reg_t = rng.normal(0, 1, (2, 64, 7)).astype(np.float32)
+    w = rng.uniform(0, 1, (2, 64)).astype(np.float32)
+    x1 = rng.uniform(0, 20, (64, 2))
+    boxes = np.concatenate([x1, x1 + rng.uniform(1, 10, (64, 2))],
+                           -1).astype(np.float32)
+    boxes_t = boxes + rng.uniform(-2, 2, boxes.shape).astype(np.float32)
+    labels = rng.randint(-1, 2, (2, 64)).astype(np.int64)
+    return [
+        ("loss", "GHMCLoss", L.GHMCLoss(), (logits, target, w)),
+        ("loss", "GHMRLoss", L.GHMRLoss(), (reg, reg_t, w)),
+        ("loss", "BalancedL1Loss", L.BalancedL1Loss(), (reg, reg_t, w)),
+        ("loss", "IoULoss", L.IoULoss(), (boxes, boxes_t, w[0])),
+        ("loss", "BoundedIoULoss", L.BoundedIoULoss(), (boxes, boxes_t,
+                                                        w[0])),
+        ("loss", "BootstrappedSigmoidClassificationLoss",
+         L.BootstrappedSigmoidClassificationLoss(), (logits, target, w)),
+        ("metric", "Scalar", M.Scalar(), (np.float32(2.5),)),
+        ("metric", "Accuracy", M.Accuracy(), (labels, logits[..., :1])),
+        ("metric", "Precision", M.Precision(), (labels, logits[..., :1])),
+        ("metric", "Recall", M.Recall(), (labels, logits[..., :2])),
+        ("metric", "PrecisionRecall",
+         M.PrecisionRecall(thresholds=(0.2, 0.5, 0.8)),
+         (labels, logits[..., :1])),
+    ]
+
+
+def capture_launches(step, data):
+    """Capture a CapturedStep on ``data`` (after its warm-up) and return
+    the kernels' launches counted during the capture."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    step.warm_up(data)
+    window_conv.launches = rotated_nms_keep.launches = 0
+    step.capture(data)
+    torch.cuda.synchronize()
+    return {"window_conv": window_conv.launches,
+            "rotated_nms_keep": rotated_nms_keep.launches}
+
+
+def phase_two_stage(dev, sec_batch, smi):
+    """Phase 74: SECOND as shipped, captured, feeds its detections (up to
+    max_per_img = 100 a scan, the NMS kernel launched inside the graph)
+    to the second stage at the JAX package's widths: crop_detections
+    (REFINE_SAMPLED points a RoI) over the scans' points, PointModule
+    (1536 -> 1024 -> 128), RegHead. Card vs CPU: the crop indices and
+    ``empty`` equal, RegHead's outputs within REFINE_TOL; crop + refine
+    timed alone. Then the refiner trained REFINE_STEPS Adam steps on
+    refine_scene (B=2, REFINE_BOXES boxes a scan): the last loss below a
+    tenth of the first, the JAX test's threshold. Then the six losses
+    and the five metrics on card tensors against the CPU. Returns
+    {"crop_refine_ms", "launches", "nms"}."""
+    from det3d_tpu_torch.models.builder import init_weights
+    from det3d_tpu_torch.ops import roi
+    from det3d_tpu_torch.parallel.predict import make_predict_step
+    label = "phase 74 two-stage"
+    model, vg, asg, cids, test_cfg, plan_fn = second_stack(dev)
+    step = make_predict_step(model, vg, asg, cids, test_cfg)
+    data = dict(sec_batch, **plan_fn(sec_batch["points"],
+                                     sec_batch["num_points"]))
+    launched = capture_launches(step, data)
+    if launched != {"window_conv": SECOND_LAUNCHES, "rotated_nms_keep": 1}:
+        raise AssertionError(f"{label}: first stage captured {launched}")
+    det = step(data)
+    boxes, valid = det["box3d_lidar"], det["valid"]
+    nms = nms_entry(step_nms_inputs(lambda: step.eager(data)), label, smi)
+    pts = torch.as_tensor(sec_batch["points"][..., :3], device=dev)
+    with torch.no_grad():
+        masks = [roi.points_in_boxes3d(p, b, 1.0) for p, b in
+                 ((pts, boxes), (pts.cpu(), boxes.cpu()))]
+        (i_d, f_d), (i_c, f_c) = (roi._first_k_indices(m, REFINE_SAMPLED)
+                                  for m in masks)
+        if not (torch.equal(i_d.cpu(), i_c) and torch.equal(f_d.cpu(), f_c)):
+            raise AssertionError(f"{label}: crop indices card vs CPU differ")
+        ref = Refiner()
+        init_weights(ref, torch.Generator().manual_seed(0))
+        ref_d = copy.deepcopy(ref).to(dev).eval()
+        (p_d,), e_d = ref_d(pts, boxes)
+        (p_c,), e_c = ref.eval()(pts.cpu(), boxes.cpu())
+        err = float((p_d.cpu() - p_c).abs().max())
+        if not torch.equal(e_d.cpu(), e_c):
+            raise AssertionError(f"{label}: empty card vs CPU differs")
+        if not torch.allclose(p_d.cpu(), p_c, **REFINE_TOL):
+            raise AssertionError(f"{label}: RegHead card vs CPU {err}")
+        ms = cuda_ms(lambda: ref_d(pts, boxes))
+    log(f"{label} first stage: SECOND captured (window conv "
+        f"{launched['window_conv']}, NMS {launched['rotated_nms_keep']} "
+        f"launch inside the graph), {int(valid.sum())} valid of "
+        f"{tuple(boxes.shape[:2])} detections; second stage on all: crop "
+        f"indices ({int(f_c.sum())} points in {int((~e_c).sum())} RoIs) and "
+        f"empty equal card vs CPU, RegHead (z, h) max abs err {err:.3e} "
+        f"(tolerance {REFINE_TOL}); crop + refine alone {ms:.3f} ms for "
+        f"{boxes.shape[0] * boxes.shape[1]} RoIs [{smi}]")
+    del step, model
+    # the refiner trained on the JAX test's scene at full widths
+    pts_s, noisy, resid = (torch.as_tensor(a, device=dev) for a in
+                           refine_scene(np.random.RandomState(SEED)))
+    net = Refiner(extra_width=0.5)
+    init_weights(net, torch.Generator().manual_seed(1))
+    net = net.to(dev).train()
+    opt = torch.optim.Adam(net.parameters(), lr=REFINE_LR)
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(REFINE_STEPS):
+        (pred,), _ = net(pts_s, noisy)
+        loss = torch.mean((pred - resid) ** 2)
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    losses = [float(v) for v in losses]
+    wall = (time.perf_counter() - t0) / REFINE_STEPS * 1e3
+    with torch.no_grad():
+        (pred,), empty = net.eval()(pts_s, noisy)
+    mae = float((pred - resid).abs().mean())
+    log(f"{label} refiner trained {REFINE_STEPS} Adam steps (lr {REFINE_LR})"
+        f" on B={noisy.shape[0]} x {noisy.shape[1]} boxes: loss "
+        f"{losses[0]:.5f} -> {losses[-1]:.5f} ({losses[-1] / losses[0]:.4f} "
+        f"of the first; the JAX test's threshold 0.1), every 50th "
+        f"{[round(v, 5) for v in losses[::50]]}; empty crops "
+        f"{int(empty.sum())}, residual error {mae:.4f} (mean abs); "
+        f"{wall:.2f} ms a step (host clock) [{smi}]")
+    if not (np.isfinite(losses).all() and losses[-1] < 0.1 * losses[0]):
+        raise AssertionError(f"{label}: refiner loss {losses[0]} -> "
+                             f"{losses[-1]}")
+    for kind, name, obj, args in loss_metric_cases(np.random.RandomState(0)):
+        on = [[torch.as_tensor(a, device=d) for a in args]
+              for d in (dev, "cpu")]
+        if kind == "loss":
+            got, want = (obj(*a) for a in on)
+            err = float((got.cpu() - want).abs().max())
+            ok = torch.allclose(got.cpu(), want, **LOSS_TOL)
+        else:
+            (s_d, _), (s_c, _) = (obj.update(obj.init(d), *a)
+                                  for a, d in zip(on, (dev, "cpu")))
+            err = max(float((s_d[k].cpu() - s_c[k]).abs().max())
+                      for k in s_c)
+            ok = all(torch.equal(s_d[k].cpu(), s_c[k]) for k in s_c)
+        log(f"{label} {kind} {name} card vs CPU: max abs err {err:.3e}"
+            + (f" (tolerance {LOSS_TOL})" if kind == "loss"
+               else " (states equal)"))
+        if not ok:
+            raise AssertionError(f"{label}: {name} card vs CPU {err}")
+    return {"crop_refine_ms": ms, "launches": launched, "nms": nms}
+
+
+def deep_state(cfg, scan, dev):
+    """calibrated_state for a deep grid, which no host plan holds: the BN
+    statistics calibrated on the card in fp32 through the device voxels
+    and the device plan."""
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.models.builder import init_weights
+    from det3d_tpu_torch.parallel.predict import build_example
+    model, vg, asg = build_stack(cfg, device="cpu")[:3]
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(dev)
+    with torch.no_grad():
+        ex = build_example({k: torch.as_tensor(v, device=dev)
+                            for k, v in scan.items()}, vg, asg)
+    calibrate_norms(model, lambda: model(
+        ex["voxels"], ex["num_points_per_voxel"], ex["coordinates"]))
+    with torch.no_grad():
+        for name, w in model.named_parameters():
+            if name.endswith("conv_box.weight"):
+                w.mul_(BOX_GAIN)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def deep_stack(cfg, state, device):
+    """load_stack without a host plan builder (host plans refuse the
+    grid)."""
+    from det3d_tpu_torch.apis.train import build_stack
+    model, vg, asg, cids, test_cfg = build_stack(cfg, device=device)
+    model.load_state_dict(state)
+    return model, vg, asg, cids, test_cfg, None
+
+
+def phase_deep_grid(dev, smi):
+    """Phase 75: SECOND with its voxels' z size halved to 0.05 m, a (81,
+    1600, 1408) grid: res0 takes the dense table (182.5 M cells) and flat
+    rulebooks, the later resolutions windows. The predict step from points
+    alone at B=2 x 16384 (fp32, as every points-fed step): exactly
+    DEEP_LAUNCHES window-conv launches and one NMS launch, captured
+    (phase_captured), its peak memory; card vs CPU at B=1
+    (card_vs_cpu_points: device voxels and plans equal, heads, decode).
+    Then one training forward and backward of the middle alone on a cut
+    (+-6.4 m, 512 voxels; flat per-tap backward at res0 and into stage
+    1) card vs CPU, and a k3 / s1 strided window conv (3 output
+    candidates a dim, no inverse rulebook: the flat per-tap dX) card vs
+    CPU. Returns {"launches", "nms", "conv"}: the window conv at the
+    layers of the device plan that take windows, the NMS kernel on the
+    step's inputs."""
+    from det3d_tpu_torch.apis.train import build_stack
+    from det3d_tpu_torch.models.backbones import (build_plan_device,
+                                                  middle_plan_spec)
+    from det3d_tpu_torch.models.builder import init_weights
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    from det3d_tpu_torch.parallel.predict import build_example
+    from det3d_tpu_torch.utils.synth import structured_batch
+    label = "phase 75 deep grid"
+    cfg = variant_config("deep", "fp32")
+    batch = structured_batch(SECOND_B, POINTS,
+                             cfg["voxel_generator"]["range"], seed=SEED)
+    one = {k: v[:1] for k, v in batch.items()}
+    state = deep_state(cfg, one, dev)
+    stack = deep_stack(cfg, state, dev)
+    grid = stack[1].grid_size
+    log(f"{label} grid (nx, ny, nz) {tuple(grid)}: res0 depth {grid[2] + 1},"
+        f" {(grid[2] + 1) * grid[1] * grid[0] / 1e6:.1f} M cells")
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    st, launches, nms_in, cap = points_step(
+        dev, stack, batch, (SECOND_B, 100, 7), DEEP_LAUNCHES,
+        (SECOND_B, 1000, SECOND_NMS_THR), label, smi)
+    peak = torch.cuda.max_memory_allocated() - resident
+    log(f"{label} predict from points: launches {launches}, peak memory "
+        f"{peak / 2**30:.2f} GiB above the resident "
+        f"{resident / 2**30:.2f} GiB (eager steps and the capture) [{smi}]")
+    card_vs_cpu_points(dev, stack, deep_stack(cfg, state, "cpu"), one, label)
+    with torch.no_grad():
+        ex = build_example({k: torch.as_tensor(v, device=dev)
+                            for k, v in batch.items()}, stack[1], stack[2])
+    spec = middle_plan_spec(stack[0].backbone, grid, stack[1].max_voxels,
+                            host=False)
+    dplan = build_plan_device(ex["coordinates"], spec)
+    res = {"launches": cap["launches"], "nms": nms_entry(nms_in, label, smi),
+           "conv": conv_entry(dev, {f"plan_{k}": v for k, v in dplan.items()
+                                    if torch.is_tensor(v)},
+                              DEEP_LAYERS, "fp32", label, smi)}
+    del st, stack, dplan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cut = variant_config("deep", "fp32", cut=DEEP_CUT)
+    model, vg, asg = build_stack(cut, device="cpu")[:3]
+    init_weights(model, torch.Generator().manual_seed(0))
+    scene = sparse_train_scene("second", SECOND_B,
+                               cut["voxel_generator"]["range"], POINTS)
+    with torch.no_grad():
+        ex = build_example({k: torch.as_tensor(scene[k]) for k in (
+            "points", "num_points")}, vg, asg)
+    sub = {"voxels": ex["voxels"], "coordinates": ex["coordinates"]}
+    mid = model.backbone
+    cpu = middle_fwd_bwd(mid, sub, "cpu", vg.grid_size)
+    card = middle_fwd_bwd(copy.deepcopy(mid).to(dev), sub, dev,
+                          vg.grid_size)
+    check_fwd_bwd(f"{label} training middle on a +-{DEEP_CUT[0]} m cut "
+                  f"({DEEP_CUT[1]} voxels)", card, cpu,
+                  DEEP_TRAIN_LAUNCHES)
+
+    # a strided window conv with 3 output candidates a dim
+    shape = (41, vg.grid_size[1] // 2, vg.grid_size[0] // 2)
+    g = torch.Generator().manual_seed(4)
+    co = torch.stack([torch.randint(0, s, (SECOND_B, 2000), generator=g)
+                      for s in shape], -1).to(torch.int32)
+    _, co, lookup = sp.stage_lookup_batch(co, shape)
+    out_co, _ = sp.conv_out_coords(co, shape, 3, 1, 1, 4000)
+    packed = sp.pack_windows(*sp.conv_window_rulebook_batch(
+        shape, out_co, 3, 1, 1, lookup))
+    x = torch.randn(SECOND_B, 2000, 32, generator=g)
+    w = torch.randn(27, 32, 64, generator=g) / 27 ** 0.5
+    dy = torch.randn(SECOND_B, packed.shape[1], 64, generator=g)
+    runs = []
+    for device in ("cpu", dev):
+        xd = x.detach().to(device).requires_grad_(True)
+        wd = w.detach().to(device).requires_grad_(True)
+        out = window_conv(xd, packed.to(device), wd, False)
+        (out * dy.to(device)).sum().backward()
+        runs.append([t.detach().cpu() for t in (out, xd.grad, wd.grad)])
+    errs = [rel_l2(a, b) for a, b in zip(runs[1], runs[0])]
+    log(f"{label} k3/s1 strided window conv (ncand 3, no inverse rulebook) "
+        f"B={SECOND_B} V=2000 O={packed.shape[1]}: card vs CPU relative L2 "
+        f"out {errs[0]:.3e}, dX (flat per-tap scatter-add) {errs[1]:.3e}, "
+        f"dW (the dW kernel) {errs[2]:.3e} (limit {VARIANT_OUT_REL})")
+    if not max(errs) <= VARIANT_OUT_REL:
+        raise AssertionError(f"{label}: k3/s1 conv card vs CPU {errs}")
+    return res
+
+
+def phase_counts(dev, smi):
+    """Phase 76: utils/flops.py's count of every step an earlier phase of
+    this run captured and timed (STEP_COUNTS: GFLOP, GB, GFLOP in the
+    port's kernels) and its share of the card's peak and of its HBM rate
+    at that phase's captured ms from the card (not timed again); then the
+    flagship's predict step at B=8 counted on the card and on the CPU:
+    every stage's convolutions and products equal, and the NMS kernel's
+    count (data-dependent: what the step feeds it) equal to its rule on
+    the CPU on the card step's own NMS inputs."""
+    from det3d_tpu_torch.parallel.predict import make_predict_step
+    from det3d_tpu_torch.utils.synth import structured_batch
+    from det3d_tpu_torch.apis.flagship import PC_RANGE
+    label = "phase 76"
+    for lbl, (counter, ms, b) in STEP_COUNTS.items():
+        t = counter.totals()
+        peak, hbm = flop_counts.share(counter, ms)
+        log(f"{label} {lbl} B={b}: {t['flops'] / 1e9:.3f} GFLOP, "
+            f"{t['bytes'] / 1e9:.3f} GB, {t['kernel_flops'] / 1e9:.4f} GFLOP "
+            f"in the port's kernels; captured {ms:.3f} ms from the card: "
+            f"{peak:.4f} of peak, {hbm:.4f} of HBM [{smi}]")
+    batch = structured_batch(B, POINTS, PC_RANGE, seed=SEED)
+    counts, nms_in = {}, None
+    for device in (dev, "cpu"):
+        model, vg, asg, cids, test_cfg = flagship_stack(device)
+        step = make_predict_step(model, vg, asg, cids, test_cfg)
+        data = {k: torch.as_tensor(v, device=device)
+                for k, v in batch.items()}
+        counts[str(device)] = flop_counts.count_step(
+            lambda: step.eager(data), model)
+        if device == dev:
+            nms_in = step_nms_inputs(lambda: step.eager(data))
+    card, cpu = counts[str(dev)], counts["cpu"]
+    for name in flop_counts.STAGES:
+        sc, sp_ = card.stages[name], cpu.stages[name]
+        aten = (sc["flops"] - sc["kernel_flops"], sc["bytes"])
+        if name != "decode+nms" and (sc["flops"], sc["bytes"]) != (
+                sp_["flops"], sp_["bytes"]):
+            raise AssertionError(f"{label}: flagship {name} count card "
+                                 f"{sc} vs CPU {sp_}")
+        if name == "decode+nms" and aten[0] != sp_["flops"] - sp_[
+                "kernel_flops"]:
+            raise AssertionError(f"{label}: flagship decode count differs")
+        log(f"{label} flagship B={B} {name}: card {sc['flops'] / 1e9:.4f} "
+            f"GFLOP {sc['bytes'] / 1e9:.4f} GB ({sc['kernel_flops'] / 1e9:.6f}"
+            f" in kernels), CPU {sp_['flops'] / 1e9:.4f} GFLOP "
+            f"{sp_['bytes'] / 1e9:.4f} GB ({sp_['kernel_flops'] / 1e9:.6f} in "
+            f"kernels)")
+    _, rule = flop_counts.nms_work(*(t.cpu() for t in nms_in[:3]))
+    if rule != card.stages["decode+nms"]["kernel_flops"]:
+        raise AssertionError(f"{label}: the card's NMS count "
+                             f"{card.stages['decode+nms']['kernel_flops']} vs"
+                             f" its rule on the CPU {rule}")
+    tc, tp = card.totals(), cpu.totals()
+    log(f"{label} flagship B={B} predict: card {tc['flops'] / 1e9:.4f} GFLOP"
+        f" {tc['bytes'] / 1e9:.4f} GB, CPU {tp['flops'] / 1e9:.4f} GFLOP "
+        f"{tp['bytes'] / 1e9:.4f} GB; convolutions and products equal "
+        f"stage by stage; the NMS count {rule:.0f} equal to its rule on the "
+        f"CPU on the card's NMS inputs (the CPU step's own NMS count "
+        f"{tp['kernel_flops']:.0f}: "
+        + ("equal" if tp["kernel_flops"] == tc["kernel_flops"] else
+           "its own inputs differ at the score threshold") + ")")
+    return card
+
+
+def variant_entries(res):
+    """The JSON line's entries of phases 73-75's paths: the forward window
+    conv and the NMS kernel on the VoxelNet and Nobn steps (host plans,
+    bf16; paths "voxelnet", "nobn"), on the two-stage first stage (SECOND
+    as shipped; its conv times are Nobn's, the same shapes on the same
+    plan; path "second_two_stage") and on the deep grid from points (the
+    windowed layers of its device plan, fp32; path "deep_points"), and the
+    forward and backward kernels on RCNNSpMiddleFHD's training plan (path
+    "rcnn_train"), each with the launches counted on its path."""
+    conv_src = dict(name="window_conv", route="cuda",
+                    source="det3d_tpu_torch/csrc/window_conv.cu",
+                    replaces="det3d_tpu/ops/band_conv.py:216",
+                    library_ms=None)
+    nms_src = dict(name="rotated_nms_keep", route="cuda",
+                   source="det3d_tpu_torch/csrc/rotated_nms.cu",
+                   replaces="det3d_tpu/ops/nms_pallas.py:90", library_ms=None)
+    stacks, (rcnn, rcnn_launches) = res[73]
+    two = dict(res[74], conv=stacks["nobn"]["conv"])
+    out = []
+    for path, r in (("voxelnet", stacks["voxelnet"]),
+                    ("nobn", stacks["nobn"]), ("second_two_stage", two),
+                    ("deep_points", res[75])):
+        c, n = r["conv"], r["nms"]
+        out += [dict(conv_src, path=path, dtype=c["dtype"],
+                     launches=r["launches"]["window_conv"],
+                     max_abs_err=c["err"], ms=c["ms"], device_ms=c["device"],
+                     plain_ms=c["plain"], bound_ms=c["bound_ms"],
+                     bound_by=c["bound_by"]),
+                dict(nms_src, path=path,
+                     launches=r["launches"]["rotated_nms_keep"],
+                     max_abs_err=0.0, ms=n["ms"], device_ms=n["device"],
+                     plain_ms=n["plain"], bound_ms=n["bound_ms"],
+                     bound_by=n["bound_by"])]
+    f = rcnn["forward"]
+    out.append(dict(conv_src, path="rcnn_train", dtype="fp32",
+                    launches=rcnn_launches["window_conv"],
+                    max_abs_err=f["err"], ms=f["ms"], device_ms=f["device"],
+                    plain_ms=f["plain"], bound_ms=f["bound_ms"],
+                    bound_by=f["bound_by"]))
+    return out + bwd_entries("rcnn_train", rcnn, rcnn_launches)
+
+
+def variants_phases(dev, smi):
+    """Phases 73-76. Returns the JSON line's entries of their paths
+    (variant_entries)."""
+    from det3d_tpu_torch.utils.synth import structured_batch
+    t0 = time.perf_counter()
+    sec_range = second_config()["voxel_generator"]["range"]
+    sec_batch = structured_batch(SECOND_B, POINTS, sec_range, seed=SEED)
+    out = {}
+    for phase, run in ((73, lambda: (phase_variant_stacks(dev, sec_batch,
+                                                          smi),
+                                     phase_rcnn_middle(dev, smi))),
+                       (74, lambda: phase_two_stage(dev, sec_batch, smi)),
+                       (75, lambda: phase_deep_grid(dev, smi)),
+                       (76, lambda: phase_counts(dev, smi))):
+        t = time.perf_counter()
+        out[phase] = run()
+        log(f"phase {phase} took {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phases 73-76 took {time.perf_counter() - t0:.1f} s")
+    return variant_entries(out)
+
+
 def dist_phases(dev, smi):
     """Phases 71 and 72. Returns {71: phase_dist's launches, 72:
     phase_nccl's}."""
@@ -5724,14 +6455,25 @@ def dist_entries(kernels, dist):
     return out
 
 
+def use_tree(tree):
+    """Import det3d_tpu_torch from the checkout at ``tree`` (this one when
+    None): its modules, imported with this script's bound rules
+    (utils/flops.py), are dropped, so the next import reads the tree's."""
+    if not tree:
+        return
+    sys.path.insert(0, str(Path(tree).resolve()))
+    for name in [m for m in sys.modules
+                 if m.split(".")[0] == "det3d_tpu_torch"]:
+        del sys.modules[name]
+
+
 def conv_timing_main(tree, prec, paths):
     """--conv-timing: phase 1, then for each of ``paths`` its host plan
     (plan_builder: the tree's own host_plan_fn) and the window-conv timing
     in ``prec`` on it (conv_timing; by default bf16 on SECOND's plan, fp32
     on Lyft's and KITTI-all's), with det3d_tpu_torch imported from
     ``tree``."""
-    if tree:
-        sys.path.insert(0, str(Path(tree).resolve()))
+    use_tree(tree)
     smi = phase_device()
     import det3d_tpu_torch
     from det3d_tpu_torch.utils.synth import structured_batch
@@ -5759,8 +6501,7 @@ def build_timing_main(tree, paths):
     """--build-timing: phase 1, then phase 47's timing of the device voxels
     and plan (build_times) on each path's bench batch, with
     det3d_tpu_torch imported from ``tree``."""
-    if tree:
-        sys.path.insert(0, str(Path(tree).resolve()))
+    use_tree(tree)
     smi = phase_device()
     import det3d_tpu_torch
     from det3d_tpu_torch.apis.train import build_stack
@@ -5797,8 +6538,7 @@ def build_timing_main(tree, paths):
 def nms_timing_main(tree):
     """--nms-timing: phases 1 and 13, with det3d_tpu_torch imported from
     ``tree``."""
-    if tree:
-        sys.path.insert(0, str(Path(tree).resolve()))
+    use_tree(tree)
     smi = phase_device()
     import det3d_tpu_torch
     log(f"NMS timing of {Path(det3d_tpu_torch.__file__).parent}")
@@ -6085,13 +6825,14 @@ def main():
                     help="time only the device voxels and plan (phase 47) "
                     "on these paths' bench batches")
     ap.add_argument("--only", choices=("points", "train", "data", "nusc",
-                                       "dist"),
+                                       "dist", "variants"),
                     help="run phase 1, the build and only phases 51-52 "
                     "(Lyft and KITTI-all from points and under TTA), "
                     "only the training phases 53-62, only the data, "
                     "trainer and evaluation phases 63-66, only the "
-                    "nuScenes, Lyft and CLI phases 67-70 or only the "
-                    "ranks' phases 71-72")
+                    "nuScenes, Lyft and CLI phases 67-70, only the "
+                    "ranks' phases 71-72 or only the variants' phases "
+                    "73-76")
     ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
                     "--build-timing: the checkout whose det3d_tpu_torch to "
                     "time (default: this one)")
@@ -6124,6 +6865,15 @@ def main():
         log(f"nuScenes, Lyft and CLI phases took "
             f"{time.perf_counter() - t0:.1f} s with the build")
         return 0
+    if args.only == "variants":
+        kernels = variants_phases(dev, smi)
+        log(f"the variants' phases took {time.perf_counter() - t0:.1f} s "
+            f"with the build")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "dist":
         dist_phases(dev, smi)
         log(f"the ranks' phases took {time.perf_counter() - t0:.1f} s with "
@@ -6151,6 +6901,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     kernels += dist_entries(kernels, dist_phases(dev, smi))
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += variants_phases(dev, smi)
     log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
         f"device check, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,16 @@
-"""Backbones: the pillar scatter onto the BEV canvas, and the SECOND and
-CBGS sparse middles.
+"""Backbones: the pillar scatter onto the BEV canvas, and the sparse
+middles.
 
 Port of det3d_tpu/models/backbones.py: ``PointPillarsScatter``, and
-``SpMiddleFHD`` and ``SpMiddleResNetFHD`` with their layers
-(``SparseConvBN``, ``DenseConvBN``, ``SparseBasicBlock``,
-``DenseBasicBlock``), for serving and training (``module.train()``: BN
-on the batch statistics of the active rows, the strided convs' backward
-over their inverse rulebooks), from a host plan or, without one, from
-the plan ``build_plan_device`` builds on the device. The canvas keeps the
+``SpMiddleFHD``, ``SpMiddleFHDNobn``, ``SpMiddleResNetFHD`` and
+``RCNNSpMiddleFHD`` with their layers (``SparseConvBN``, ``DenseConvBN``,
+``SparseBasicBlock``, ``DenseBasicBlock``), for serving and training
+(``module.train()``: BN on the batch statistics of the active rows, the
+strided convs' backward over their inverse rulebooks), from a host plan
+or, without one, from the plan ``build_plan_device`` builds on the
+device. Grids deeper than 64 take the device plan only: flat rulebooks
+at their deep resolutions (ops/sparse.py::Flat, ``flat_conv``), windows
+from the first resolution of depth 64 or less. The canvas keeps the
 reference's NHWC layout, (B, ny, nx, C). Padded rows (coords -1) are
 dropped before every scatter, where the reference sends them to an
 out-of-bounds index that XLA drops.
@@ -62,13 +65,16 @@ _STAGE_GEOM = ((3, 2, (1, 1, 1)), (3, 2, (1, 1, 1)), (3, 2, (0, 1, 1)),
                ((3, 1, 1), (2, 1, 1), (0, 0, 0)))
 
 
-def middle_plan_spec(middle, input_shape, max_voxels):
+def middle_plan_spec(middle, input_shape, max_voxels, host: bool = True):
     """Static description of the rulebooks a sparse middle reads.
 
     ``middle``: the middle module, or a dict / object with its attributes
     (stage_caps, dense_tail, dense_from, pre_ranked). Returns a plain dict:
     shape0, v, pre_ranked, stages = (kernel, stride, padding, cap, subm).
-    Port of det3d_tpu/models/backbones.py::middle_plan_spec."""
+    A host plan (``host``, the default) holds the bitmap regime only and
+    raises for a grid deeper than 64, as the JAX package asserts; the
+    device plan (``host=False``) takes any depth. Port of
+    det3d_tpu/models/backbones.py::middle_plan_spec."""
     def get(name, default):
         if isinstance(middle, dict):
             return middle.get(name, default)
@@ -76,7 +82,8 @@ def middle_plan_spec(middle, input_shape, max_voxels):
 
     nx, ny, nz = (int(s) for s in input_shape)
     shape0 = (nz + 1, ny, nx)
-    sp.check_depth(shape0[0])
+    if host:
+        sp.check_depth(shape0[0])
     v = int(max_voxels)
     caps = [max(64, int(v * f)) for f in get("stage_caps", (1.0,) * 4)]
     dense_tail = bool(get("dense_tail", False))
@@ -108,7 +115,8 @@ class SparseConvBN(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
-                 kvol: int = 27, use_bias: bool = False, relu: bool = True):
+                 kvol: int = 27, use_bias: bool = False, relu: bool = True,
+                 use_norm: bool = True):
         super().__init__()
         self.dtype = act_dtype(precision)
         self.relu = relu
@@ -116,19 +124,30 @@ class SparseConvBN(nn.Module):
                                                out_channels))
         bound = (3.0 / (kvol * in_channels)) ** 0.5  # flax fan_in uniform
         nn.init.uniform_(self.weight, -bound, bound)
-        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
-                     else None)
-        self.norm = build_norm(norm_cfg, out_channels)
+        # without BN (the Nobn middles) the conv always has its bias
+        self.bias = (nn.Parameter(torch.zeros(out_channels))
+                     if use_bias or not use_norm else None)
+        self.norm = build_norm(norm_cfg, out_channels) if use_norm else None
 
     def forward(self, x, packed, center_shift: bool, dtype=None,
                 valid=None, inverse=None):
+        """``packed``: a packed window rulebook, or a deep resolution's
+        flat one (ops/sparse.py::Flat), which flat_conv runs (its
+        submanifold center column by rank shifts)."""
         dt = dtype or self.dtype
-        y = window_conv(x.to(dt).contiguous(), packed.contiguous(),
-                        self.weight.to(dt).contiguous(), center_shift,
-                        inverse)
+        if isinstance(packed, sp.Flat):
+            y = sp.flat_conv(x.to(dt), packed.idx, packed.mask,
+                             self.weight.to(dt),
+                             sp.center_column_taps(3) if center_shift
+                             else None)
+        else:
+            y = window_conv(x.to(dt).contiguous(), packed.contiguous(),
+                            self.weight.to(dt).contiguous(), center_shift,
+                            inverse)
         if self.bias is not None:
             y = y + self.bias
-        y = self.norm(y, mask=valid)
+        if self.norm is not None:
+            y = self.norm(y, mask=valid)
         return torch.relu(y) if self.relu else y
 
 
@@ -176,7 +195,8 @@ class DenseConvBN(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
                  kernel=(3, 3, 3), stride=(1, 1, 1), padding=(1, 1, 1),
                  norm_cfg: Optional[dict] = None, precision: str = "fp32",
-                 use_bias: bool = False, relu: bool = True):
+                 use_bias: bool = False, relu: bool = True,
+                 use_norm: bool = True):
         super().__init__()
         self.kernel, self.stride, self.padding = (
             sp._as3(kernel), sp._as3(stride), sp._as3(padding))
@@ -187,9 +207,10 @@ class DenseConvBN(nn.Module):
         fan_in = in_channels * self.weight[0, 0].numel()
         bound = (3.0 / fan_in) ** 0.5
         nn.init.uniform_(self.weight, -bound, bound)
-        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
-                     else None)
-        self.norm = build_norm(norm_cfg, out_channels, dtype=self.dtype)
+        self.bias = (nn.Parameter(torch.zeros(out_channels))
+                     if use_bias or not use_norm else None)
+        self.norm = (build_norm(norm_cfg, out_channels, dtype=self.dtype)
+                     if use_norm else None)
 
     def conv(self, x, dtype=None):
         """The conv3d of NCDHW ``x`` in ``dtype`` (default: the layer's)."""
@@ -209,7 +230,8 @@ class DenseConvBN(nn.Module):
             0, 2, 3, 4, 1)
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
-        y = self.norm(y, mask=occ_out, dtype=dtype)
+        if self.norm is not None:
+            y = self.norm(y, mask=occ_out, dtype=dtype)
         if self.relu:
             y = torch.relu(y)
         return y * occ_out[..., None].to(y.dtype)
@@ -273,13 +295,21 @@ def _bev_reshape(features, coords, shape):
 
 
 def _res0_lookup(coords, shape0, pre_ranked):
-    """Rank-order the res0 rows and build their bitmap. Returns (order0 or
+    """Rank-order the res0 rows and build their lookup. Returns (order0 or
     None when the voxelizer already emitted rank order, coords in rank
-    order, bitmap). Port of backbones.py::_res0_lookup, without the
-    feature gather: the plan carries order0 to _res0_with_plan."""
-    if pre_ranked:
+    order, lookup). A deep grid's res0 is reordered and takes
+    stage_lookup_batch's table whatever ``pre_ranked`` says, as in the JAX
+    package. Port of backbones.py::_res0_lookup, without the feature
+    gather: the plan carries order0 to _res0_with_plan."""
+    if pre_ranked and shape0[0] <= sp.MAX_BITMAP_DEPTH:
         return None, coords, sp.build_bitmap_batch(coords, shape0)
     return sp.stage_lookup_batch(coords, shape0)
+
+
+def _pack(rulebook):
+    """A window rulebook packed (pack_windows), a flat one as sp.Flat."""
+    a, b = rulebook
+    return sp.pack_windows(a, b) if b.dim() == 4 else sp.Flat(a, b)
 
 
 def _stage_rulebooks(coords, shape, kernel, stride, padding, max_out,
@@ -301,11 +331,12 @@ def _stage_rulebooks(coords, shape, kernel, stride, padding, max_out,
     out shape, bitmap or None, packed inverse or None)."""
     out_co, oshape = sp.conv_out_coords(coords, shape, kernel, stride,
                                         padding, max_out)
-    order = sp.yxz_order(out_co, oshape)
-    out_co = torch.gather(out_co, 1, order[..., None].expand(-1, -1, 3))
     lookup = subm = inverse = None
     if build_subm or build_inverse:
-        lookup = sp.build_bitmap_batch(out_co, oshape)
+        _, out_co, lookup = sp.stage_lookup_batch(out_co, oshape)
+    else:
+        order = sp.yxz_order(out_co, oshape)
+        out_co = torch.gather(out_co, 1, order[..., None].expand(-1, -1, 3))
     if build_subm:
         subm = sp.subm_window_rulebook_batch(out_co, oshape, 3, lookup)
     down = sp.conv_window_rulebook_batch(shape, out_co, kernel, stride,
@@ -323,15 +354,15 @@ def build_plan_device(coords, spec, train: bool = False):
     (order0 when not pre_ranked, s0, co{i}, down{i}, subm{i}, and with
     ``train`` the inverse rulebooks inv{i}), int32, equal to the host plan
     array for array. Plain PyTorch with fixed shapes and no host round
-    trip, so a captured step holds it. Port of
-    backbones.py::build_plan_device."""
+    trip, so a captured step holds it. A grid deeper than 64 gets flat
+    rulebooks (sp.Flat) at its deep resolutions and ``order0`` whatever
+    ``pre_ranked`` says. Port of backbones.py::build_plan_device."""
     shape0 = tuple(spec["shape0"])
     plan = {}
     order0, co, lookup = _res0_lookup(coords, shape0, spec["pre_ranked"])
     if order0 is not None:
         plan["order0"] = order0.to(torch.int32)
-    plan["s0"] = sp.pack_windows(
-        *sp.subm_window_rulebook_batch(co, shape0, 3, lookup))
+    plan["s0"] = _pack(sp.subm_window_rulebook_batch(co, shape0, 3, lookup))
     shape = shape0
     for i, st in enumerate(spec["stages"], start=1):
         co, down, subm, shape, lookup, inverse = _stage_rulebooks(
@@ -340,9 +371,9 @@ def build_plan_device(coords, spec, train: bool = False):
         if inverse is not None:
             plan[f"inv{i}"] = inverse
         plan[f"co{i}"] = sp.linearize(co, shape).to(torch.int32)
-        plan[f"down{i}"] = sp.pack_windows(*down)
+        plan[f"down{i}"] = _pack(down)
         if st["subm"]:
-            plan[f"subm{i}"] = sp.pack_windows(*subm)
+            plan[f"subm{i}"] = _pack(subm)
     return plan
 
 
@@ -357,16 +388,17 @@ def _plan_and_dtype(middle, coords, input_shape, plan):
     dt = middle.plain_dtype if middle.training else None
     if plan is not None:
         return plan, dt
-    spec = middle_plan_spec(middle, input_shape, coords.shape[1])
+    spec = middle_plan_spec(middle, input_shape, coords.shape[1],
+                            host=False)
     return (build_plan_device(coords, spec, train=middle.training),
             middle.plain_dtype)
 
 
 def _res0_with_plan(voxel_features, coords, pre_ranked, plan):
     """Rank-order the res0 rows from the plan's order0 (unless the
-    voxelizer already emitted them in rank order). Returns (features,
-    coords)."""
-    if not pre_ranked:
+    voxelizer already emitted them in rank order and the grid is shallow
+    enough for the plan to have none). Returns (features, coords)."""
+    if not pre_ranked or "order0" in plan:
         order0 = plan["order0"].long()
         coords = torch.gather(coords, 1, order0[..., None].expand(-1, -1, 3))
         voxel_features = torch.gather(
@@ -417,6 +449,8 @@ class SpMiddleFHD(nn.Module):
 
     Modules carry the flax names in call order (``SparseConvBN_<n>``,
     ``DenseConvBN_<n>``), so utils/convert.py::from_jax maps one to one.
+    ``use_norm=False`` drops every BN and gives every conv its bias
+    (SpMiddleFHDNobn).
     """
 
     def __init__(self, num_input_features: int = 128,
@@ -430,8 +464,6 @@ class SpMiddleFHD(nn.Module):
                  serve_precision: Optional[str] = None,
                  name_str: str = "SpMiddleFHD"):
         super().__init__()
-        if not use_norm:
-            raise NotImplementedError("SpMiddleFHDNobn is not ported yet")
         self.stage_caps = tuple(stage_caps)
         self.dense_tail = bool(dense_tail)
         self.dense_from = int(dense_from)
@@ -445,13 +477,15 @@ class SpMiddleFHD(nn.Module):
         def scb(cin, cout, kvol=27):
             name = f"SparseConvBN_{len(self._sparse)}"
             self.add_module(name, SparseConvBN(cin, cout, norm_cfg,
-                                               precision=prec, kvol=kvol))
+                                               precision=prec, kvol=kvol,
+                                               use_norm=use_norm))
             self._sparse.append(name)
 
         def dcb(cin, cout, **kw):
             name = f"DenseConvBN_{len(self._dense)}"
             self.add_module(name, DenseConvBN(
-                cin, cout, norm_cfg=norm_cfg, precision=prec, **kw))
+                cin, cout, norm_cfg=norm_cfg, precision=prec,
+                use_norm=use_norm, **kw))
             self._dense.append(name)
 
         scb(num_input_features, 16)
@@ -632,4 +666,87 @@ class SpMiddleResNetFHD(nn.Module):
         co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
                                                 (2, 1, 1), 0)
         x = next(scb)(x, down, False, dt, _valid(co4, self.training), inv)
+        return _bev_reshape(x, co4, shape4)
+
+
+@BACKBONES.register_module
+class SpMiddleFHDNobn(SpMiddleFHD):
+    """SpMiddleFHD with every BN removed and every conv biased, sparse
+    part and dense tail alike (reference scn.py:200-305). Port of
+    det3d_tpu/models/backbones.py::SpMiddleFHDNobn, which takes no
+    ``precision`` (fp32; ``serve_precision`` when set) and nests an
+    SpMiddleFHD (flax's ``SpMiddleFHD_0``, which from_jax strips)."""
+
+    def __init__(self, num_input_features: int = 128,
+                 norm_cfg: Optional[dict] = None, ds_factor: int = 8,
+                 stage_caps: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                 dense_tail: bool = True, dense_from: int = 3,
+                 pre_ranked: bool = False, serve_band=None,
+                 serve_precision: Optional[str] = None,
+                 name_str: str = "SpMiddleFHDNobn"):
+        super().__init__(num_input_features, norm_cfg, ds_factor,
+                         stage_caps, use_norm=False, dense_tail=dense_tail,
+                         dense_from=dense_from, pre_ranked=pre_ranked,
+                         serve_precision=serve_precision)
+
+
+# (channels, kernel, stride, padding) per downsample stage of the RCNN
+# middle, each stage's down conv followed by one submanifold conv
+_RCNN_SPECS = ((32, 3, 2, 1), (64, 3, 2, 1), (64, 3, 2, (0, 1, 1)))
+
+
+@BACKBONES.register_module
+class RCNNSpMiddleFHD(nn.Module):
+    """The cropped-region sparse middle of the two-stage RCNN experiments
+    (reference scn.py:373-457): SpMiddleFHD's schedule with one
+    submanifold conv a stage, channels 16-32-64-64-64, no dense tail, and
+    the trailing (3, 1, 1) / (2, 1, 1) z conv. Port of
+    det3d_tpu/models/backbones.py::RCNNSpMiddleFHD: fp32, BN without conv
+    biases, every conv a window conv (flat at a deep grid's resolutions),
+    from a host plan or the device plan (``middle_plan_spec`` with
+    ``dense_tail=False``). Output (B, ny/8, nx/8, 64 * D_final). Modules
+    ``SparseConvBN_0`` to ``SparseConvBN_8`` in call order, flax's names.
+    """
+
+    dense_tail = False
+    dense_from = 4
+
+    def __init__(self, num_input_features: int = 128,
+                 norm_cfg: Optional[dict] = None, ds_factor: int = 8,
+                 stage_caps: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
+                 pre_ranked: bool = False,
+                 name_str: str = "RCNNSpMiddleFHD"):
+        super().__init__()
+        self.stage_caps = tuple(stage_caps)
+        self.pre_ranked = bool(pre_ranked)
+        self.dtype = self.plain_dtype = torch.float32
+        chans = [16, 16]
+        for ch, *_ in _RCNN_SPECS:
+            chans += [ch, ch]
+        chans.append(64)
+        cin = num_input_features
+        for n, ch in enumerate(chans):
+            self.add_module(f"SparseConvBN_{n}", SparseConvBN(
+                cin, ch, norm_cfg, kvol=3 if n == len(chans) - 1 else 27))
+            cin = ch
+
+    def forward(self, voxel_features, coords, input_shape, plan=None):
+        plan, dt = _plan_and_dtype(self, coords, input_shape, plan)
+        nx, ny, nz = (int(s) for s in input_shape)
+        shape = (nz + 1, ny, nx)
+        convs = iter([getattr(self, f"SparseConvBN_{n}") for n in range(9)])
+
+        x, coords = _res0_with_plan(voxel_features, coords, self.pre_ranked,
+                                    plan)
+        valid = _valid(coords, self.training)
+        x = next(convs)(x, plan["s0"], True, dt, valid)
+        x = next(convs)(x, plan["s0"], True, dt, valid)
+        for i, (_, k, s, p) in enumerate(_RCNN_SPECS, start=1):
+            co, down, subm, shape, inv = _plan_stage(plan, i, shape, k, s, p)
+            valid = _valid(co, self.training)
+            x = next(convs)(x, down, False, dt, valid, inv)
+            x = next(convs)(x, subm, True, dt, valid)
+        co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
+                                                (2, 1, 1), 0)
+        x = next(convs)(x, down, False, dt, _valid(co4, self.training), inv)
         return _bev_reshape(x, co4, shape4)

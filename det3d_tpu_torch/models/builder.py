@@ -19,6 +19,7 @@ from det3d_tpu_torch.models import detectors as _detectors  # noqa: F401
 from det3d_tpu_torch.models import heads as _heads  # noqa: F401
 from det3d_tpu_torch.models import necks as _necks  # noqa: F401
 from det3d_tpu_torch.models import readers as _readers  # noqa: F401
+from det3d_tpu_torch.models import second_stage as _second  # noqa: F401
 from det3d_tpu_torch.models.backbones import DenseConvBN, SparseConvBN
 from det3d_tpu_torch.models.norm import MaskedBatchNorm
 from det3d_tpu_torch.models.registry import (BACKBONES, DETECTORS, HEADS,

@@ -144,3 +144,35 @@ class RPN(nn.Module):
         if ups:
             x = torch.cat(ups, dim=1)
         return x.permute(0, 2, 3, 1)
+
+
+@NECKS.register_module
+class PointModule(nn.Module):
+    """The per-crop pointnet of the two-stage refine path (reference
+    rpn.py:163-201): flatten, two Linear (no bias) + BN + ReLU blocks,
+    then a width-3 max filter over the feature vector with -inf padding
+    (the reference's MaxPool1d(3, 1, 1)). (N, ...) -> (N, 1, 1, F). Port
+    of det3d_tpu/models/necks.py::PointModule; modules keep flax's names
+    (``Dense_<n>``, ``MaskedBatchNorm_<n>``)."""
+
+    def __init__(self, num_input_features: int,
+                 layers: Sequence[int] = (1024, 128),
+                 norm_cfg: Optional[dict] = None,
+                 name_str: str = "PointModule"):
+        super().__init__()
+        self.num_layers = len(layers)
+        cin = num_input_features
+        for i, f in enumerate(layers):
+            self.add_module(f"Dense_{i}", nn.Linear(cin, f, bias=False))
+            self.add_module(f"MaskedBatchNorm_{i}", build_norm(norm_cfg, f))
+            cin = f
+
+    def forward(self, x):
+        x = x.reshape(x.shape[0], -1)
+        for i in range(self.num_layers):
+            x = F.linear(x, getattr(self, f"Dense_{i}").weight)
+            x = torch.relu(getattr(self, f"MaskedBatchNorm_{i}")(x))
+        pad = F.pad(x, (1, 1), value=float("-inf"))
+        x = torch.maximum(torch.maximum(pad[:, :-2], pad[:, 1:-1]),
+                          pad[:, 2:])
+        return x[:, None, None, :]

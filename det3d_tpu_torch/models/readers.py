@@ -2,7 +2,9 @@
 (decorated points, linear + BN + ReLU, pillar max).
 
 Port of det3d_tpu/models/readers.py (``paddings_indicator``,
-``VoxelFeatureExtractorV3``, ``PFNLayer``, ``PillarFeatureNet``). Inputs
+``VoxelFeatureExtractorV3``, ``PFNLayer``, ``PillarFeatureNet``, and the
+readers no shipped config names: ``VFELayer``, ``VoxelFeatureExtractor``
+(the original VoxelNet reader), ``VFEV3_ablation``, ``SimpleVoxel``). Inputs
 keep the reference's batched, padded layout: voxels (B, V, T, C),
 per-voxel point counts (B, V), zyx coords (B, V, 3). With
 ``precision="bf16"`` the decorations are computed in the voxels' fp32 and
@@ -137,3 +139,113 @@ class PillarFeatureNet(nn.Module):
         out = features.squeeze(2)                            # (B, V, U)
         # empty pillar rows stay zero for the scatter
         return out * pillar_mask[..., None].to(out.dtype)
+
+
+class VFELayer(nn.Module):
+    """The original VoxelNet VFE layer: linear (no bias) + BN + ReLU per
+    point, the voxel's max, concatenated back onto every point
+    (reference voxel_encoder.py:14-42). The BN's batch statistics cover
+    the real voxels' rows, padded point slots included: the JAX package's
+    masked BN, where the reference's runs over every slot."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32"):
+        super().__init__()
+        self.dtype = act_dtype(precision)
+        units = out_channels // 2
+        self.linear = nn.Linear(in_channels, units, bias=False)
+        self.norm = build_norm(norm_cfg, units, dtype=self.dtype)
+
+    def forward(self, x, voxel_mask):
+        """x: (B, V, T, C); voxel_mask: (B, V) bool, the real voxels."""
+        x = F.linear(x.to(self.dtype), self.linear.weight.to(self.dtype))
+        x = torch.relu(self.norm(x, voxel_mask[..., None].expand(
+            x.shape[:-1])))
+        return torch.cat([x, x.amax(dim=2, keepdim=True).expand_as(x)],
+                         dim=-1)
+
+
+@READERS.register_module
+class VoxelFeatureExtractor(nn.Module):
+    """The original VoxelNet reader (reference voxel_encoder.py:46-176):
+    points decorated with their offsets from the voxel's mean (and their
+    distance), two VFELayers, each output zeroed at the padded slots, a
+    final linear (no bias) + BN + ReLU, the voxel's max. Returns (B, V,
+    num_filters[1]) fp32, empty voxels zero."""
+
+    def __init__(self, num_input_features: int = 4,
+                 num_filters: Sequence[int] = (32, 128),
+                 with_distance: bool = False,
+                 norm_cfg: Optional[dict] = None, precision: str = "fp32",
+                 name_str: str = "VoxelFeatureExtractor"):
+        super().__init__()
+        assert len(num_filters) == 2
+        self.num_input_features = num_input_features
+        self.with_distance = with_distance
+        self.dtype = act_dtype(precision)
+        in_ch = num_input_features + 3 + (1 if with_distance else 0)
+        self.vfe1 = VFELayer(in_ch, num_filters[0], norm_cfg, precision)
+        self.vfe2 = VFELayer(num_filters[0], num_filters[1], norm_cfg,
+                             precision)
+        self.linear = nn.Linear(num_filters[1], num_filters[1], bias=False)
+        self.norm = build_norm(norm_cfg, num_filters[1], dtype=self.dtype)
+
+    def forward(self, voxels, num_points, coors=None):
+        dtype = voxels.dtype
+        denom = torch.clamp(num_points, min=1).to(dtype)[..., None, None]
+        maskf = paddings_indicator(num_points, voxels.shape[2])[
+            ..., None].to(dtype)
+        xyz = voxels[..., :3]
+        feats = [voxels, xyz - (xyz * maskf).sum(dim=2, keepdim=True) / denom]
+        if self.with_distance:
+            feats.append(torch.linalg.norm(xyz, dim=-1, keepdim=True))
+        x = torch.cat(feats, dim=-1) * maskf
+        voxel_mask = num_points > 0
+        x = self.vfe1(x, voxel_mask) * maskf.to(self.dtype)
+        x = self.vfe2(x, voxel_mask) * maskf.to(self.dtype)
+        x = F.linear(x, self.linear.weight.to(self.dtype))
+        x = torch.relu(self.norm(x, voxel_mask[..., None].expand(
+            x.shape[:-1])))
+        out = x.amax(dim=2)                                  # (B, V, U)
+        return (out * voxel_mask[..., None].to(out.dtype)).float()
+
+
+@READERS.register_module
+class VFEV3_ablation(nn.Module):
+    """The VFEv3 ablation reader (reference voxel_encoder.py:180-196): the
+    mean of each voxel's (x, y, intensity) and the inverse point count,
+    (B, V, 4)."""
+
+    def __init__(self, num_input_features: int = 4,
+                 norm_cfg: Optional[dict] = None,
+                 name_str: str = "VFEV3_ablation"):
+        super().__init__()
+        self.num_input_features = num_input_features
+
+    def forward(self, voxels, num_points, coors=None):
+        denom = torch.clamp(num_points, min=1).to(voxels.dtype)[..., None]
+        mask = paddings_indicator(num_points, voxels.shape[2])
+        pts = voxels * mask[..., None].to(voxels.dtype)
+        mean = pts[..., [0, 1, 3]].sum(dim=2) / denom
+        return torch.cat([mean, 1.0 / denom], dim=-1)
+
+
+@READERS.register_module
+class SimpleVoxel(nn.Module):
+    """The voxel's mean reduced to (xy range, z, reflectance...) (reference
+    voxel_encoder.py:215-235): (B, V, num_input_features - 1)."""
+
+    def __init__(self, num_input_features: int = 4,
+                 norm_cfg: Optional[dict] = None,
+                 name_str: str = "SimpleVoxel"):
+        super().__init__()
+        self.num_input_features = num_input_features
+
+    def forward(self, voxels, num_points, coors=None):
+        c = self.num_input_features
+        denom = torch.clamp(num_points, min=1).to(voxels.dtype)[..., None]
+        mask = paddings_indicator(num_points, voxels.shape[2])
+        mean = (voxels[..., :c] * mask[..., None].to(voxels.dtype)).sum(
+            dim=2) / denom
+        rng = torch.linalg.norm(mean[..., :2], dim=-1, keepdim=True)
+        return torch.cat([rng, mean[..., 2:c]], dim=-1)

@@ -20,6 +20,7 @@ import functools
 import torch
 
 from det3d_tpu_torch import csrc
+from det3d_tpu_torch.utils import flops
 from det3d_tpu_torch.core.geometry import _clip_contrib
 
 _BLOCK = 64                     # boxes per bitmask word (rotated_nms.cu)
@@ -139,8 +140,13 @@ def rotated_nms_keep(corners, area, valid, iou_threshold: float):
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (one
     launch for all N samples, counted in ``rotated_nms_keep.launches``);
-    any other input raises.
+    any other input raises. Counted by utils/flops.py's nms_work rule.
     """
+    with flops.kernel("rotated_nms_keep", corners, area, valid):
+        return _keep(corners, area, valid, iou_threshold)
+
+
+def _keep(corners, area, valid, iou_threshold):
     if corners.device.type == "cpu":
         return rotated_nms_keep_ref(corners, area, valid, iou_threshold)
     _check(corners, area, valid)
@@ -164,3 +170,7 @@ def rotated_nms_keep(corners, area, valid, iou_threshold: float):
 
 
 rotated_nms_keep.launches = 0
+
+flops.register("rotated_nms_keep",
+               lambda corners, area, valid: (*flops.nms_work(
+                   corners, area, valid), flops.FP32_FLOPS))

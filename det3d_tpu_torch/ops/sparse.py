@@ -15,9 +15,18 @@ The convolution's plain PyTorch forms are the twins of the CUDA kernels
 (ops/window_conv_cuda.py): ``window_conv_ref`` of ``csrc/window_conv.cu``
 (also the submanifold conv's dX, with mirrored, transposed weights),
 ``window_conv_dw_ref`` and ``window_conv_inv_ref`` of
-``csrc/window_conv_bwd.cu``. The deep-grid lookups (dense and sorted
-tables), the sort-free transition and the flat per-tap backward of
-strided convs without an inverse rulebook (ncand > 2) are not ported.
+``csrc/window_conv_bwd.cu``.
+
+Grids deeper than 64 (the deep-grid fallbacks): ``stage_lookup_batch``
+builds a dense slot table (``build_dense_table``, up to
+``_DENSE_TABLE_MAX_CELLS`` cells) or a sorted one (``build_hash``), and
+the window rulebook builders then return flat per-tap (idx, mask)
+rulebooks, which ``flat_conv`` (the JAX package's ``apply_conv`` flat
+branch: XLA there, plain PyTorch here) convolves; autograd's scatter-add
+is their backward. ``window_to_flat`` and ``flat_conv_dx`` give the dX of
+a strided window conv without an inverse rulebook (ncand > 2). The JAX
+package's sort-free transition (``stage_transition_batch``) is switched
+off there (``_SORT_FREE_TRANSITION = False``) and has no counterpart.
 
 Active voxels live in fixed-size padded arrays: features (B, V, C), coords
 (B, V, 3) int32 zyx with -1 rows for padding, rows in (y, x, z) rank
@@ -29,7 +38,7 @@ ranks starting at r0.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -314,15 +323,17 @@ _U32 = 0xFFFFFFFF
 _BM_PAD_FRONT = 1
 _BM_PAD_END = 3
 MAX_BITMAP_DEPTH = 64
-_DEEP_GRID = ("the bitmap lookup holds depths up to 64; deeper grids need "
-              "the dense or sorted lookup tables, not ported (ROADMAP "
-              "queue 1, the deep-grid fallbacks)")
 
 
 def check_depth(d: int):
-    """Raise for a grid too deep for the bitmap lookup."""
+    """Raise for a grid the bitmap lookup cannot hold (the host plans'
+    contract; the device builders take deeper grids through
+    build_lookup_batch)."""
     if not 0 < int(d) <= MAX_BITMAP_DEPTH:
-        raise NotImplementedError(f"depth {d}: {_DEEP_GRID}")
+        raise ValueError(f"depth {d}: the bitmap lookup (and every host "
+                         f"plan) holds depths 1 to {MAX_BITMAP_DEPTH}; "
+                         f"deeper grids take the device plan's dense or "
+                         f"sorted lookup")
 
 
 def popcount32(x):
@@ -462,7 +473,12 @@ def subm_window_rulebook_batch(coords, shape, kernel, bitmap):
     """Window rulebook of a submanifold conv (output set == input set).
 
     coords: (B, V, 3) zyx in rank order; bitmap: build_bitmap_batch of
-    them. Returns (r0 (B, V, Kbev), pres (B, V, Kbev, kz))."""
+    them. Returns (r0 (B, V, Kbev), pres (B, V, Kbev, kz)). A deep grid's
+    lookup (build_lookup_batch's tuple) gives the flat per-tap rulebook
+    instead (subm_rulebook_batch: idx, mask (B, V, K)), as the JAX
+    package's does."""
+    if not torch.is_tensor(bitmap):
+        return subm_rulebook_batch(coords, shape, kernel, bitmap)
     k = _as3(kernel)
     pad = tuple(kk // 2 for kk in k)
     dy, dx = _tap_offsets_bev(k[1], k[2], coords.device)
@@ -477,7 +493,11 @@ def subm_window_rulebook_batch(coords, shape, kernel, bitmap):
 def conv_window_rulebook_batch(in_shape, out_coords, kernel, stride,
                                padding, bitmap):
     """Window rulebook of a strided sparse conv, in INPUT rank space.
-    out_coords: (B, O, 3) (any order); bitmap: the input resolution's."""
+    out_coords: (B, O, 3) (any order); bitmap: the input resolution's. A
+    deep grid's lookup gives the flat rulebook (conv_rulebook_batch)."""
+    if not torch.is_tensor(bitmap):
+        return conv_rulebook_batch(in_shape, out_coords, kernel, stride,
+                                   padding, bitmap)
     k, s, p = _as3(kernel), _as3(stride), _as3(padding)
     dy, dx = _tap_offsets_bev(k[1], k[2], out_coords.device)
     co = out_coords.long()
@@ -539,15 +559,17 @@ def conv_out_coords(coords, shape, kernel, stride, padding, max_out: int):
 
 
 def stage_lookup_batch(coords, shape):
-    """Reorder a resolution's rows into rank order and build its bitmap.
+    """Reorder a resolution's rows into rank order and build its lookup:
+    the bitmap for depths up to 64, else build_lookup_batch's dense or
+    sorted table (any row order works there, this one too).
 
-    Returns (order (B, V) int64, coords in rank order, bitmap). Callers
-    apply ``order`` to every per-row array. Depths above 64 raise (in
-    build_bitmap_batch): the dense and sorted lookups of deep grids are
-    not ported."""
+    Returns (order (B, V) int64, coords in rank order, lookup). Callers
+    apply ``order`` to every per-row array."""
     order = yxz_order(coords, shape)
     co = torch.gather(coords, 1, order[..., None].expand(-1, -1, 3))
-    return order, co, build_bitmap_batch(co, shape)
+    if shape[0] <= MAX_BITMAP_DEPTH:
+        return order, co, build_bitmap_batch(co, shape)
+    return order, co, build_lookup_batch(co, shape)
 
 
 def pack_windows(r0, pres):
@@ -584,11 +606,12 @@ def strided_inverse_rulebook_batch(in_coords, kernel, stride, padding,
 
     in_coords: (B, V, 3) the conv's input rows in rank order; out_bitmap:
     build_bitmap_batch of the output rows. Returns (r0i (B, V, Kc), presi
-    (B, V, Kc, ncz), par (B, V, 3)), or None when ncand > 2 in any dim.
-    Port of det3d_tpu/ops/sparse.py::strided_inverse_rulebook_batch."""
+    (B, V, Kc, ncz), par (B, V, 3)), or None when ncand > 2 in any dim or
+    the output resolution is a deep grid's (no bitmap). Port of
+    det3d_tpu/ops/sparse.py::strided_inverse_rulebook_batch."""
     k, s, p = _as3(kernel), _as3(stride), _as3(padding)
     nc = ncand_of(k, s)
-    if max(nc) > 2:
+    if max(nc) > 2 or not torch.is_tensor(out_bitmap):
         return None
     co = in_coords.long()
     # per dim with Python ints: a tensor made from (p, s) would be a copy
@@ -623,3 +646,203 @@ def unpack_inverse(packed, ncz: int):
     par = torch.stack([(packed[..., 0].long() >> (_PAR_SHIFT + d)) & 1
                        for d in range(3)], dim=-1)
     return r0i, presi, par
+
+
+# ---------------------------------------------------------------------------
+# Deep grids (depth > 64): dense and sorted lookups, flat rulebooks
+# ---------------------------------------------------------------------------
+# The bitmap keeps at most 64 z bits a column. A deeper grid looks each
+# tap up in a slot table: a dense (D*H*W,) table of row ids while it holds
+# at most _DENSE_TABLE_MAX_CELLS cells (one gather a query), else the
+# sorted ids and a binary search. Its rulebooks are flat: per output row
+# and tap (z-major (jz, jy, jx) order) the input row and its presence.
+
+_DENSE_TABLE_MAX_CELLS = 256 * 1024 * 1024
+
+
+class Flat(NamedTuple):
+    """A flat per-tap rulebook of a deep resolution: idx (B, O, K) int64
+    input rows (0 where absent), mask (B, O, K) bool."""
+    idx: torch.Tensor
+    mask: torch.Tensor
+
+
+def build_dense_table(lin, n_cells: int):
+    """(B, V) linear ids -> (B, n_cells) int32 tables of row ids, -1 where
+    empty. One scatter for the batch at per-sample offsets; padding rows
+    land in one spare slot that is dropped."""
+    b, v = lin.shape
+    keep = lin != _SENTINEL
+    base = torch.arange(b, device=lin.device)[:, None] * n_cells
+    flat = torch.where(keep, base + lin, b * n_cells)
+    table = torch.full((b * n_cells + 1,), -1, dtype=torch.int32,
+                       device=lin.device)
+    rows = torch.arange(v, dtype=torch.int32, device=lin.device)
+    table.scatter_(0, flat.reshape(-1), rows.expand(b, v).reshape(-1))
+    return table[:-1].view(b, n_cells)
+
+
+def lookup_dense(table, queries):
+    """(B, n_cells) tables, (B, Q) linear ids -> (slot (B, Q) int64, found
+    (B, Q) bool); sentinel queries are never found."""
+    okq = queries != _SENTINEL
+    slot = torch.gather(table, 1, torch.where(okq, queries, 0)).long()
+    found = okq & (slot >= 0)
+    return torch.where(found, slot, 0), found
+
+
+def build_hash(lin):
+    """(B, V) linear ids -> (sorted ids, perm): the sorted-table lookup."""
+    return torch.sort(lin, dim=-1, stable=True)
+
+
+def lookup(sorted_lin, perm, queries):
+    """Binary search of (B, Q) queries in the sorted ids -> (slot (B, Q)
+    int64 into the original rows, found (B, Q) bool)."""
+    v = sorted_lin.shape[-1]
+    pos = torch.searchsorted(sorted_lin, queries).clamp(max=v - 1)
+    found = ((torch.gather(sorted_lin, 1, pos) == queries)
+             & (queries != _SENTINEL))
+    return torch.where(found, torch.gather(perm, 1, pos), 0), found
+
+
+def build_lookup_batch(coords, shape):
+    """(B, V, 3) zyx -> ("dense", tables) for grids of at most
+    _DENSE_TABLE_MAX_CELLS cells, else ("sorted", (sorted ids, perm))."""
+    n_cells = int(np.prod(shape))
+    lin = linearize(coords, shape)
+    if n_cells <= _DENSE_TABLE_MAX_CELLS:
+        return ("dense", build_dense_table(lin, n_cells))
+    return ("sorted", build_hash(lin))
+
+
+def lookup_queries_batch(lookup_struct, qlin):
+    """(B, Q) linear ids -> (slot (B, Q) int64, found (B, Q) bool)."""
+    kind, data = lookup_struct
+    if kind == "dense":
+        return lookup_dense(data, qlin)
+    return lookup(*data, qlin)
+
+
+def _tap_offsets3(kernel, device):
+    """(K,) jz, jy, jx of a kernel's taps in z-major order, from arange
+    (no host copy)."""
+    kz, ky, kx = _as3(kernel)
+    t = torch.arange(kz * ky * kx, device=device)
+    return t // (ky * kx), (t // kx) % ky, t % kx
+
+
+def _flat_rulebook(q, valid_row, shape, lookup_struct):
+    b, o, kvol, _ = q.shape
+    idx, found = lookup_queries_batch(
+        lookup_struct, linearize(q, shape).reshape(b, o * kvol))
+    return (idx.view(b, o, kvol),
+            found.view(b, o, kvol) & valid_row[..., None])
+
+
+def _flat_from_windows(r0, pres):
+    """The flat rulebook of window rulebook (r0, pres), absent taps at 0."""
+    idx, mask = window_to_flat(r0, pres)
+    return torch.where(mask, idx, 0), mask
+
+
+def subm_rulebook_batch(coords, shape, kernel, lookup_struct):
+    """Flat rulebook of a submanifold conv: per row and tap (z-major) the
+    input row, over any lookup (a bitmap's through its windows). Returns
+    (idx (B, V, K) int64, mask (B, V, K) bool)."""
+    if torch.is_tensor(lookup_struct):
+        return _flat_from_windows(*subm_window_rulebook_batch(
+            coords, shape, kernel, lookup_struct))
+    k = _as3(kernel)
+    jz, jy, jx = _tap_offsets3(k, coords.device)
+    co = coords.long()
+    q = torch.stack([co[..., 0, None] + (jz - k[0] // 2),
+                     co[..., 1, None] + (jy - k[1] // 2),
+                     co[..., 2, None] + (jx - k[2] // 2)], dim=-1)
+    return _flat_rulebook(q, co[..., 0] >= 0, shape, lookup_struct)
+
+
+def conv_rulebook_batch(in_shape, out_coords, kernel, stride, padding,
+                        lookup_struct):
+    """Flat rulebook of a strided conv over the input resolution's lookup:
+    tap j of output o reads input o * s - p + j. Returns (idx (B, O, K),
+    mask (B, O, K))."""
+    if torch.is_tensor(lookup_struct):
+        return _flat_from_windows(*conv_window_rulebook_batch(
+            in_shape, out_coords, kernel, stride, padding, lookup_struct))
+    k, s, p = _as3(kernel), _as3(stride), _as3(padding)
+    jz, jy, jx = _tap_offsets3(k, out_coords.device)
+    co = out_coords.long()
+    q = torch.stack([(co[..., 0] * s[0] - p[0])[..., None] + jz,
+                     (co[..., 1] * s[1] - p[1])[..., None] + jy,
+                     (co[..., 2] * s[2] - p[2])[..., None] + jx], dim=-1)
+    return _flat_rulebook(q, co[..., 0] >= 0, in_shape, lookup_struct)
+
+
+def window_to_flat(r0, pres):
+    """Window rulebook -> flat per-tap (idx, mask) in z-major tap order:
+    rank(z0 + j) = r0 + popcount(pres[:j]). Absent taps keep that rank
+    (possibly past the rows), which their False mask suppresses."""
+    p = pres.long()
+    idx = r0.long()[..., None] + p.cumsum(-1) - p       # (B, O, Kbev, kz)
+    b, o = r0.shape[:2]
+    return (idx.transpose(2, 3).reshape(b, o, -1),
+            pres.transpose(2, 3).reshape(b, o, -1))
+
+
+def center_column_taps(kernel=3):
+    """The z-major tap ids of a cubic kernel's center BEV column."""
+    k = _as3(kernel)[0]
+    return tuple((jz * k + k // 2) * k + k // 2 for jz in range(3))
+
+
+def flat_conv(features, idx, mask, weights, z_shift_taps=None):
+    """Sparse conv over a flat rulebook, plain PyTorch (the JAX package's
+    apply_conv flat branch, XLA code there).
+
+    features (B, V, Cin); idx, mask (B, O, K); weights (K, Cin, Cout).
+    ``z_shift_taps`` (k_minus, k_center, k_plus), submanifold rulebooks
+    over rank-ordered rows (O == V): those taps read the previous row, the
+    row itself and the next row, without a gather. Then one gather + GEMM
+    per remaining tap, summed in fp32 (fp64 for fp64 operands). Autograd
+    gives the backward (its gathers' scatter-adds)."""
+    b, o = idx.shape[:2]
+    cin = features.shape[-1]
+    out = torch.zeros((b, o, weights.shape[-1]),
+                      dtype=_acc_dtype(features.dtype),
+                      device=features.device)
+    shifted = {}
+    if z_shift_taps is not None:
+        assert o == features.shape[1]
+        shifted = dict(zip(z_shift_taps, _center_taps(
+            features, torch.ones((b, o, 3), dtype=torch.bool,
+                                 device=features.device))))
+    for k, g in shifted.items():
+        out = out + _mm(g * mask[:, :, k, None].to(g.dtype), weights[k])
+    for k in range(weights.shape[0]):
+        if k in shifted:
+            continue
+        g = torch.gather(features, 1, idx[:, :, k, None].expand(-1, -1, cin))
+        out = out + _mm(g * mask[:, :, k, None].to(g.dtype), weights[k])
+    return out
+
+
+def flat_conv_dx(dy, idx, mask, weights, v: int):
+    """d(features) of a conv over flat rulebook (idx, mask): per tap,
+    dY @ W[k]^T scatter-added into the rows the tap reads. dy (B, O,
+    Cout); idx, mask (B, O, K), idx clamped into [0, V); weights (K, Cin,
+    Cout). Returns (B, V, Cin) in fp32 (fp64 for fp64 operands). The dX
+    of a strided window conv without an inverse rulebook, through
+    window_to_flat (the JAX package's apply_conv_window VJP)."""
+    b, o, kvol = idx.shape
+    cin = weights.shape[1]
+    dx = torch.zeros((b, v, cin), dtype=_acc_dtype(dy.dtype),
+                     device=dy.device)
+    if v == 0:
+        return dx
+    rows = idx.clamp(0, v - 1)
+    for k in range(kvol):
+        part = _mm(dy * mask[:, :, k, None].to(dy.dtype),
+                   weights[k].transpose(0, 1))
+        dx.scatter_add_(1, rows[:, :, k, None].expand(-1, -1, cin), part)
+    return dx

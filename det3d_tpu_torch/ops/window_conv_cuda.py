@@ -15,6 +15,10 @@ Its backward (fp32 on the card; the JAX package's is XLA code):
 - dX of a strided conv: ``window_conv_inv``, the kernel
   ``window_conv_inv_kernel`` of ``csrc/window_conv_bwd.cu`` over the
   conv's inverse rulebook (twin ``ops/sparse.py::window_conv_inv_ref``);
+  a strided conv without one (more than 2 output candidates a dim, or a
+  plan built for serving) takes the flat per-tap backward,
+  ``ops/sparse.py::window_to_flat`` and ``flat_conv_dx`` (a scatter-add
+  over the taps in plain PyTorch, as the JAX package's VJP is XLA code);
 - dW of both: ``window_conv_dw``, the kernels ``window_conv_dw_kernel``
   and ``window_conv_dw_sum_kernel`` of ``csrc/window_conv_bwd.cu`` (per
   block partial sums, then a sum in a fixed order: no atomics, the same
@@ -44,10 +48,13 @@ import functools
 import torch
 
 from det3d_tpu_torch import csrc
-from det3d_tpu_torch.ops.sparse import (_PACK_MASK, _PACK_SHIFT, ncand_of,
+from det3d_tpu_torch.utils import flops
+from det3d_tpu_torch.ops.sparse import (_PACK_MASK, _PACK_SHIFT,
+                                        flat_conv_dx, ncand_of,
                                         unpack_inverse, unpack_windows,
                                         window_conv_dw_ref,
-                                        window_conv_inv_ref, window_conv_ref)
+                                        window_conv_inv_ref, window_conv_ref,
+                                        window_to_flat)
 
 __all__ = ["window_conv", "window_conv_ref", "window_conv_subm_dx",
            "window_conv_dw", "window_conv_inv", "f32_schedule"]
@@ -190,7 +197,14 @@ def f32_schedule(packed, v: int, center_shift: bool, cout: int, kz: int = 3):
 
 def _forward(features, packed, weights, center_shift):
     """The forward function: the plain version on the CPU, else the
-    kernel. Returns (out, launched)."""
+    kernel. Returns (out, launched). Counted by utils/flops.py's
+    conv_work rule."""
+    with flops.kernel("window_conv", features, packed, weights,
+                      center_shift):
+        return _forward_call(features, packed, weights, center_shift)
+
+
+def _forward_call(features, packed, weights, center_shift):
     if features.device.type == "cpu":
         kz = weights.shape[0] // packed.shape[-1]
         r0, pres = unpack_windows(packed, kz)
@@ -225,8 +239,8 @@ def window_conv(features, packed, weights, center_shift: bool,
     type. ``center_shift``: submanifold rulebook (O == V, kz == 3), whose
     center BEV column reads rows o-1, o, o+1. ``inverse``: a strided
     conv's (packed inverse rulebook (B, V, Kc) int32, kernel, stride),
-    which its backward's dX reads; a strided conv whose features need a
-    gradient raises in the backward without one. Returns (B, O, Cout) fp32.
+    which its backward's dX reads; without one a strided conv's dX is the
+    flat per-tap scatter-add (flat_conv_dx). Returns (B, O, Cout) fp32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     the tensor-core one for bf16 and the CUDA-core one for fp32 (one
@@ -239,12 +253,6 @@ def window_conv(features, packed, weights, center_shift: bool,
 
 
 window_conv.launches = 0
-
-_NO_INVERSE = ("a strided window conv's dX needs its inverse rulebook (a "
-               "training plan: host_plan_fn(train=True) or "
-               "build_plan_device(train=True)); convs with more than 2 "
-               "output candidates a dim have none and need the flat "
-               "per-tap backward, not ported (ROADMAP queue 1, item 11)")
 
 
 class _WindowConv(torch.autograd.Function):
@@ -270,7 +278,10 @@ class _WindowConv(torch.autograd.Function):
             if ctx.center_shift:
                 dx = window_conv_subm_dx(dy, packed, weights)
             elif inv is None:
-                raise NotImplementedError(_NO_INVERSE)
+                kz = weights.shape[0] // packed.shape[-1]
+                idx, mask = window_to_flat(*unpack_windows(packed, kz))
+                dx = flat_conv_dx(dy, idx, mask, weights.to(dy.dtype),
+                                  features.shape[1])
             else:
                 dx = window_conv_inv(dy, inv, weights, *ctx.geometry,
                                      features.shape[1])
@@ -361,7 +372,25 @@ def window_conv_dw(features, packed, dy, center_shift: bool, kz: int = 3):
     ``window_conv_dw.launches``): per-block partials of each tap over a
     chunk of rows into a workspace, then their sum in chunk order; no
     atomics, so two calls give the same bits. CPU tensors take
-    window_conv_dw_ref."""
+    window_conv_dw_ref. Counted by the rule ``_dw_work``."""
+    with flops.kernel("window_conv_dw", features, packed, dy, center_shift,
+                      kz):
+        return _dw_call(features, packed, dy, center_shift, kz)
+
+
+def _dw_work(features, packed, dy, center_shift, kz):
+    """(bytes, flops, peak) of one dW: 2 Cin Cout for each tap that reads
+    a row (the forward's), the rows, the words, dy read once, dW written
+    once."""
+    k = packed.shape[-1]
+    cin, cout = features.shape[-1], dy.shape[-1]
+    taps, rows = flops.conv_taps(packed, features.shape[1], center_shift, kz)
+    nbytes = (rows * cin * 4 + packed.numel() * 4 + dy.numel() * 4
+              + kz * k * cin * cout * 4)
+    return nbytes, 2.0 * cin * cout * taps, flops.FP32_FLOPS
+
+
+def _dw_call(features, packed, dy, center_shift, kz):
     if features.device.type == "cpu":
         r0, pres = unpack_windows(packed, kz)
         return window_conv_dw_ref(features, r0, pres, dy, center_shift)
@@ -425,9 +454,14 @@ def window_conv_inv(dy, inverse, weights, kernel, stride, v: int):
     to 128; ``kernel`` and ``stride`` the conv's (z, y, x) kernel (at most
     3 a dim) and stride (1 or 2 a dim). Returns (B, V, Cin) fp32. One
     launch on the card (``window_conv_inv.launches``); CPU tensors take
-    the twin."""
+    the twin. Counted by utils/flops.py's inverse_work rule."""
     k3 = tuple(int(x) for x in kernel)
     s3 = tuple(int(x) for x in stride)
+    with flops.kernel("window_conv_inv", dy, inverse, weights, k3, s3, v):
+        return _inv_call(dy, inverse, weights, k3, s3, v)
+
+
+def _inv_call(dy, inverse, weights, k3, s3, v):
     kz, ky, kx = k3
     kvol, cin, cout = weights.shape
     kc = inverse.shape[-1]
@@ -475,3 +509,7 @@ def window_conv_inv(dy, inverse, weights, kernel, stride, v: int):
 
 
 window_conv_inv.launches = 0
+
+flops.register("window_conv", flops.conv_work)
+flops.register("window_conv_dw", _dw_work)
+flops.register("window_conv_inv", flops.inverse_work)

@@ -15,9 +15,13 @@ that flax's variables become under ``np.asarray`` and returns the port's
 - BatchNorm scale, bias, mean and var carry over as they are.
 
 flax names a module's BatchNorms by call order (``MaskedBatchNorm_<n>``);
-the RPN's call order is block i's down conv, its convs, then its upsample
-branch, which the port names ``block{i}_down_bn``, ``block{i}_conv{j}_bn``
-and ``deblock{k}_bn``.
+a layer's own one is the port's ``norm``, except in a module whose Dense
+layers flax names by call order too (``Dense_<n>``: PointModule, RegHead),
+which the port names as flax does. The RPN's call order is block i's down
+conv, its convs, then its upsample branch, which the port names
+``block{i}_down_bn``, ``block{i}_conv{j}_bn`` and ``deblock{k}_bn``.
+SpMiddleFHDNobn nests an SpMiddleFHD (``SpMiddleFHD_0``), whose layers
+the port holds directly.
 """
 
 from __future__ import annotations
@@ -78,7 +82,8 @@ def _kernel(path, w):
 
 def from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     """Map flax ``params`` / ``batch_stats`` of a PointPillars or VoxelNet
-    detector to the port's state_dict (float32 CPU tensors)."""
+    detector, or of one of its modules, to the port's state_dict (float32
+    CPU tensors)."""
     flat_p = _flatten(params)
     flat_s = _flatten(batch_stats)
     bn_rename = {}
@@ -86,19 +91,24 @@ def from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
         for n, name in enumerate(_rpn_bn_names(params["neck"])):
             bn_rename[("neck", f"MaskedBatchNorm_{n}")] = ("neck", name)
 
+    # modules whose layers keep flax's call-order names
+    flax_named = {path[:-2] for path in flat_p if path[-2] == "Dense_0"}
+
     def rename(path):
         # path without the leaf name
+        if path[:2] == ("backbone", "SpMiddleFHD_0"):   # the Nobn middle
+            path = path[:1] + path[2:]
         if path[:2] in bn_rename:
             return bn_rename[path[:2]] + path[2:]
-        if path[-1] == "MaskedBatchNorm_0":           # a layer's own norm
-            return path[:-1] + ("norm",)
+        if path[-1] == "MaskedBatchNorm_0" and path[:-1] not in flax_named:
+            return path[:-1] + ("norm",)              # a layer's own norm
         return path
 
     sd = {}
     for path, w in flat_p.items():
         mod, leaf = rename(path[:-1]), path[-1]
         if leaf == "kernel":
-            w, leaf = _kernel(path, w), "weight"
+            w, leaf = _kernel(mod + (leaf,), w), "weight"
         sd[".".join(mod + (leaf,))] = w
     for path, w in flat_s.items():
         sd[".".join(rename(path[:-1]) + (path[-1],))] = w

@@ -247,11 +247,19 @@ def test_stage_lookup_equals_jax(case):
 
 
 def test_deep_grid_raises_with_the_roadmap_item():
+    """Deep grids are ported (tests/test_torch_deep_grid.py): the device
+    lookup takes a depth of 65 through the dense table, while the bitmap
+    and every host plan still refuse it, as the JAX package's
+    middle_plan_spec asserts."""
     co = torch.zeros((1, 4, 3), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        sp.stage_lookup_batch(co, (65, 8, 8))
-    with pytest.raises(NotImplementedError, match="deep-grid"):
+    _, _, lookup = sp.stage_lookup_batch(co, (65, 8, 8))
+    assert lookup[0] == "dense" and lookup[1].shape == (1, 65 * 8 * 8)
+    with pytest.raises(ValueError, match="depths 1 to 64"):
+        sp.build_bitmap_batch(co, (65, 8, 8))
+    with pytest.raises(ValueError, match="host plan"):
         bb.middle_plan_spec(dict(), (8, 8, 64), 16)
+    assert bb.middle_plan_spec(dict(), (8, 8, 64), 16,
+                               host=False)["shape0"] == (65, 8, 8)
 
 
 # ---------------------------------------------------------------------------

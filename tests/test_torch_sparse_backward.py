@@ -246,11 +246,19 @@ def test_dw_with_and_without_center_shift_equals_jax(plan, center_shift):
 
 
 def test_strided_conv_without_inverse_raises_in_backward(plan):
+    """A strided conv without its inverse rulebook no longer raises in its
+    backward: its dX is the flat per-tap scatter-add (window_to_flat,
+    flat_conv_dx), equal to the inverse rulebook's dX on the same conv."""
+    torch.manual_seed(0)
     x = torch.randn(2, plan["s0"].shape[1], 4, requires_grad=True)
     w = torch.randn(27, 4, 16)
-    out = window_conv(x, plan["down1"], w, False)       # forward is fine
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 11"):
-        out.sum().backward()
+    out = window_conv(x, plan["down1"], w, False)
+    out.sum().backward()
+    inverse = (plan["inv1"], (3, 3, 3), (2, 2, 2))
+    x2 = x.detach().clone().requires_grad_(True)
+    window_conv(x2, plan["down1"], w, False, inverse).sum().backward()
+    assert rel_l2(x.grad.numpy(), x2.grad.numpy()) <= CONV_REL
+    assert x.grad.abs().sum() > 0
 
 
 def test_stem_input_gets_no_dx(plan, monkeypatch):
