@@ -6,6 +6,7 @@
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
     python3 chip_smoke.py --only points|train|data|nusc|dist|variants
+    python3 chip_smoke.py --only experiments
 
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
@@ -23,9 +24,9 @@ change, parent) to compare two versions of a kernel on the same
 yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
 and KITTI-all from points and under TTA), only the training phases
 53-62, only the data, trainer and evaluation phases 63-66, only the
-nuScenes, Lyft and CLI phases 67-70, only the ranks' phases 71-72 or
-only the variants' phases 73-76
-(this last form ends with the JSON result line too).
+nuScenes, Lyft and CLI phases 67-70, only the ranks' phases 71-72,
+only the variants' phases 73-76 or (the sixth form) only the last
+modules' phases 77-80 (these two forms end with the JSON lines too).
 
 The first form drives the port's seven serving paths through the entry
 points a user calls (the flagship PointPillars step and SECOND from host
@@ -56,7 +57,10 @@ collectives are captured), then the modules no shipped config names
 (73 to 76: the original VoxelNet, SpMiddleFHDNobn and RCNNSpMiddleFHD at
 SECOND's full grid, the two-stage crop-and-refine path, a grid deeper
 than 64, and utils/flops.py's count of every captured step with its
-share of peak). It prints its running time at the end.
+share of peak), then the last modules, each at a published width (77 to
+80: PointRCNN's PointNet++ backbone, the temporal align-and-aggregate
+block on the flagship's neck output, ResNet-50 + FPN, SENet-50 and
+SSD300, and visualization). It prints its running time at the end.
 
 make_predict_step returns the step a user calls: on the card a
 CapturedStep (parallel/graph.py), one CUDA graph per batch signature.
@@ -450,6 +454,32 @@ captured. Phases 39-46 drive the captured step itself.
      every step an earlier phase of this run captured and timed, and its
      share of peak and of HBM at that phase's captured ms; the
      flagship's count at B=8 on the card and on the CPU, stage by stage.
+ 77. PointRCNN's RPN backbone (cfgs/default.yaml's SA_CONFIG and
+     FP_MLPS: 4 MSG set abstractions to 4096 / 1024 / 256 / 64 points, 4
+     feature propagations; PointNet2Rpn) on B=2 scans of 16384 points
+     (xyz, 1000 padded rows): FPS card vs CPU equal (else the first step
+     that differs and its top-two gap, which must be a tie within
+     rounding), level 0's ball queries card vs CPU equal but in rows with
+     a candidate within 1e-5 r^2 of the radius, the eval forward card vs
+     CPU (POINT_REL), eager and captured ms of FPS alone and of the
+     forward, peak memory, the FLOP count and share, one training step's
+     gradients card vs CPU (POINT_GRAD_REL);
+ 78. AlignFeatureAndAggregation(384, 9) on the flagship RPN's output of
+     two B=2 frames, (2, 248, 216, 384): card vs CPU (TEMPORAL_REL),
+     eager and captured ms, peak memory, the convolutions' FLOP count
+     beside the window sums';
+ 79. faster_rcnn_r50_fpn_1x.py's ResNet-50 (frozen_stages 1, norm_eval)
+     + FPN (5 outputs) and SENet-50 on a (2, 384, 1248, 3) image, SSD300
+     at B=8: ms, peak memory, output shapes, sample 0 card vs CPU
+     (IMAGE_REL), FLOP count and share; one ResNet-50 + FPN training
+     step: no gradient in the stem and stage 1, no running statistic
+     moved;
+ 80. the flagship's captured predict step at B=8, its detections drawn
+     by simplevis.kitti_vis (cv2 where the host has it, and the numpy
+     rasterizer), the scan and boxes written by viewer3d.export_ply, and
+     netviz.summarize of the detector (its total equal to the
+     parameters' count); the NMS kernel on the step's inputs against its
+     plain twin. Phases 77-79 launch neither kernel.
  46. each path's captured step under torch.profiler (replays, after the
      eager profile where there is one): the device's busy share; then
      REPLAY_WINDOWS profiles of one replay each, after a warm-up replay
@@ -484,7 +514,9 @@ paths' backward kernels, then the ranks' paths of phases 71-72,
 (dist_entries: launches counted on the path, times measured on its
 nearest path), then phases 73-75's ``"voxelnet"``, ``"nobn"``,
 ``"second_two_stage"``, ``"deep_points"`` and ``"rcnn_train"``
-(variant_entries); ``ms``: a call from
+(variant_entries), then phase 80's ``"flagship_vis"`` (the NMS kernel,
+its launches counted during the captured step's first call: the warm-up
+and the capture); ``ms``: a call from
 Python,
 interleaved with the plain version; ``device_ms``: graph_ms) and the JSON
 result line. The NMS bound counts
@@ -496,6 +528,7 @@ printed beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import functools
 import gc
@@ -6455,6 +6488,625 @@ def dist_entries(kernels, dist):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 77-80: the last modules (PointNet++, the temporal block, the image
+# backbones and FPN, visualization), each at a published width
+# ---------------------------------------------------------------------------
+
+# PointRCNN's RPN backbone (sshaoshuai/PointRCNN, cfgs/default.yaml:
+# RPN.SA_CONFIG and RPN.FP_MLPS, USE_INTENSITY False): 16384 points a
+# scan, xyz only. The JAX package's mlp lists are output widths, so they
+# are the config's lists as they stand
+RCNN_B, RCNN_POINTS, RCNN_INVALID = 2, 16384, 1000
+RCNN_NPOINTS = (4096, 1024, 256, 64)
+RCNN_RADII = ((0.1, 0.5), (0.5, 1.0), (1.0, 2.0), (2.0, 4.0))
+RCNN_NSAMPLES = ((16, 32),) * 4
+RCNN_MLPS = (((16, 16, 32), (32, 32, 64)), ((64, 64, 128), (64, 96, 128)),
+             ((128, 196, 256), (128, 196, 256)),
+             ((256, 256, 512), (256, 384, 512)))
+RCNN_FP = ((128, 128), (256, 256), (512, 512), (512, 512))
+# card vs CPU, relative L2: the SA + FP forward in eval mode (the same
+# points grouped on both, the sums in other orders), and one training
+# step's gradients against the CPU's in float64. Each group's max-pool
+# sends its gradient to its largest slot, and slots within rounding of
+# each other send it elsewhere in fp32 than in float64: on the CPU fp32
+# itself moves the gradients ~3e-3 (median) to ~8e-3 (worst) from float64.
+# So the card's median and worst distances to float64 are held within
+# GRAD_SPREAD x the CPU's fp32 ones (and POINT_GRAD_REL)
+POINT_REL, POINT_GRAD_REL, GRAD_SPREAD = 1e-4, 1e-3, 3.0
+# the expanded distance |a|^2 - 2ab + |b|^2 in fp32 is exact to about
+# D2_ULPS units of 2^-24 (|a|^2 + |b|^2): at 70 m that is ~3e-3 m^2, so two
+# devices' products may put a candidate on either side of a radius or of
+# another candidate within it (and give a point's distance to itself as 0
+# or as ~1e-4 m^2)
+D2_ULPS = 8
+# the flagship's neck output (3 x 128 channels at half the 496 x 432
+# grid), two frames, through AlignFeatureAndAggregation(384, 9)
+TEMPORAL_CH, TEMPORAL_NEIGHBOR, TEMPORAL_REL = 384, 9, 1e-4
+# mmdetection configs/faster_rcnn_r50_fpn_1x.py: ResNet-50 (out_indices
+# 0-3, frozen_stages 1, norm_eval), FPN [256, 512, 1024, 2048] -> 256, 5
+# outputs, on a KITTI image (375 x 1242 padded to a multiple of 32)
+IMAGE_B, IMAGE_HW = 2, (384, 1248)
+SSD_B = 8
+IMAGE_REL = 1e-4
+
+
+class PointNet2Rpn(torch.nn.Module):
+    """PointRCNN's RPN backbone (lib/net/pointnet2_msg.py) on the port's
+    modules: four MSG set abstractions and four feature propagations, as
+    the reference wires them (FP k takes level k+1's features, or the last
+    SA's, and level k's as its skip). forward(xyz, valid) -> (features
+    (B, N, 128), each level's xyz, each level's valid)."""
+
+    def __init__(self):
+        super().__init__()
+        from det3d_tpu_torch.models.point_modules import (PointnetFPModule,
+                                                          PointnetSAModuleMSG)
+        self.sa = torch.nn.ModuleList()
+        widths = [0]
+        for npoint, radii, ns, mlps in zip(RCNN_NPOINTS, RCNN_RADII,
+                                           RCNN_NSAMPLES, RCNN_MLPS):
+            self.sa.append(PointnetSAModuleMSG(npoint, radii, ns, mlps,
+                                               in_channels=widths[-1]))
+            widths.append(sum(m[-1] for m in mlps))
+        self.fp = torch.nn.ModuleList(
+            PointnetFPModule(mlp, in_channels=(
+                RCNN_FP[k + 1][-1] if k + 1 < len(RCNN_FP) else widths[-1])
+                + widths[k])
+            for k, mlp in enumerate(RCNN_FP))
+
+    def forward(self, xyz, valid):
+        xyzs, feats, valids = [xyz], [None], [valid]
+        for sa in self.sa:
+            x, f, v = sa(xyzs[-1], feats[-1], valids[-1])
+            xyzs.append(x)
+            feats.append(f)
+            valids.append(v)
+        for i in range(-1, -len(self.fp) - 1, -1):
+            feats[i - 1] = self.fp[i](xyzs[i - 1], xyzs[i], feats[i - 1],
+                                      feats[i], known_valid=valids[i])
+        return feats[0], xyzs, valids
+
+
+def rcnn_points(dev):
+    """B=2 KITTI scans of 16384 points (train_scene: car-sized clusters and
+    clutter over the flagship's range), xyz only, the last RCNN_INVALID
+    rows of scan 1 padding (invalid)."""
+    from det3d_tpu_torch.apis.flagship import PC_RANGE
+    pts = train_scene(RCNN_B, RCNN_POINTS, PC_RANGE)["points"][..., :3]
+    valid = np.ones((RCNN_B, RCNN_POINTS), bool)
+    valid[1, -RCNN_INVALID:] = False
+    return (torch.from_numpy(np.ascontiguousarray(pts)).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def fps_gap(xyz, valid, sel, m):
+    """The gap between the two largest running minima FPS compares at its
+    step m, on the CPU from the selection ``sel`` of steps before m."""
+    dist = torch.full(valid.shape, float("inf")).masked_fill(~valid,
+                                                             float("-inf"))
+    for j in range(m):
+        d = ((xyz - xyz[sel[j]]) ** 2).sum(-1)
+        dist = torch.minimum(dist, d.masked_fill(~valid, float("-inf")))
+    top = torch.topk(dist, 2).values
+    return float(top[0] - top[1])
+
+
+def float64_copy(model):
+    """A float64 copy of ``model`` on the CPU, its BatchNorms returning
+    float64 too."""
+    from det3d_tpu_torch.models.norm import MaskedBatchNorm
+    out = copy.deepcopy(model).cpu().double()
+    for m in out.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.dtype = torch.float64
+    return out
+
+
+def d2_bound(a, b):
+    """The expanded distance's rounding bound (float64) between points a
+    and b (..., 3)."""
+    return D2_ULPS * 2.0 ** -24 * ((a.double() ** 2).sum(-1)
+                                   + (b.double() ** 2).sum(-1))
+
+
+def ball_rows_explained(args, out, ref):
+    """(rows, rows that differ card vs CPU, of them rows with no valid
+    candidate within d2_bound of r^2) of one ball query."""
+    xyz, centers, radius, valid = args
+    differ = ((out[0].cpu() != ref[0]) | (out[1].cpu() != ref[1])).any(-1)
+    bad = 0
+    for b, m in differ.nonzero().tolist():
+        d2 = ((xyz[b].double() - centers[b, m].double()) ** 2).sum(-1)
+        near = (d2 - radius * radius).abs() <= d2_bound(xyz[b], centers[b, m])
+        bad += not bool((near & valid[b]).any())
+    return differ.numel(), int(differ.sum()), bad
+
+
+def nn_rows_explained(args, out, ref):
+    """(rows, rows whose 3-NN set differs card vs CPU, of them rows where a
+    point of the difference lies farther than d2_bound from the third
+    smallest d2, and rows of the same set whose squared distances differ
+    by more than d2_bound) of one three_nn."""
+    unknown, known, valid = args
+    dist, idx = (t.cpu() for t in out)
+    rdist, ridx = ref
+    differ = (idx.sort(-1).values != ridx.sort(-1).values).any(-1)
+    bad = 0
+    for b, m in differ.nonzero().tolist():
+        d2 = ((known[b].double() - unknown[b, m].double()) ** 2).sum(-1)
+        if valid is not None:
+            d2 = d2.masked_fill(~valid[b], float("inf"))
+        third = d2.sort().values[2]
+        odd = set(idx[b, m].tolist()) ^ set(ridx[b, m].tolist())
+        bad += any(float((d2[j] - third).abs()) > 2 * float(
+            d2_bound(known[b, j], unknown[b, m])) for j in odd)
+    near = known.gather(1, ridx.reshape(ridx.shape[0], -1, 1).expand(
+        -1, -1, 3)).reshape(*ridx.shape, 3)
+    gap = (dist.double() ** 2 - rdist.double() ** 2).abs()
+    same = ~differ[..., None] & (gap > 2 * d2_bound(near, unknown[:, :, None]))
+    return differ.numel(), int(differ.sum()), bad + int(same.any(-1).sum())
+
+
+class Decisions:
+    """The ball queries' and 3-NN's results of a CPU forward, held against
+    a card forward's: ``record()`` keeps each call's inputs and result;
+    under ``replay()`` each card call's result is checked against the
+    recorded one (ball_rows_explained, nn_rows_explained: it may differ
+    only where the expanded distance's rounding decides) and the recorded
+    one goes on, so that the rest of the card's forward computes on the
+    CPU's groups and distances and the two outputs differ by arithmetic
+    alone."""
+
+    def __init__(self):
+        self.calls, self.checked = [], {"ball": [0, 0, 0], "nn": [0, 0, 0]}
+
+    @contextlib.contextmanager
+    def _patched(self, replay):
+        from det3d_tpu_torch.ops import pointnet2 as p2
+        ball_query, three_nn = p2.ball_query, p2.three_nn
+        recorded = iter(self.calls)
+
+        def check(kind, out, like):
+            args, ref = next(recorded)[1:]
+            rows = (ball_rows_explained if kind == "ball"
+                    else nn_rows_explained)(args, out, ref)
+            self.checked[kind] = [a + b for a, b in
+                                  zip(self.checked[kind], rows)]
+            return tuple(r.to(like.device, like.dtype)
+                         if r.is_floating_point() else r.to(like.device)
+                         for r in ref)
+
+        def ball(xyz, new_xyz, radius, nsample, valid=None, chunk=1024):
+            out = ball_query(xyz, new_xyz, radius, nsample, valid, chunk)
+            if replay:
+                return check("ball", out, xyz)
+            self.calls.append(("ball", (xyz, new_xyz, radius, valid), out))
+            return out
+
+        def nn(unknown, known, valid=None):
+            out = three_nn(unknown, known, valid)
+            if replay:
+                return check("nn", out, unknown)
+            self.calls.append(("nn", (unknown, known, valid), out))
+            return out
+
+        p2.ball_query, p2.three_nn = ball, nn
+        try:
+            yield self
+        finally:
+            p2.ball_query, p2.three_nn = ball_query, three_nn
+
+    def record(self):
+        self.calls.clear()
+        return self._patched(False)
+
+    def replay(self):
+        return self._patched(True)
+
+    def again(self):
+        """A checker of another forward against the same recorded calls."""
+        other = Decisions()
+        other.calls = self.calls
+        return other
+
+    def summary(self):
+        (br, bd, bb), (nr, nd, nb) = (self.checked["ball"],
+                                      self.checked["nn"])
+        return (f"ball-query rows differing card vs CPU {bd} of {br}, "
+                f"unexplained {bb}; 3-NN sets differing {nd} of {nr}, "
+                f"unexplained (or distances past the bound) {nb}"), bb + nb
+
+
+def phase_pointnet2(dev, smi):
+    """Phase 77: PointRCNN's RPN backbone (PointNet2Rpn) at its published
+    widths, B=2 x 16384 points, weights from init_weights with
+    torch.Generator().manual_seed(0): FPS card vs CPU (equal; where not,
+    the first step that differs and the gap between its two top
+    candidates), every ball query and 3-NN of the forward card vs CPU
+    (Decisions: they differ only where the expanded distance's rounding
+    decides), the eval forward card vs CPU on the CPU's groups and
+    distances within POINT_REL (and on its own, printed), eager and
+    captured ms of FPS alone and of the whole forward, peak memory, its
+    FLOP count and share of peak, and one training step's gradients card
+    vs CPU within POINT_GRAD_REL."""
+    from det3d_tpu_torch.models.builder import init_weights
+    from det3d_tpu_torch.ops.pointnet2 import furthest_point_sample
+    label = "phase 77"
+    xyz_d, valid_d = rcnn_points(dev)
+    xyz, valid = xyz_d.cpu(), valid_d.cpu()
+    n0 = RCNN_NPOINTS[0]
+    sel_d = furthest_point_sample(xyz_d, n0, valid_d).cpu()
+    sel = furthest_point_sample(xyz, n0, valid)
+    if torch.equal(sel_d, sel):
+        log(f"{label} FPS {RCNN_POINTS} -> {n0} points B={RCNN_B} "
+            f"({RCNN_INVALID} padded rows in scan 1): card == CPU, "
+            f"{sel.numel()} indices, none of them padding: "
+            f"{bool(valid.gather(1, sel).all())}")
+    else:
+        for b in range(RCNN_B):
+            diff = (sel_d[b] != sel[b]).nonzero()
+            if len(diff):
+                m = int(diff[0])
+                gap = fps_gap(xyz[b], valid[b], sel[b], m)
+                log(f"{label} FPS scan {b}: first differing step {m} of "
+                    f"{n0}, card {int(sel_d[b, m])} vs CPU "
+                    f"{int(sel[b, m])}; the gap between the two top "
+                    f"candidates there {gap:.3e}")
+                if gap > 1e-5 * float(xyz[b].abs().max()) ** 2:
+                    raise AssertionError(f"{label}: FPS differs card vs CPU "
+                                         f"at a gap of {gap:.3e}")
+    cpu = init_weights(PointNet2Rpn(), torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    cpu.eval()
+    card.eval()
+    decisions = Decisions()
+    with torch.no_grad():
+        with decisions.record():
+            out, xyzs, _ = cpu(xyz, valid)
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        free = card(xyz_d, valid_d)[0]
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        with decisions.replay():
+            out_d, xyzs_d, _ = card(xyz_d, valid_d)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(xyzs_d, xyzs))
+        err, err_free = rel_l2(out_d, out), rel_l2(free, out)
+        checked, unexplained = decisions.summary()
+        log(f"{label} SA + FP forward (eval) B={RCNN_B}: features "
+            f"{tuple(out_d.shape)}, finite {bool(out_d.isfinite().all())}, "
+            f"every level's sampled xyz card == CPU: {same}; {checked} "
+            f"(bound {D2_ULPS} x 2^-24 (|a|^2 + |b|^2)); on the CPU's groups "
+            f"and distances card vs CPU relative L2 {err:.2e} (tolerance "
+            f"{POINT_REL:g}); each on its own groups {err_free:.2e}; peak "
+            f"memory {peak:.2f} GiB above the inputs and weights [{smi}]")
+        if (not same or unexplained or err > POINT_REL
+                or not out_d.isfinite().all()):
+            raise AssertionError(f"{label}: the forward differs card vs CPU")
+        fps = functools.partial(furthest_point_sample, xyz_d, n0, valid_d)
+        fwd = functools.partial(card, xyz_d, valid_d)
+        times = {f"FPS {RCNN_POINTS} -> {n0}": (
+                     cuda_ms(fps, warmup=1, repeat=5), graph_ms(fps, reps=1)),
+                 "SA + FP forward": (cuda_ms(fwd, warmup=1, repeat=5),
+                                     graph_ms(fwd, reps=1))}
+        counter = flop_counts.count_step(fwd)
+    for name, (eager, captured) in times.items():
+        log(f"{label} {name} B={RCNN_B}: eager {eager:.3f} ms, captured "
+            f"(one CUDA graph) {captured:.3f} ms [{smi}]")
+    t = counter.totals()
+    peak_share, hbm_share = flop_counts.share(counter,
+                                              times["SA + FP forward"][1])
+    log(f"{label} SA + FP forward count: {t['flops'] / 1e9:.3f} GFLOP (its "
+        f"products), {t['bytes'] / 1e9:.3f} GB; at the captured ms "
+        f"{peak_share:.4f} of the fp32 peak, {hbm_share:.4f} of HBM [{smi}]")
+
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    cpu64 = float64_copy(cpu)
+    grads, decisions = {}, Decisions()
+    card_check = decisions.again()
+    for name, model, x, replay in (
+            ("cpu", cpu, xyz, decisions.record),
+            ("card", card, xyz_d, card_check.replay),
+            ("cpu64", cpu64, xyz.double(), decisions.again().replay)):
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with replay():
+            (model(x, valid.to(x.device))[0]
+             * cot.to(x.device, x.dtype)).sum().backward()
+        grads[name] = {k: p.grad for k, p in model.named_parameters()}
+    errs = {dev_: [rel_l2(grads[dev_][k].double(), ref)
+                   for k, ref in grads["cpu64"].items()]
+            for dev_ in ("card", "cpu")}
+    (card_med, card_max), (cpu_med, cpu_max) = (
+        (statistics.median(e), max(e)) for e in (errs["card"], errs["cpu"]))
+    worst = list(grads["cpu64"])[errs["card"].index(card_max)]
+    stats = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        card.buffers(), cpu.buffers()))
+    checked, unexplained = card_check.summary()
+    log(f"{label} one training step on the CPU's groups and distances "
+        f"({checked}): {len(errs['card'])} gradients against the CPU's in "
+        f"float64, relative L2 median / worst: card {card_med:.2e} / "
+        f"{card_max:.2e} ({worst}), the CPU in fp32 {cpu_med:.2e} / "
+        f"{cpu_max:.2e} (bound max({POINT_GRAD_REL:g}, {GRAD_SPREAD:g} x "
+        f"the CPU's)); running statistics card vs CPU max abs {stats:.2e}")
+    if (card_med > max(POINT_GRAD_REL, GRAD_SPREAD * cpu_med)
+            or card_max > max(POINT_GRAD_REL, GRAD_SPREAD * cpu_max)
+            or stats > 1e-4 or unexplained):
+        raise AssertionError(f"{label}: training step differs card vs CPU")
+
+
+def phase_temporal(dev, smi):
+    """Phase 78: AlignFeatureAndAggregation(384, 9) on the flagship's neck
+    output (reader, scatter and RPN at full widths on two B=2 structured
+    scans: (2, 248, 216, 384)), weights from init_weights: card vs CPU, eager and
+    captured ms, peak memory, the FLOP count (its convolutions) beside the
+    window sums' operations."""
+    from det3d_tpu_torch.apis.flagship import PC_RANGE
+    from det3d_tpu_torch.models.builder import init_weights
+    from det3d_tpu_torch.models.temporal import AlignFeatureAndAggregation
+    from det3d_tpu_torch.parallel.train import build_example
+    from det3d_tpu_torch.utils.synth import structured_batch
+    label = "phase 78"
+    model, vg, asg = flagship_stack(dev)[:3]
+    frames = []
+    with torch.no_grad():
+        for seed in (SEED, SEED + 1):
+            batch = structured_batch(2, POINTS, PC_RANGE, seed=seed)
+            ex = build_example({k: torch.as_tensor(v, device=dev)
+                                for k, v in batch.items()}, vg, asg)
+            coors = ex["coordinates"]
+            x = model.reader(ex["voxels"], ex["num_points_per_voxel"], coors)
+            x = model.backbone(x, coors, model.grid_size)
+            frames.append(model.neck(x).float())
+    del model
+    key, cur = frames
+    log(f"{label} the flagship's neck output, two frames: "
+        f"{tuple(key.shape)} each")
+    if key.shape[-1] != TEMPORAL_CH:
+        raise AssertionError(f"{label}: neck output {tuple(key.shape)}")
+    cpu = init_weights(AlignFeatureAndAggregation(TEMPORAL_CH,
+                                                  TEMPORAL_NEIGHBOR),
+                       torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to(dev)
+    with torch.no_grad():
+        ref = cpu(key.cpu(), cur.cpu())
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        out = card(key, cur)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        err = rel_l2(out, ref)
+        run = functools.partial(card, key, cur)
+        eager, captured = cuda_ms(run, warmup=2, repeat=10), graph_ms(
+            run, reps=1)
+        counter = flop_counts.count_step(run)
+    b, h, w, c = key.shape
+    window = 2.0 * b * h * w * TEMPORAL_NEIGHBOR ** 2 * (64 + c)
+    t = counter.totals()
+    peak_share, hbm_share = flop_counts.share(counter, captured)
+    log(f"{label} AlignFeatureAndAggregation({TEMPORAL_CH}, "
+        f"{TEMPORAL_NEIGHBOR}): output {tuple(out.shape)}, finite "
+        f"{bool(out.isfinite().all())}, card vs CPU relative L2 {err:.2e} "
+        f"(tolerance {TEMPORAL_REL:g}); eager {eager:.3f} ms, captured "
+        f"{captured:.3f} ms, peak memory {peak:.2f} GiB above its inputs "
+        f"[{smi}]")
+    log(f"{label} count: {t['flops'] / 1e9:.3f} GFLOP in its convolutions "
+        f"({peak_share:.4f} of the fp32 peak, {hbm_share:.4f} of HBM at the "
+        f"captured ms), and {window / 1e9:.3f} GFLOP in the window sums "
+        f"(correlation and align, elementwise, which the counter does not "
+        f"see): {(t['ops_ms'] + window / FP32_FLOPS * 1e3) / captured:.4f} "
+        f"of the fp32 peak together [{smi}]")
+    if err > TEMPORAL_REL or not out.isfinite().all():
+        raise AssertionError(f"{label}: output differs card vs CPU")
+
+
+class ResNetFPN(torch.nn.Module):
+    """faster_rcnn_r50_fpn_1x.py's backbone and neck: forward(x NHWC) ->
+    FPN's five NHWC maps."""
+
+    def __init__(self):
+        super().__init__()
+        from det3d_tpu_torch.models.builder import build_backbone, build_neck
+        self.backbone = build_backbone(dict(
+            type="ResNet", depth=50, num_stages=4, out_indices=(0, 1, 2, 3),
+            frozen_stages=1, style="pytorch"))
+        self.neck = build_neck(dict(
+            type="FPN", in_channels=[256, 512, 1024, 2048],
+            out_channels=256, num_outs=5))
+
+    def forward(self, x):
+        return self.neck(list(self.backbone(x)))
+
+
+def image_case(dev, name, build, shape, smi, label):
+    """One image model in eval mode: weights from init_weights, a seeded
+    NHWC input of ``shape``; ms (CUDA events) and peak memory, the output
+    shapes, the first sample's outputs card vs CPU within IMAGE_REL, the
+    FLOP count and share. Returns (card model, input)."""
+    from det3d_tpu_torch.models.builder import init_weights
+    cpu = init_weights(build(), torch.Generator().manual_seed(0)).eval()
+    card = copy.deepcopy(cpu).to(dev).eval()
+    x = torch.randn(shape, generator=torch.Generator().manual_seed(2))
+    x_d = x.to(dev)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        outs = card(x_d)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2 ** 30
+        refs = cpu(x[:1])
+        errs = [rel_l2(o[:1], r) for o, r in zip(outs, refs)]
+        run = functools.partial(card, x_d)
+        ms = cuda_ms(run, warmup=2, repeat=10)
+        counter = flop_counts.count_step(run)
+    t = counter.totals()
+    peak_share, hbm_share = flop_counts.share(counter, ms)
+    log(f"{label} {name} B={shape[0]} on {shape[1]} x {shape[2]}: "
+        f"{ms:.3f} ms, peak memory {peak:.2f} GiB; outputs "
+        f"{[tuple(o.shape[1:]) for o in outs]}; sample 0 card vs CPU "
+        f"relative L2 {max(errs):.2e} at worst (tolerance {IMAGE_REL:g}); "
+        f"{t['flops'] / 1e9:.2f} GFLOP, {peak_share:.4f} of the fp32 peak, "
+        f"{hbm_share:.4f} of HBM [{smi}]")
+    if max(errs) > IMAGE_REL or not all(o.isfinite().all() for o in outs):
+        raise AssertionError(f"{label}: {name} differs card vs CPU")
+    return card, x_d, outs
+
+
+def phase_image(dev, smi):
+    """Phase 79: ResNet-50 + FPN as in faster_rcnn_r50_fpn_1x.py on a
+    (2, 384, 1248, 3) KITTI image, SENet-50 at the same input, SSDVGG300
+    at B=8 (image_case each), then one training step of ResNet-50 + FPN:
+    the frozen stem and stage 1 get no gradient, every other parameter a
+    finite one, and under norm_eval no running statistic moves."""
+    from det3d_tpu_torch.models.image_backbones import SENet, SSDVGG
+    label = "phase 79"
+    shape = (IMAGE_B,) + IMAGE_HW + (3,)
+    model, x, outs = image_case(dev, "ResNet-50 + FPN", ResNetFPN, shape,
+                                smi, label)
+    want = [(IMAGE_HW[0] // s, IMAGE_HW[1] // s, 256)
+            for s in (4, 8, 16, 32)]
+    want.append(((want[-1][0] + 1) // 2, (want[-1][1] + 1) // 2, 256))
+    if [tuple(o.shape[1:]) for o in outs] != want:
+        raise AssertionError(f"{label}: FPN shapes {outs}")
+    del outs
+    image_case(dev, "SENet-50", lambda: SENet(depth=50), shape, smi, label)
+    ssd = image_case(dev, "SSDVGG300", lambda: SSDVGG(input_size=300),
+                     (SSD_B, 300, 300, 3), smi, label)[2]
+    if [o.shape[1] for o in ssd] != [38, 19, 10, 5, 3, 1]:
+        raise AssertionError(f"{label}: SSD300 pyramid {ssd}")
+
+    before = {k: b.clone() for k, b in model.named_buffers()}
+    model.train()
+
+    def train_step():
+        model.zero_grad(set_to_none=True)
+        sum((o * o).mean() for o in model(x)).backward()
+
+    train_step()
+    frozen = ("backbone.Conv_0.", "backbone.MaskedBatchNorm_0.") + tuple(
+        f"backbone.{n}." for n in model.backbone.stages[0])
+    params = dict(model.named_parameters())
+    bad = [k for k, p in params.items()
+           if k.startswith(frozen) != (p.grad is None)
+           or (p.grad is not None and not p.grad.isfinite().all())]
+    moved = [k for k, b in model.named_buffers()
+             if not torch.equal(b, before[k])]
+    ms = cuda_ms(train_step, warmup=1, repeat=5)
+    n_frozen = sum(k.startswith(frozen) for k in params)
+    log(f"{label} ResNet-50 + FPN training step B={IMAGE_B}: {ms:.3f} ms; "
+        f"{n_frozen} parameters of the stem and stage 1 without a "
+        f"gradient, the other {len(params) - n_frozen} with a finite one; "
+        f"running statistics moved: {len(moved)} (norm_eval) [{smi}]")
+    if bad or moved:
+        raise AssertionError(f"{label}: frozen stages or norm_eval broken: "
+                             f"{bad[:4]} {moved[:4]}")
+
+
+def phase_visualization(dev, smi):
+    """Phase 80: the flagship's captured predict step at B=8 (weights from
+    init_weights, the NMS kernel's launches counted during its capture),
+    its detections on scan 0 drawn by simplevis.kitti_vis through cv2
+    where the host has it and through the numpy rasterizer, the scan and
+    boxes written by viewer3d.export_ply, and netviz.summarize of the
+    detector, whose total must equal its parameters' count. Returns the
+    JSON line's entry of the NMS kernel on this path ("flagship_vis")."""
+    import tempfile
+    from det3d_tpu_torch.apis.flagship import PC_RANGE
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.parallel.predict import make_predict_step
+    from det3d_tpu_torch.utils.synth import structured_batch
+    from det3d_tpu_torch.visualization import netviz, simplevis, viewer3d
+    label = "phase 80"
+    model, vg, asg, cids, test_cfg = flagship_stack(dev)
+    step = make_predict_step(model, vg, asg, cids, test_cfg)
+    batch = structured_batch(B, POINTS, PC_RANGE, seed=SEED)
+    rotated_nms_keep.launches = 0
+    out = step(batch)
+    launches = rotated_nms_keep.launches
+    ms = cuda_ms(lambda: step(batch), warmup=1, repeat=5)
+    counter = flop_counts.count_step(lambda: step.eager(batch), model)
+    peak_share, hbm_share = flop_counts.share(counter, ms)
+    t = counter.totals()
+    valid = out["valid"][0].cpu().numpy()
+    boxes = out["box3d_lidar"][0].cpu().numpy()[valid]
+    pts = batch["points"][0, :int(batch["num_points"][0])]
+    log(f"{label} flagship captured predict B={B}: {ms:.3f} ms a call, "
+        f"{int(valid.sum())} detections on scan 0, NMS launches during the "
+        f"first call (warm-up and capture) {launches}; {t['flops'] / 1e9:.3f}"
+        f" GFLOP, {peak_share:.4f} of the fp32 peak, {hbm_share:.4f} of HBM "
+        f"[{smi}]")
+    if not len(boxes) or launches < 1:
+        raise AssertionError(f"{label}: no detections or no NMS launch")
+    canvases, host = {}, {}
+    has_cv2 = simplevis._HAS_CV2
+    for name, on in (("cv2", has_cv2), ("numpy", False)):
+        if name == "cv2" and not has_cv2:
+            continue
+        simplevis._HAS_CV2 = on
+        t0 = time.perf_counter()
+        canvases[name] = simplevis.kitti_vis(pts, det_boxes=boxes,
+                                             pc_range=PC_RANGE)
+        host[name] = (time.perf_counter() - t0) * 1e3
+    simplevis._HAS_CV2 = has_cv2
+    with tempfile.TemporaryDirectory() as tmp:
+        ply = Path(tmp) / "scan0.ply"
+        t0 = time.perf_counter()
+        viewer3d.export_ply(ply, pts, det_boxes=boxes)
+        ply_ms = (time.perf_counter() - t0) * 1e3
+        ply_bytes = ply.stat().st_size
+        header = ply.read_text().splitlines()[2]
+        for name, canvas in canvases.items():
+            np.save(Path(tmp) / f"bev_{name}.npy", canvas)
+    drawn = {k: int((c == (0, 128, 255)).all(-1).sum())
+             for k, c in canvases.items()}
+    table = netviz.summarize(model)
+    total = sum(p.numel() for p in model.parameters())
+    listed = int(table.splitlines()[-1].split()[-1].replace(",", ""))
+    log(f"{label} kitti_vis canvases {canvases['numpy'].shape}: detection "
+        f"pixels {drawn}, host ms {host} (cv2 on this host: {has_cv2}); "
+        f"export_ply {ply_bytes} bytes ({header}), {ply_ms:.1f} ms; "
+        f"netviz.summarize total {listed:,} = the parameters' count "
+        f"{total:,}: {listed == total}")
+    log(table)
+    if (not all(drawn.values()) or ply_bytes == 0
+            or header != f"element vertex {len(pts) + 8 * len(boxes)}"
+            or listed != total):
+        raise AssertionError(f"{label}: visualization output wrong")
+    nms = nms_entry(step_nms_inputs(lambda: step.eager(batch)), label, smi)
+    return dict(name="rotated_nms_keep", route="cuda",
+                source="det3d_tpu_torch/csrc/rotated_nms.cu",
+                replaces="det3d_tpu/ops/nms_pallas.py:90", library_ms=None,
+                path="flagship_vis", launches=launches, max_abs_err=0.0,
+                ms=nms["ms"], device_ms=nms["device"], plain_ms=nms["plain"],
+                bound_ms=nms["bound_ms"], bound_by=nms["bound_by"])
+
+
+def experiments_phases(dev, smi):
+    """Phases 77-80. Returns the JSON line's entries of their paths (the
+    NMS kernel on phase 80's flagship step; phases 77-79 launch neither
+    kernel)."""
+    from det3d_tpu_torch.ops.nms_cuda import rotated_nms_keep
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv
+    t0 = time.perf_counter()
+    out = {}
+    for phase, run in ((77, lambda: phase_pointnet2(dev, smi)),
+                       (78, lambda: phase_temporal(dev, smi)),
+                       (79, lambda: phase_image(dev, smi)),
+                       (80, lambda: phase_visualization(dev, smi))):
+        t = time.perf_counter()
+        if phase < 80:
+            rotated_nms_keep.launches = window_conv.launches = 0
+        out[phase] = run()
+        if phase < 80 and (rotated_nms_keep.launches or window_conv.launches):
+            raise AssertionError(f"phase {phase} launched a kernel")
+        log(f"phase {phase} took {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"phases 77-80 took {time.perf_counter() - t0:.1f} s")
+    return [out[80]]
+
+
 def use_tree(tree):
     """Import det3d_tpu_torch from the checkout at ``tree`` (this one when
     None): its modules, imported with this script's bound rules
@@ -6825,14 +7477,14 @@ def main():
                     help="time only the device voxels and plan (phase 47) "
                     "on these paths' bench batches")
     ap.add_argument("--only", choices=("points", "train", "data", "nusc",
-                                       "dist", "variants"),
+                                       "dist", "variants", "experiments"),
                     help="run phase 1, the build and only phases 51-52 "
                     "(Lyft and KITTI-all from points and under TTA), "
                     "only the training phases 53-62, only the data, "
                     "trainer and evaluation phases 63-66, only the "
                     "nuScenes, Lyft and CLI phases 67-70, only the "
-                    "ranks' phases 71-72 or only the variants' phases "
-                    "73-76")
+                    "ranks' phases 71-72, only the variants' phases "
+                    "73-76 or only the last modules' phases 77-80")
     ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
                     "--build-timing: the checkout whose det3d_tpu_torch to "
                     "time (default: this one)")
@@ -6874,6 +7526,15 @@ def main():
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
         return 0
+    if args.only == "experiments":
+        kernels = experiments_phases(dev, smi)
+        log(f"the last modules' phases took {time.perf_counter() - t0:.1f} "
+            f"s with the build")
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
     if args.only == "dist":
         dist_phases(dev, smi)
         log(f"the ranks' phases took {time.perf_counter() - t0:.1f} s with "
@@ -6904,6 +7565,9 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     kernels += variants_phases(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels += experiments_phases(dev, smi)
     log(f"chip_smoke took {time.perf_counter() - t0:.1f} s after the "
         f"device check, the kernels' build included")
     print(json.dumps({"kernels": kernels}), flush=True)

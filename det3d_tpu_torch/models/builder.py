@@ -1,7 +1,10 @@
 """Build models from reference-schema config dicts; random weights.
 
-Port of det3d_tpu/models/builder.py::build_detector over the port's own
-registries.
+Port of det3d_tpu/models/builder.py over the port's own registries:
+``build_reader``, ``build_backbone``, ``build_neck``, ``build_head`` and
+``build_loss`` build one part from its config, and ``build_detector``
+builds a detector through them. Importing this module registers every
+part, the image backbones and FPN included.
 """
 
 from __future__ import annotations
@@ -17,10 +20,12 @@ from det3d_tpu_torch.core.anchors import build_box_coder
 from det3d_tpu_torch.models import backbones as _backbones  # noqa: F401
 from det3d_tpu_torch.models import detectors as _detectors  # noqa: F401
 from det3d_tpu_torch.models import heads as _heads  # noqa: F401
+from det3d_tpu_torch.models import image_backbones as _img  # noqa: F401
 from det3d_tpu_torch.models import necks as _necks  # noqa: F401
 from det3d_tpu_torch.models import readers as _readers  # noqa: F401
 from det3d_tpu_torch.models import second_stage as _second  # noqa: F401
 from det3d_tpu_torch.models.backbones import DenseConvBN, SparseConvBN
+from det3d_tpu_torch.models.losses import build_loss  # noqa: F401
 from det3d_tpu_torch.models.norm import MaskedBatchNorm
 from det3d_tpu_torch.models.registry import (BACKBONES, DETECTORS, HEADS,
                                              NECKS, READERS)
@@ -35,6 +40,25 @@ def _clean(cfg: dict) -> dict:
     return cfg
 
 
+def build_reader(cfg, **default_args):
+    return build_from_cfg(_clean(cfg), READERS, default_args or None)
+
+
+def build_backbone(cfg, **default_args):
+    return build_from_cfg(_clean(cfg), BACKBONES, default_args or None)
+
+
+def build_neck(cfg, **default_args):
+    return build_from_cfg(_clean(cfg), NECKS, default_args or None)
+
+
+def build_head(cfg, **default_args):
+    cfg = _clean(cfg)
+    if isinstance(cfg.get("box_coder"), dict):
+        cfg["box_coder"] = build_box_coder(cfg["box_coder"])
+    return build_from_cfg(cfg, HEADS, default_args or None)
+
+
 def build_detector(cfg, train_cfg: Optional[dict] = None,
                    test_cfg: Optional[dict] = None, grid_size=None):
     """Build a detector from a reference-schema model config. grid_size is
@@ -42,14 +66,10 @@ def build_detector(cfg, train_cfg: Optional[dict] = None,
     cfg = dict(cfg)
     det_type = cfg.pop("type")
     cfg.pop("pretrained", None)
-    reader = build_from_cfg(_clean(cfg.pop("reader")), READERS)
-    backbone = build_from_cfg(_clean(cfg.pop("backbone")), BACKBONES)
-    neck = (build_from_cfg(_clean(cfg.pop("neck")), NECKS)
-            if "neck" in cfg else None)
-    head_cfg = _clean(cfg.pop("bbox_head"))
-    if isinstance(head_cfg.get("box_coder"), dict):
-        head_cfg["box_coder"] = build_box_coder(head_cfg["box_coder"])
-    head = build_from_cfg(head_cfg, HEADS)
+    reader = build_reader(cfg.pop("reader"))
+    backbone = build_backbone(cfg.pop("backbone"))
+    neck = build_neck(cfg.pop("neck")) if "neck" in cfg else None
+    head = build_head(cfg.pop("bbox_head"))
 
     det_cls = DETECTORS.get(det_type)
     if det_cls is None:

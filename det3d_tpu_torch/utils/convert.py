@@ -16,8 +16,11 @@ that flax's variables become under ``np.asarray`` and returns the port's
 
 flax names a module's BatchNorms by call order (``MaskedBatchNorm_<n>``);
 a layer's own one is the port's ``norm``, except in a module whose Dense
-layers flax names by call order too (``Dense_<n>``: PointModule, RegHead),
-which the port names as flax does. The RPN's call order is block i's down
+or Conv layers flax names by call order too (``Dense_<n>``, ``Conv_<n>``:
+PointModule, RegHead, the PointNet++ SharedMLP, the image backbones'
+blocks and stems), which the port names as flax does. L2Norm's ``gamma``
+carries over as it is; a grouped conv's HWIO kernel (kh, kw, Cin/g, Cout)
+becomes OIHW (Cout, Cin/g, kh, kw) as any other. The RPN's call order is block i's down
 conv, its convs, then its upsample branch, which the port names
 ``block{i}_down_bn``, ``block{i}_conv{j}_bn`` and ``deblock{k}_bn``.
 SpMiddleFHDNobn nests an SpMiddleFHD (``SpMiddleFHD_0``), whose layers
@@ -82,8 +85,8 @@ def _kernel(path, w):
 
 def from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     """Map flax ``params`` / ``batch_stats`` of a PointPillars or VoxelNet
-    detector, or of one of its modules, to the port's state_dict (float32
-    CPU tensors)."""
+    detector, or of one of its modules (the PointNet++, temporal and image
+    modules too), to the port's state_dict (float32 CPU tensors)."""
     flat_p = _flatten(params)
     flat_s = _flatten(batch_stats)
     bn_rename = {}
@@ -92,7 +95,8 @@ def from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
             bn_rename[("neck", f"MaskedBatchNorm_{n}")] = ("neck", name)
 
     # modules whose layers keep flax's call-order names
-    flax_named = {path[:-2] for path in flat_p if path[-2] == "Dense_0"}
+    flax_named = {path[:-2] for path in flat_p
+                  if path[-2] in ("Dense_0", "Conv_0")}
 
     def rename(path):
         # path without the leaf name
