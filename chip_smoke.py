@@ -3,6 +3,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-timing [--path second lyft kitti_all]
                           [--prec bf16|fp32] [--tree DIR]
+    python3 chip_smoke.py --bwd-timing [--path second cbgs lyft]
+                          [--tree DIR]
     python3 chip_smoke.py --nms-timing [--tree DIR]
     python3 chip_smoke.py --build-timing PATH [PATH ...] [--tree DIR]
     python3 chip_smoke.py --only points|train|data|nusc|dist|variants
@@ -11,21 +13,25 @@
 The second form runs phase 1 and, for each path named (SECOND's by
 default), its host plan and the window-conv timing of phase 11 (30, 35)
 on it: bf16 on SECOND's plan and fp32 on Lyft's and KITTI-all's unless
---prec says otherwise. The third runs phases 1 and 13 without the steps'
-inputs (the NMS kernel at the flagship's N=8 K=1000 at 0.5, SECOND's N=2
-K=1000 at 0.01 and one cluster: a call from Python, the device time by
-graph_ms, each of the tree's NMS kernels by name under torch.profiler).
-The fourth runs phase 1 and phase 47's timing of the device voxels and
-plan on the named paths' bench batches (second, kitti_all, cbgs, lyft),
-with their kernels' device time by name under torch.profiler.
-They import det3d_tpu_torch from the checkout at DIR (by default this
-one): run them on two checkouts in turns on one card (parent, change,
-change, parent) to compare two versions of a kernel on the same
-yardsticks. The fifth runs phases 1 and 2 and only phases 51-52 (Lyft
-and KITTI-all from points and under TTA), only the training phases
-53-62, only the data, trainer and evaluation phases 63-66, only the
-nuScenes, Lyft and CLI phases 67-70, only the ranks' phases 71-72,
-only the variants' phases 73-76 or (the sixth form) only the last
+--prec says otherwise. The third runs phase 1 and, for each path named
+(SECOND's, CBGS's and Lyft's by default), its host training plan and
+phase 58 on it (bwd_timing_main): the window conv's backward kernels
+against their twins, their times, bounds and shares of the bound, and
+the im2col+mm yardsticks. The fourth runs phases 1 and 13 without the
+steps' inputs (the NMS kernel at the flagship's N=8 K=1000 at 0.5,
+SECOND's N=2 K=1000 at 0.01 and one cluster: a call from Python, the
+device time by graph_ms, each of the tree's NMS kernels by name under
+torch.profiler). The fifth runs phase 1 and phase 47's timing of the
+device voxels and plan on the named paths' bench batches (second,
+kitti_all, cbgs, lyft), with their kernels' device time by name under
+torch.profiler. They import det3d_tpu_torch from the checkout at DIR
+(by default this one): run them on two checkouts in turns on one card
+(parent, change, change, parent) to compare two versions of a kernel on
+the same yardsticks. The sixth runs phases 1 and 2 and only phases
+51-52 (Lyft and KITTI-all from points and under TTA), only the training
+phases 53-62, only the data, trainer and evaluation phases 63-66, only
+the nuScenes, Lyft and CLI phases 67-70, only the ranks' phases 71-72,
+only the variants' phases 73-76 or (the seventh form) only the last
 modules' phases 77-80 (these two forms end with the JSON lines too).
 
 The first form drives the port's seven serving paths through the entry
@@ -309,8 +315,11 @@ captured. Phases 39-46 drive the captured step itself.
      300000) middles, on their host training plans: dW
      (csrc/window_conv_bwd.cu) within 1e-4 and bit-equal on a second
      call, the subm dX (the forward kernel, mirrored and transposed
-     weights) and the strided dX over the inverse rulebook within 1e-4;
-     each one's time a call, on the device, the twin's, and its bound;
+     weights) within 1e-4, the strided dX over the inverse rulebook
+     within 1e-4 and bit-equal on a second call; each one's time a call,
+     on the device, the twin's, its bound (each input read once, each
+     output written once) and share of it, and the im2col+mm yardstick's
+     device time; the backward kernels' registers and spills once;
  59. training plans: host_plan_fn(train=True) equal to the numpy build
      and to the device voxels and build_plan_device(train=True) on the
      card, key for key (the inverse rulebooks inv{i} among them);
@@ -3857,21 +3866,113 @@ def bwd_cases(plan, dev, layers):
     return out
 
 
-def bwd_work(x, pk, w, subm, dy, words, dw_ws):
+def bwd_work(x, pk, w, subm, dy, words):
     """(bytes, flops) of each backward path at one layer: the forward's
-    products (conv_work) over the same (row, tap) pairs; bytes: dW reads
-    the rows the taps reach, the plan and dy (the forward's output size)
-    and writes dW (the weights' size), and its workspace (``dw_ws`` bytes)
-    once each way: conv_work's bytes plus the workspace; dX reads dy, its
-    rulebook's ``words`` (the inverse's for a strided conv) and the
-    weights and writes dX."""
+    products (conv_work) over the same (row, tap) pairs; bytes, each input
+    read once and each output written once, whatever the kernel keeps
+    between its passes: dW reads the rows the taps reach, the plan and dy
+    (the forward's output size) and writes dW (the weights' size):
+    conv_work's bytes; dX reads dy, its rulebook's ``words`` (the
+    inverse's for a strided conv) and the weights and writes dX."""
     nbytes, flops, _ = conv_work(x, pk, w, subm)
     dx = (dy.numel() * 4 + words.numel() * 4 + w.numel() * 4
           + x.numel() * 4)
-    return {"dw": (nbytes + 2 * dw_ws, flops), "dx": (dx, flops)}
+    return {"dw": (nbytes, flops), "dx": (dx, flops)}
 
 
-def phase_bwd_kernels(dev, plan, layers, label, smi):
+def _gather_width(c):
+    """Row width of an im2col gather of c fp32 channels: 2 zero channels
+    more where a row is a multiple of 16 bytes (im2col_matmul, gather_ms:
+    index_select of such rows is an order of magnitude slower)."""
+    return c + (2 if c % 4 == 0 else 0)
+
+
+def dw_im2col_mm(x, pk, dy, subm):
+    """Phase 58's dW yardstick, which the port never calls: every output
+    row's kz*K taps gathered into an im2col matrix (B*O, kvol*Cin), a zero
+    row where a tap reads none, and one torch.mm of its transpose with dY
+    (B*O, Cout), fp32. Returns fn() -> (kvol, Cin, Cout); the gather index
+    is made once, outside fn, as a plan would hold it."""
+    b, v, cin = x.shape
+    o = pk.shape[1]
+    cout = dy.shape[-1]
+    rows, sel = tap_rows(pk, v, subm)                  # (B, O, K, kz)
+    kvol = rows.shape[2] * rows.shape[3]
+    base = torch.arange(b, device=rows.device).view(b, 1, 1, 1) * (v + 1)
+    idx = torch.where(sel, base + rows, base + v).transpose(2, 3).reshape(-1)
+    width = _gather_width(cin)
+    xpad = x.new_zeros(b, v + 1, width)
+    xpad[:, :v, :cin] = x
+    xpad = xpad.reshape(b * (v + 1), width)
+    dyf = dy.reshape(b * o, cout)
+
+    def fn():
+        cols = xpad.index_select(0, idx).view(b * o, kvol * width)
+        return torch.mm(cols.t(), dyf).view(kvol, width, cout)[:, :cin]
+    return fn
+
+
+def inv_im2col_mm(dy, inv, w, kernel, stride):
+    """Phase 58's inverse-dX yardstick, which the port never calls: every
+    input row's kvol taps' dY rows gathered into (B*V, kvol*Cout), a zero
+    row where the tap's parity does not match the row's or its candidate
+    is absent (window_conv_inv_ref's rules), and one torch.mm with the
+    stacked W^T (kvol*Cout, Cin), fp32. Returns fn() -> (B, V, Cin)."""
+    from det3d_tpu_torch.ops.sparse import ncand_of, unpack_inverse
+    b, o, cout = dy.shape
+    kvol, cin, _ = w.shape
+    v = inv.shape[1]
+    nc = ncand_of(kernel, stride)
+    r0i, presi, par = unpack_inverse(inv, nc[0])
+    r0c = torch.clamp(r0i, max=max(o - 1, 0))
+    base = torch.arange(b, device=inv.device).view(b, 1) * (o + 1)
+    ky, kx = kernel[1], kernel[2]
+    idx = []
+    for kk in range(kvol):
+        j = (kk // (ky * kx), (kk // kx) % ky, kk % kx)
+        cz, cy, cx = (j[d] // stride[d] for d in range(3))
+        ci, m = cy * nc[2] + cx, nc[0] - 1 - cz
+        row = r0c[..., ci] + presi[..., ci, :m].sum(-1)
+        ok = presi[..., ci, m] & (row < o)
+        for d in range(3):
+            ok = ok & (par[..., d] == j[d] % stride[d])
+        idx.append(torch.where(ok, base + row, base + o))
+    idx = torch.stack(idx, -1).reshape(-1)
+    width = _gather_width(cout)
+    dypad = dy.new_zeros(b, o + 1, width)
+    dypad[:, :o, :cout] = dy
+    dypad = dypad.reshape(b * (o + 1), width)
+    wst = w.new_zeros(kvol, width, cin)
+    wst[:, :cout] = w.transpose(1, 2)
+    wst = wst.reshape(kvol * width, cin)
+
+    def fn():
+        cols = dypad.index_select(0, idx).view(b * v, kvol * width)
+        return torch.mm(cols, wst).view(b, v, cin)
+    return fn
+
+
+_BWD_PTXAS = []       # phase 58 prints the backward kernels' ptxas once
+
+
+def bwd_ptxas(label):
+    """The backward kernels' registers and spills (nvcc -Xptxas -v, kept
+    beside the library), once a process."""
+    from det3d_tpu_torch import csrc
+    if _BWD_PTXAS:
+        return
+    _BWD_PTXAS.append(label)
+    csrc.load("window_conv_bwd")                   # builds it, with its log
+    logf = csrc.build_log("window_conv_bwd")
+    report = ptxas_report(logf.read_text()) if logf.is_file() else {}
+    for kern, (regs, st, ld) in sorted(report.items()):
+        log(f"{label} ptxas window_conv_bwd: {kern}: {regs} registers, "
+            f"spill stores {st} B, spill loads {ld} B")
+    if not report:
+        log(f"{label} ptxas window_conv_bwd: no -Xptxas -v output kept")
+
+
+def phase_bwd_kernels(dev, plan, layers, label, smi, yard=False):
     """Phase 58: the backward kernels against their plain twins on a
     training plan, at every conv of a sparse middle: dW (window_conv_dw,
     both conv kinds) within BWD_TOL of window_conv_dw_ref (dy scaled by
@@ -3879,23 +3980,26 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
     call; dX of the subm convs after the stem (window_conv_subm_dx, the
     forward kernel) within BWD_TOL of window_conv_ref with mirrored,
     transposed weights; dX of the strided convs (window_conv_inv) within
-    BWD_TOL of window_conv_inv_ref. Each kernel's time: a call from Python
-    (cuda_ms), on the device (graph_ms), the twin's, and the bound.
-    Returns {kernel: {"err", "ms", "device", "plain", "bound_ms",
-    "bound_by"}} summed over the layers."""
+    BWD_TOL of window_conv_inv_ref and bit-equal on a second call. Each
+    kernel's time: a call from Python (cuda_ms), on the device (graph_ms),
+    the twin's, the bound and the share of it; with ``yard`` also the
+    im2col + torch.mm yardstick's device time (dw_im2col_mm,
+    inv_im2col_mm; held to the twin within BWD_TOL). The backward kernels'
+    registers and spills once (bwd_ptxas). Returns {kernel: {"err", "ms",
+    "device", "plain", "yard", "bound_ms", "bound_by"}} summed over the
+    layers."""
     from det3d_tpu_torch.ops import sparse as sp
     from det3d_tpu_torch.ops.window_conv_cuda import (
-        dw_chunks, window_conv_dw, window_conv_inv, window_conv_subm_dx)
+        window_conv_dw, window_conv_inv, window_conv_subm_dx)
+    bwd_ptxas(label)
     tot = {k: {"err": 0.0, "ms": 0.0, "device": 0.0, "plain": 0.0,
-               "bytes": 0, "flops": 0} for k in ("dw", "subm_dx", "inv")}
+               "yard": 0.0, "bytes": 0, "flops": 0}
+           for k in ("dw", "subm_dx", "inv")}
     for name, x, pk, w, subm, inv, dy in bwd_cases(plan, dev, layers):
         b, o, k = pk.shape
         r0, pres = sp.unpack_windows(pk, 3)
         dys = dy / (b * o) ** 0.5
-        kvol = w.shape[0]
-        nch = -(-b * o // dw_chunks(b * o, kvol))
-        work = bwd_work(x, pk, w, subm, dy, pk if subm else inv,
-                        nch * w.numel() * 4)
+        work = bwd_work(x, pk, w, subm, dy, pk if subm else inv)
         got = window_conv_dw(x, pk, dys, subm)
         again = window_conv_dw(x, pk, dys, subm)
         ref = sp.window_conv_dw_ref(x, r0, pres, dys, subm)
@@ -3908,7 +4012,8 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
                                  f"calls")
         runs = [("dw", lambda: window_conv_dw(x, pk, dys, subm),
                  lambda: sp.window_conv_dw_ref(x, r0, pres, dys, subm),
-                 err, work["dw"])]
+                 (lambda: dw_im2col_mm(x, pk, dys, subm)) if yard else None,
+                 err, ref, work["dw"])]
         if subm and w.shape[1] >= 16:
             wt = w.flip(0).transpose(1, 2).contiguous()
             got = window_conv_subm_dx(dy, pk, w)
@@ -3916,17 +4021,25 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
             kind = "subm_dx"
             plain = (lambda: sp.window_conv_ref(dy, r0, pres, wt, True))
             fn = (lambda: window_conv_subm_dx(dy, pk, w))
+            make_yard = None
         elif not subm:
             v = x.shape[1]
             geo = ((3, 3, 3) if k == 9 else (3, 1, 1),
                    (2, 2, 2) if k == 9 else (2, 1, 1))
             r0i, presi, par = sp.unpack_inverse(inv, 2)
             got = window_conv_inv(dy, inv, w, *geo, v)
+            again = window_conv_inv(dy, inv, w, *geo, v)
             ref = sp.window_conv_inv_ref(dy, r0i, presi, par, w, *geo)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label} {name}: inverse dX differs "
+                                     f"between two calls")
             kind = "inv"
             plain = (lambda: sp.window_conv_inv_ref(dy, r0i, presi, par, w,
                                                     *geo))
             fn = (lambda: window_conv_inv(dy, inv, w, *geo, v))
+            make_yard = ((lambda: inv_im2col_mm(dy, inv, w, *geo))
+                         if yard else None)
         else:
             kind = None
         if kind:
@@ -3937,12 +4050,24 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
             if not torch.allclose(got, ref, **BWD_TOL):
                 raise AssertionError(f"{label} {name}: {kind} kernel vs "
                                      f"plain {e}")
-            runs.append((kind, fn, plain, e, work["dx"]))
-        for kind, fn, plain, e, (nbytes, flops) in runs:
+            runs.append((kind, fn, plain, make_yard, e, ref, work["dx"]))
+        for kind, fn, plain, make_yard, e, ref, (nbytes, flops) in runs:
             t = tot[kind]
             ms, dev_ms = cuda_ms(fn), graph_ms(fn)
             p_ms = cuda_ms(plain, warmup=1, repeat=3)
             b_ms, b_by = bound(nbytes, flops, FP32_FLOPS)
+            y_txt = ""
+            if make_yard is not None:
+                yfn = make_yard()
+                y_err = float((yfn() - ref).abs().max())
+                if not torch.allclose(yfn(), ref, **BWD_TOL):
+                    raise AssertionError(f"{label} {name}: {kind} im2col+mm "
+                                         f"vs plain {y_err}")
+                y_ms = graph_ms(yfn)
+                t["yard"] += y_ms
+                y_txt = (f", im2col+mm {y_ms:.4f} ms on the device (max abs "
+                         f"err {y_err:.2e}; never called by the port)")
+                del yfn
             t["err"] = max(t["err"], e)
             t["ms"] += ms
             t["device"] += dev_ms
@@ -3951,10 +4076,12 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
             t["flops"] += flops
             log(f"{label} {kind} {name} B={b} O={o}: kernel vs plain max "
                 f"abs err {e:.2e} (tolerance {BWD_TOL})"
-                + (", bit-equal on a second call" if kind == "dw" else "")
+                + (", bit-equal on a second call" if kind != "subm_dx"
+                   else "")
                 + f"; a call {ms:.4f} ms, on the device {dev_ms:.4f} ms, "
                 f"plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB) [{smi}]")
+                f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), "
+                f"{b_ms / dev_ms:.3f} of the bound" + y_txt + f" [{smi}]")
     for kind, t in tot.items():
         ran = t["bytes"] > 0            # the stem alone runs dW only
         t["bound_ms"], t["bound_by"] = bound(t.pop("bytes"), t.pop("flops"),
@@ -3963,8 +4090,11 @@ def phase_bwd_kernels(dev, plan, layers, label, smi):
             continue
         log(f"{label} {kind} over the middle's layers: a call {t['ms']:.4f} "
             f"ms, device {t['device']:.4f} ms, plain {t['plain']:.3f} ms, "
-            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max abs err "
-            f"{t['err']:.2e} [{smi}]")
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+            f"{t['bound_ms'] / t['device']:.3f} of the bound, max abs err "
+            f"{t['err']:.2e}"
+            + (f", im2col+mm {t['yard']:.4f} ms on the device"
+               if t["yard"] else "") + f" [{smi}]")
     return tot
 
 
@@ -4224,7 +4354,7 @@ def sparse_training_phases(dev, smi):
         scene = sparse_train_scene(key, b, pc, points)
         data = with_train_plan(key, scene)
         kern[key] = phase_bwd_kernels(dev, data, layers[key],
-                                      f"phase 58 {name}", smi)
+                                      f"phase 58 {name}", smi, yard=True)
         phase_train_plans(dev, key, name, scene, data)
         cut = None
         if key == "cbgs":
@@ -7149,6 +7279,39 @@ def conv_timing_main(tree, prec, paths):
     return 0
 
 
+def bwd_timing_main(tree, paths):
+    """--bwd-timing: phase 1, then for each of ``paths`` its host training
+    plan (the tree's host_plan_fn(train=True)) and phase 58's checks and
+    timing of the backward kernels on it (phase_bwd_kernels, with the
+    im2col+mm yardsticks), with det3d_tpu_torch imported from ``tree``:
+    SECOND (B=4 x 16384 points) and CBGS (B=2 x 300000) on phase 58's
+    scenes, Lyft on its bench scans (B=2 x 300000 points over +-100.8 m)
+    at its Cin-6 stem (LYFT_TRAIN_LAYERS)."""
+    use_tree(tree)
+    smi = phase_device()
+    import det3d_tpu_torch
+    log(f"backward timing of {Path(det3d_tpu_torch.__file__).parent}")
+    dev = torch.device("cuda", 0)
+    layers = {"second": SECOND_LAYERS, "cbgs": CBGS_LAYERS,
+              "lyft": LYFT_TRAIN_LAYERS}
+    sizes = {key: (b, points) for key, _, b, points in SPARSE_TRAIN}
+    for key in paths:
+        if key == "lyft":
+            data = with_train_plan(None, LYFT.scans(LYFT.b, LYFT.points),
+                                   cfg=LYFT.config())
+        else:
+            pc = train_config(key)["voxel_generator"]["range"]
+            b, points = sizes[key]
+            data = with_train_plan(key, sparse_train_scene(key, b, pc,
+                                                           points))
+        phase_bwd_kernels(dev, data, layers[key], f"bwd-timing {key}", smi,
+                          yard=True)
+        del data
+        gc.collect()
+        torch.cuda.empty_cache()
+    return 0
+
+
 def build_timing_main(tree, paths):
     """--build-timing: phase 1, then phase 47's timing of the device voxels
     and plan (build_times) on each path's bench batch, with
@@ -7466,10 +7629,15 @@ def main():
     ap.add_argument("--prec", choices=("bf16", "fp32"),
                     help="with --conv-timing: the operands' type (default: "
                     "bf16 on SECOND's plan, fp32 on Lyft's and KITTI-all's)")
-    ap.add_argument("--path", nargs="+", default=["second"],
-                    choices=("second", "lyft", "kitti_all"),
+    ap.add_argument("--path", nargs="+",
+                    choices=("second", "cbgs", "lyft", "kitti_all"),
                     help="with --conv-timing: whose host plans and layers "
-                    "(default: second)")
+                    "(second, lyft, kitti_all; default: second); with "
+                    "--bwd-timing: whose training plans and layers (second, "
+                    "cbgs, lyft; default: all three)")
+    ap.add_argument("--bwd-timing", action="store_true",
+                    help="time only the window conv's backward kernels "
+                    "(phase 58) on the training plans of --path")
     ap.add_argument("--nms-timing", action="store_true",
                     help="time only the rotated-NMS kernel (phase 13)")
     ap.add_argument("--build-timing", nargs="+",
@@ -7485,12 +7653,19 @@ def main():
                     "nuScenes, Lyft and CLI phases 67-70, only the "
                     "ranks' phases 71-72, only the variants' phases "
                     "73-76 or only the last modules' phases 77-80")
-    ap.add_argument("--tree", help="with --conv-timing, --nms-timing or "
-                    "--build-timing: the checkout whose det3d_tpu_torch to "
-                    "time (default: this one)")
+    ap.add_argument("--tree", help="with --conv-timing, --bwd-timing, "
+                    "--nms-timing or --build-timing: the checkout whose "
+                    "det3d_tpu_torch to time (default: this one)")
     args = ap.parse_args()
     if args.conv_timing:
-        return conv_timing_main(args.tree, args.prec, args.path)
+        if args.path and "cbgs" in args.path:
+            ap.error("--conv-timing takes --path second, lyft or kitti_all")
+        return conv_timing_main(args.tree, args.prec, args.path or ["second"])
+    if args.bwd_timing:
+        if args.path and "kitti_all" in args.path:
+            ap.error("--bwd-timing takes --path second, cbgs or lyft")
+        return bwd_timing_main(args.tree,
+                               args.path or ["second", "cbgs", "lyft"])
     if args.nms_timing:
         return nms_timing_main(args.tree)
     if args.build_timing:

@@ -12,17 +12,24 @@ Its backward (fp32 on the card; the JAX package's is XLA code):
 - dX of a submanifold conv (``center_shift``): ``window_conv_subm_dx``,
   the forward kernel over dY with the same words and the weights
   mirrored and transposed (the rulebook is its own transpose);
-- dX of a strided conv: ``window_conv_inv``, the kernel
-  ``window_conv_inv_kernel`` of ``csrc/window_conv_bwd.cu`` over the
-  conv's inverse rulebook (twin ``ops/sparse.py::window_conv_inv_ref``);
+- dX of a strided conv: ``window_conv_inv``, the kernels
+  ``window_conv_inv_count_kernel`` and ``window_conv_inv_kernel`` of
+  ``csrc/window_conv_bwd.cu`` over the conv's inverse rulebook, its rows
+  grouped by stride-parity class on the card (twin
+  ``ops/sparse.py::window_conv_inv_ref``);
   a strided conv without one (more than 2 output candidates a dim, or a
   plan built for serving) takes the flat per-tap backward,
   ``ops/sparse.py::window_to_flat`` and ``flat_conv_dx`` (a scatter-add
   over the taps in plain PyTorch, as the JAX package's VJP is XLA code);
 - dW of both: ``window_conv_dw``, the kernels ``window_conv_dw_kernel``
-  and ``window_conv_dw_sum_kernel`` of ``csrc/window_conv_bwd.cu`` (per
-  block partial sums, then a sum in a fixed order: no atomics, the same
-  bits every call; twin ``ops/sparse.py::window_conv_dw_ref``).
+  and ``window_conv_dw_sum_kernel`` of ``csrc/window_conv_bwd.cu`` (a
+  block per chunk of rows and tap, partial sums, then a sum in a fixed
+  order: no atomics, the same bits every call; twin
+  ``ops/sparse.py::window_conv_dw_ref``).
+  Both backward kernels run on the fp32 CUDA cores, and their schedules
+  are functions of the shapes alone; the CPU models below (dw_chunks,
+  dw_grid, dw_geometry, inv_geometry, inverse_classes, inverse_blocks)
+  are held to the kernels on the card and to JAX's plans on the CPU.
 
 dX is computed only where the features need a gradient (not the stem's
 VFE means). Each wrapper counts its launches (``.launches``); CPU
@@ -315,24 +322,171 @@ window_conv_subm_dx.launches = 0
 # ---------------------------------------------------------------------------
 # The backward kernels (csrc/window_conv_bwd.cu)
 # ---------------------------------------------------------------------------
+# The kernels' schedules are functions of the shapes alone. Their CPU
+# models below (dw_chunks, dw_chunk_rows, dw_grid, dw_geometry,
+# inv_geometry, inverse_classes, inverse_blocks) are what the tests hold
+# to the kernels' own (window_conv_dw_geometry, window_conv_inv_geometry)
+# and to the JAX package's training plans.
 
-# dW's first pass: about this many blocks a launch (kvol taps x row
-# chunks), rows per chunk a multiple of the kernel's 64-row tile
-DW_BLOCKS = 528
-DW_TILE = 64
+# dW's first pass: 256-row tiles, walked in segments of 8 by a block of
+# 256 threads that owns a chunk of them and one tap; about DW_BLOCKS
+# blocks a launch (chunks x taps)
+DW_TILE = 256
+DW_SEG_TILES = 8
+DW_BLOCKS = 864
+DW_MIN_PAIRS = 64                       # pairs a ring stage, at least
+DW_STAGES = 3                           # its cp.async ring depth
+DW_CENTER_SPLIT = 4                     # a subm conv's center tap: 4C chunks
+# the inverse dX: 1024-row count tiles, at most 256 rows a block
+INV_COUNT_ROWS = 1024
+INV_MAX_ROWS = 256
+INV_MAX_TAPS = 8
+_THREADS = 256
+_MAX_SMEM = 232448              # bytes a block may use on the H100
+_TWO_BLOCKS = 113 * 1024        # at most this a block for two an SM
 
 
 @functools.lru_cache(maxsize=None)
 def _bwd_lib():
     lib = csrc.load("window_conv_bwd")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.window_conv_dw_launch.argtypes = [p] * 4 + [i] * 10 + [p]
+    lib.window_conv_dw_launch.argtypes = [p] * 5 + [i] * 9 + [p]
     lib.window_conv_dw_launch.restype = i
-    lib.window_conv_dw_sum_launch.argtypes = [p, p, i, i, p]
-    lib.window_conv_dw_sum_launch.restype = i
-    lib.window_conv_inv_launch.argtypes = [p] * 4 + [i] * 12 + [p]
+    lib.window_conv_inv_launch.argtypes = [p] * 6 + [i] * 12 + [p]
     lib.window_conv_inv_launch.restype = i
+    lib.window_conv_dw_geometry.argtypes = [i] * 9 + [p]
+    lib.window_conv_dw_geometry.restype = i
+    lib.window_conv_dw_rows.argtypes = [i, i, i, p]
+    lib.window_conv_dw_rows.restype = i
+    lib.window_conv_inv_geometry.argtypes = [i, i, p]
+    lib.window_conv_inv_geometry.restype = i
     return lib
+
+
+def dw_chunks(rows: int, kvol: int) -> int:
+    """Chunks C of dW's first pass over ``rows`` = B*O output rows: about
+    DW_BLOCKS blocks (C x kvol), at most one chunk a 256-row tile. A
+    function of the shapes alone, so every call sums in the same order."""
+    tiles = max(1, -(-rows // DW_TILE))
+    return min(tiles, -(-DW_BLOCKS // kvol))
+
+
+def dw_chunk_rows(rows: int, nchunks: int, c: int):
+    """The output rows chunk ``c`` of ``nchunks`` sums, in its order:
+    tiles c, c + C, c + 2C, ... of 256 rows."""
+    tiles = -(-rows // DW_TILE)
+    out = [torch.arange(t * DW_TILE, min(rows, (t + 1) * DW_TILE))
+           for t in range(c, tiles, nchunks)]
+    return torch.cat(out) if out else torch.zeros(0, dtype=torch.long)
+
+
+def dw_grid(kvol: int, k: int, center_shift: bool, nchunks: int):
+    """dW's grid rows in launch order: (tap, chunks of that tap, this
+    row's first chunk). The center tap (kz//2 * K + K//2) comes first; a
+    submanifold conv reads it at every row, so there it takes
+    DW_CENTER_SPLIT rows of C chunks (DW_CENTER_SPLIT * C chunks, row y
+    holding chunks y*C .. y*C + C - 1). Then one row of C chunks for each
+    other tap of the center's z level (j = kz//2, on a lidar scan's
+    surfaces the most present after it), then the other levels' taps in
+    order: heavier rows first."""
+    kz = kvol // k
+    jm = kz // 2
+    tc = jm * k + k // 2
+    split = DW_CENTER_SPLIT if center_shift else 1
+    rows = [(tc, split * nchunks, y * nchunks) for y in range(split)]
+    level = [jm * k + kk for kk in range(k) if kk != k // 2]
+    rest = [j * k + kk for j in range(kz) if j != jm for kk in range(k)]
+    return rows + [(t, nchunks, 0) for t in level + rest]
+
+
+def _stride(n, cols):
+    """Row stride (floats) of n staged channels: consecutive rows 4 cols
+    banks apart (csrc/window_conv_bwd.cu::staged_stride)."""
+    return n + ((cols * 4 - n) % 32)
+
+
+def dw_geometry(cin: int, cout: int, center_shift: bool = False):
+    """The dW kernel's geometry (csrc/window_conv_bwd.cu::dw_geometry): a
+    thread's block (tm x tn: 8 from 32 channels up, the channels padded to
+    a multiple of it), the threads of a team (covering dW[t]), the
+    teams that split a block's pairs, pairs a ring stage, the staged row
+    strides, x copies a row, the center tap's split (``center_shift``)
+    and the shared memory a block (bytes)."""
+    tm = 8 if cin >= 32 else 4
+    tn = 8 if cout >= 32 else 4
+    cinp, coutp = -(-cin // tm) * tm, -(-cout // tn) * tn
+    nci, ndi = cinp // tm, coutp // tn
+    team = nci * ndi
+    slices = _THREADS // team
+    pairs = max(DW_MIN_PAIRS, 4 * slices)
+    lx, ly = _stride(cinp, nci), _stride(coutp, ndi)
+    lists = 2 * DW_SEG_TILES * DW_TILE * 4
+    ring = DW_STAGES * pairs * (lx + ly) * 4
+    smem = max(lists + ring, slices * cinp * coutp * 4)
+    return dict(tm=tm, tn=tn, team=team, slices=slices, pairs=pairs, lx=lx,
+                ly=ly, xpieces=cin if cin % 4 else cin // 4,
+                split=DW_CENTER_SPLIT if center_shift else 1, smem=smem)
+
+
+def _inv_smem(rb, cin, cout):
+    lists = -(-(1 + INV_MAX_TAPS) * rb // 4) * 4
+    return (max(2 * (rb + cin) * (cout + 4), rb * (cin + 4)) + lists) * 4
+
+
+def inv_geometry(cin: int, cout: int):
+    """The inverse dX kernel's geometry (csrc/window_conv_bwd.cu::
+    inv_geometry): a thread's rows tm (x 4 channels), thread columns nci =
+    Cin/4, thread rows used nr, rows a block rb = nr * tm, shared memory a
+    block (bytes): the most rows a thread (at most 8, a block at most 256)
+    that leave room for two blocks an SM, else for one, else fewer thread
+    rows. None where nothing fits."""
+    nci = cin // 4
+    nri = _THREADS // nci
+    for cap in (_TWO_BLOCKS, _MAX_SMEM):
+        nr = nri
+        while nr >= 1:
+            for tm in ((8, 4, 2, 1) if nr == nri else (1,)):
+                rb = nr * tm
+                if rb <= INV_MAX_ROWS and _inv_smem(rb, cin, cout) <= cap:
+                    return dict(tm=tm, nci=nci, nr=nr, rb=rb,
+                                smem=_inv_smem(rb, cin, cout))
+            nr //= 2
+    return None
+
+
+def inverse_classes(inverse, ncz: int):
+    """Each row's parity class as the inverse dX's count kernel finds it:
+    bits 28-30 of column 0 (z, y, x), or 8 where no candidate of the row
+    is present (its dX is zero). inverse: (B, V, Kc) int32 words."""
+    words = inverse.long()
+    pmask = ((1 << ncz) - 1) << _PACK_SHIFT
+    present = ((words & pmask) != 0).any(-1)
+    par = (words[..., 0] >> 28) & 7
+    return torch.where(present, par, torch.full_like(par, 8))
+
+
+def inverse_blocks(inverse, ncz: int, rb: int):
+    """The inverse dX kernel's blocks in grid order: (class, rows) with
+    rows the flat B*V indices, RB at most, of one class; classes 0-7 in
+    turn, each class's rows in row order (a stable grouping), so block b
+    of a class holds its ranks [b*rb, (b+1)*rb). Rows of class 8 (nothing
+    present) take no block."""
+    cls = inverse_classes(inverse, ncz).reshape(-1)
+    out = []
+    for c in range(8):
+        rows = torch.nonzero(cls == c).reshape(-1)
+        out += [(c, rows[i:i + rb]) for i in range(0, len(rows), rb)]
+    return out
+
+
+def class_taps(cls: int, kernel, stride):
+    """The taps (z-major kk) whose j mod s matches parity class ``cls``
+    (bit 0 z, 1 y, 2 x), in tap order."""
+    kz, ky, kx = kernel
+    par = (cls & 1, (cls >> 1) & 1, (cls >> 2) & 1)
+    return [kk for kk in range(kz * ky * kx)
+            if all(j % s == p for j, s, p in zip(
+                (kk // (ky * kx), (kk // kx) % ky, kk % kx), stride, par))]
 
 
 def _check_cuda(name, tensors, dtypes):
@@ -353,14 +507,6 @@ def _check_cuda(name, tensors, dtypes):
     return dev
 
 
-def dw_chunks(rows: int, kvol: int) -> int:
-    """Rows per block of dW's first pass over ``rows`` = B*O output rows:
-    about DW_BLOCKS blocks in all, a multiple of DW_TILE rows. A function
-    of the shapes alone, so every call sums in the same order."""
-    per = -(-rows // max(1, DW_BLOCKS // kvol))
-    return max(DW_TILE, -(-per // DW_TILE) * DW_TILE)
-
-
 def window_conv_dw(features, packed, dy, center_shift: bool, kz: int = 3):
     """d(weights) of the window conv: dW[j*K + k] = sum over rows o of
     x[tap row]^T dy[o] over the forward's rulebook (the center column's
@@ -368,10 +514,11 @@ def window_conv_dw(features, packed, dy, center_shift: bool, kz: int = 3):
 
     features (B, V, Cin) fp32, Cin 1-128; packed (B, O, K) int32 with kz
     presence bits; dy (B, O, Cout) fp32, Cout a multiple of 4 up to 128.
-    Returns (kz*K, Cin, Cout) fp32. On the card two launches (one counted,
-    ``window_conv_dw.launches``): per-block partials of each tap over a
-    chunk of rows into a workspace, then their sum in chunk order; no
-    atomics, so two calls give the same bits. CPU tensors take
+    Returns (kz*K, Cin, Cout) fp32. On the card one call launches two
+    kernels (counted once, ``window_conv_dw.launches``): per-block partials
+    of each tap over a chunk of rows (dw_chunks, dw_grid) into a
+    workspace (C, kz*K + split - 1, Cin, Cout), then their sum in chunk
+    order; no atomics, so two calls give the same bits. CPU tensors take
     window_conv_dw_ref. Counted by the rule ``_dw_work``."""
     with flops.kernel("window_conv_dw", features, packed, dy, center_shift,
                       kz):
@@ -381,7 +528,7 @@ def window_conv_dw(features, packed, dy, center_shift: bool, kz: int = 3):
 def _dw_work(features, packed, dy, center_shift, kz):
     """(bytes, flops, peak) of one dW: 2 Cin Cout for each tap that reads
     a row (the forward's), the rows, the words, dy read once, dW written
-    once."""
+    once; whatever the kernel keeps between its passes is not counted."""
     k = packed.shape[-1]
     cin, cout = features.shape[-1], dy.shape[-1]
     taps, rows = flops.conv_taps(packed, features.shape[1], center_shift, kz)
@@ -417,10 +564,10 @@ def _dw_call(features, packed, dy, center_shift, kz):
     if v > _PACK_MASK + 1:
         raise ValueError(f"V={v} exceeds the packed rank range")
     rows = b * o
-    chunk = dw_chunks(rows, kvol)
-    nchunks = max(1, -(-rows // chunk))
-    ws = torch.empty((nchunks, kvol, cin, cout), dtype=torch.float32,
-                     device=dev)
+    nchunks = dw_chunks(rows, kvol)
+    split = DW_CENTER_SPLIT if center_shift else 1
+    ws = torch.empty((nchunks, kvol + split - 1, cin, cout),
+                     dtype=torch.float32, device=dev)
     dw = torch.empty((kvol, cin, cout), dtype=torch.float32, device=dev)
     if rows == 0 or v == 0:
         return dw.zero_()
@@ -428,12 +575,8 @@ def _dw_call(features, packed, dy, center_shift, kz):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib().window_conv_dw_launch(
             features.data_ptr(), packed.data_ptr(), dy.data_ptr(),
-            ws.data_ptr(), b, v, o, k, kz, cin, cout,
-            int(bool(center_shift)), chunk, nchunks, stream)
-        if err == 0:
-            err = _bwd_lib().window_conv_dw_sum_launch(
-                ws.data_ptr(), dw.data_ptr(), nchunks, kvol * cin * cout,
-                stream)
+            ws.data_ptr(), dw.data_ptr(), b, v, o, k, kz, cin, cout,
+            int(bool(center_shift)), nchunks, stream)
     if err != 0:
         raise RuntimeError(f"window_conv_dw: CUDA launch failed (cudaError "
                            f"{err})")
@@ -452,9 +595,14 @@ def window_conv_inv(dy, inverse, weights, kernel, stride, v: int):
     dy (B, O, Cout) fp32, Cout a multiple of 4 up to 128; inverse (B, V,
     Kc) int32; weights (kz*ky*kx, Cin, Cout) fp32, Cin a multiple of 4 up
     to 128; ``kernel`` and ``stride`` the conv's (z, y, x) kernel (at most
-    3 a dim) and stride (1 or 2 a dim). Returns (B, V, Cin) fp32. One
-    launch on the card (``window_conv_inv.launches``); CPU tensors take
-    the twin. Counted by utils/flops.py's inverse_work rule."""
+    3 a dim) and stride (1 or 2 a dim). Returns (B, V, Cin) fp32. On the
+    card one call launches two kernels (counted once,
+    ``window_conv_inv.launches``): a count of each 1024-row tile's rows of
+    each parity class (inverse_classes), then blocks of one class each
+    (inverse_blocks) that take only that class's taps (class_taps); the
+    workspace (each row's class, the counts) comes from the wrapper. CPU
+    tensors take the twin. Counted by utils/flops.py's inverse_work
+    rule."""
     k3 = tuple(int(x) for x in kernel)
     s3 = tuple(int(x) for x in stride)
     with flops.kernel("window_conv_inv", dy, inverse, weights, k3, s3, v):
@@ -490,8 +638,12 @@ def _inv_call(dy, inverse, weights, k3, s3, v):
         raise ValueError(f"window_conv_inv takes strides 1 or 2, got {s3}")
     if o > _PACK_MASK + 1:
         raise ValueError(f"O={o} exceeds the packed rank range")
+    rows = b * v
     dx = torch.empty((b, v, cin), dtype=torch.float32, device=dev)
-    if b == 0 or v == 0:
+    cls = torch.empty(rows, dtype=torch.uint8, device=dev)
+    counts = torch.empty(8 * -(-rows // INV_COUNT_ROWS), dtype=torch.int32,
+                         device=dev)
+    if rows == 0:
         return dx
     if o == 0:
         return dx.zero_()
@@ -499,8 +651,8 @@ def _inv_call(dy, inverse, weights, k3, s3, v):
         stream = torch.cuda.current_stream().cuda_stream
         err = _bwd_lib().window_conv_inv_launch(
             dy.data_ptr(), inverse.data_ptr(), weights.data_ptr(),
-            dx.data_ptr(), b, v, o, cin, cout, kz, ky, kx, s3[0], s3[1],
-            s3[2], nc[0], stream)
+            dx.data_ptr(), cls.data_ptr(), counts.data_ptr(), b, v, o, cin,
+            cout, kz, ky, kx, s3[0], s3[1], s3[2], nc[0], stream)
     if err != 0:
         raise RuntimeError(f"window_conv_inv: CUDA launch failed (cudaError "
                            f"{err})")

@@ -22,7 +22,13 @@ tile edges, windows past V, Cin from 4 to 128 and Cout 16 to 128, the
 the CPU model of its schedule (ops/window_conv_cuda.py::f32_schedule). The NMS kernel is also
 held on the nuScenes PointPillars step's own inputs, and the appearance-
 order device voxelizer against its host twin at that step's 300000-point
-scans (exact: integer and copy operations). TF32 is off.
+scans (exact: integer and copy operations). The window conv's backward
+kernels (csrc/window_conv_bwd.cu) are held within chip_smoke.py's
+BWD_TOL of their twins at every conv the training paths run (SECOND,
+CBGS with its Cin-5 and Lyft's Cin-6 stem, RCNN, VoxelNet's (128, 16)
+stem, kz-7 windows), the same bits on a second call and on a CUDA-graph
+replay, and their geometry and grid order equal to the CPU models that
+tests/test_torch_bwd_schedule.py holds to JAX's plans. TF32 is off.
 """
 
 import numpy as np
@@ -671,3 +677,169 @@ def test_backward_kernels_reject_bad_inputs(dev):
         window_conv_inv(torch.zeros(1, 64, 16, device=dev), inv,
                         torch.zeros(27, 16, 16, device=dev), (3, 3, 3),
                         (1, 1, 1), 64)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernels at every layer shape of the training paths, and
+# their schedules against the CPU models (tests/test_torch_bwd_schedule.py)
+# ---------------------------------------------------------------------------
+
+def _bwd_shapes():
+    """(plan, plan key, Cin, Cout, subm) of every conv the training paths
+    run: SECOND's, CBGS's (Cin-5 stem) and Lyft's Cin-6 stem (on CBGS's
+    plan: Lyft runs CBGS's middle), RCNN's middle, the deep grid's window
+    convs and VoxelNet's (128, 16) stem (on SECOND's plan)."""
+    from chip_smoke import CBGS_LAYERS, RCNN_LAYERS, SECOND_LAYERS, STEM_6
+    out = []
+    for plan, layers in (("second", SECOND_LAYERS), ("cbgs", CBGS_LAYERS),
+                         ("cbgs", STEM_6), ("rcnn", RCNN_LAYERS),
+                         ("second", (("s0", 128, 16, True),))):
+        for key, cin, cout, subm in layers:
+            if (plan, key, cin, cout, subm) not in out:
+                out.append((plan, key, cin, cout, subm))
+    return out
+
+
+BWD_SHAPES = _bwd_shapes()
+
+
+@pytest.fixture(scope="module")
+def bwd_plans(dev, train_plan):
+    """The training plans the backward cases run on: SECOND's (two scans,
+    the second short), CBGS's (B=2 x 300000 points) and RCNN's (B=4 on
+    SECOND's grid), built once on first use."""
+    from chip_smoke import (CBGS_B, CBGS_POINTS, POINTS, RCNN_B,
+                            sparse_train_scene, train_config, variant_config,
+                            with_train_plan)
+    made = {"second": train_plan}
+
+    def get(name):
+        if name not in made:
+            if name == "cbgs":
+                pc = train_config("cbgs")["voxel_generator"]["range"]
+                made[name] = with_train_plan("cbgs", sparse_train_scene(
+                    "cbgs", CBGS_B, pc, CBGS_POINTS))
+            else:
+                cfg = variant_config("rcnn", "fp32")
+                made[name] = with_train_plan("second", sparse_train_scene(
+                    "second", RCNN_B, cfg["voxel_generator"]["range"],
+                    POINTS), cfg=cfg)
+        return made[name]
+    return get
+
+
+def _replayed(fn):
+    """fn()'s output from one replay of a CUDA graph that captured it."""
+    fn()                                     # attributes set before capture
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _hold_bwd(fn, ref, what):
+    """A backward kernel within BWD_TOL of its twin, and the same bits on a
+    second call and on a CUDA-graph replay."""
+    from chip_smoke import BWD_TOL
+    got = fn()
+    again = fn()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **BWD_TOL, msg=lambda m: f"{what}: "
+                               f"{m}")
+    assert torch.equal(got, again), f"{what}: a second call differs"
+    assert torch.equal(got, _replayed(fn)), f"{what}: a replay differs"
+
+
+@pytest.mark.parametrize("plan,key,cin,cout,subm", BWD_SHAPES,
+                         ids=[f"{p}-{k}-{a}x{b}" for p, k, a, b, _ in
+                              BWD_SHAPES])
+def test_backward_kernels_at_training_shapes(dev, bwd_plans, plan, key, cin,
+                                             cout, subm):
+    """dW at every conv of the training paths, and the inverse dX of each
+    strided one: within BWD_TOL of the twins, bit-equal on a second call
+    and on a CUDA-graph replay."""
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops import window_conv_cuda as wc
+    data = bwd_plans(plan)
+    pk = torch.as_tensor(data[f"plan_{key}"], device=dev).contiguous()
+    b, o, k = pk.shape
+    inv = None if subm else torch.as_tensor(data[f"plan_inv{key[4:]}"],
+                                            device=dev).contiguous()
+    v = o if subm else inv.shape[1]
+    g = torch.Generator().manual_seed(cin * 1000 + cout)
+    x = torch.randn(b, v, cin, generator=g).to(dev)
+    dy = (torch.randn(b, o, cout, generator=g) / (b * o) ** 0.5).to(dev)
+    r0, pres = sp.unpack_windows(pk, 3)
+    _hold_bwd(lambda: wc.window_conv_dw(x, pk, dy, subm),
+              sp.window_conv_dw_ref(x, r0, pres, dy, subm), "dW")
+    if not subm:
+        geo = ((3, 3, 3), (2, 2, 2)) if k == 9 else ((3, 1, 1), (2, 1, 1))
+        w = (torch.randn(3 * k, cin, cout, generator=g) / 10).to(dev)
+        dyi = dy * (b * o) ** 0.5
+        r0i, presi, par = sp.unpack_inverse(inv, 2)
+        ref = sp.window_conv_inv_ref(dyi, r0i, presi, par, w, *geo)
+        assert float(ref.abs().max()) > 0
+        _hold_bwd(lambda: wc.window_conv_inv(dyi, inv, w, *geo, v), ref,
+                  "inverse dX")
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (32, 64), (64, 64)])
+def test_dw_kernel_kz7_deep_windows(dev, cin, cout):
+    """dW at the deep grid's window-conv widths with 7 presence bits a
+    column (kz = 7, the most the kernel takes), strided and subm rulebook
+    words alike (center_shift needs kz = 3): within BWD_TOL, the same bits
+    twice and on a replay."""
+    from det3d_tpu_torch.ops import sparse as sp
+    from det3d_tpu_torch.ops.window_conv_cuda import window_conv_dw
+    r = np.random.RandomState(cin + cout)
+    bits = r.randint(1, 128, size=(1, 6000, 9)) * (r.uniform(
+        size=(1, 6000, 9)) < 0.5)
+    pk = torch.as_tensor((r.randint(0, 7003, size=(1, 6000, 9))
+                          | (bits << 24)).astype(np.int32)).to(dev)
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.randn(1, 7000, cin, generator=g).to(dev)
+    dy = (torch.randn(1, 6000, cout, generator=g) / 80).to(dev)
+    r0, pres = sp.unpack_windows(pk, 7)
+    _hold_bwd(lambda: window_conv_dw(x, pk, dy, False, 7),
+              sp.window_conv_dw_ref(x, r0, pres, dy, False), "dW kz=7")
+
+
+def test_backward_geometry_equals_the_cpu_models(dev):
+    """The kernels' own geometry and grid order (window_conv_dw_geometry,
+    window_conv_dw_rows, window_conv_inv_geometry) equal the CPU models
+    the schedule tests hold to JAX's plans (dw_geometry, dw_grid,
+    inv_geometry), at every width the wrappers take."""
+    import ctypes
+    from det3d_tpu_torch.ops import window_conv_cuda as wc
+    lib = wc._bwd_lib()
+    names = ("tm", "tn", "team", "slices", "pairs", "lx", "ly", "xpieces",
+             "split")
+    for cin in range(1, 129):
+        for cout in range(4, 129, 4):
+            for cs_ in (True, False):
+                got = (ctypes.c_int * 12)()
+                assert lib.window_conv_dw_geometry(
+                    2, 1000, 1000, 9, 3, cin, cout, int(cs_), 4, got) == 0
+                want = wc.dw_geometry(cin, cout, cs_)
+                assert list(got)[1:10] == [want[n] for n in names], (cin,
+                                                                     cout)
+                assert got[10] + (got[11] << 31) == want["smem"]
+            if cin % 4 == 0:
+                got = (ctypes.c_int * 5)()
+                assert lib.window_conv_inv_geometry(cin, cout, got) == 0
+                want = wc.inv_geometry(cin, cout)
+                assert list(got) == [want[n] for n in ("tm", "nci", "nr",
+                                                       "rb", "smem")]
+    for k, kz, cs_ in ((9, 3, True), (9, 3, False), (1, 3, False),
+                       (9, 7, False)):
+        split = wc.DW_CENTER_SPLIT if cs_ else 1
+        taps = (ctypes.c_int * (k * kz + split - 1))()
+        lib.window_conv_dw_rows(k, kz, int(cs_), taps)
+        assert list(taps) == [t for t, _, _ in wc.dw_grid(k * kz, k, cs_, 1)]
