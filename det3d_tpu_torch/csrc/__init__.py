@@ -15,6 +15,7 @@ spills). A failed build raises with the compiler's output. Nothing is
 built at import time.
 
     lib = load("rotated_nms")      # compiles rotated_nms.cu if needed
+    lib = load("trace_marks")      # the layer markers of utils/trace.py
     lib = load("hostplan")         # compiles hostplan.cc if needed
     lib = load("pointops")         # compiles pointops.cc if needed
 """
@@ -34,7 +35,7 @@ _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
 
 CUDA_SOURCES = ("rotated_nms", "window_conv",       # *.cu, nvcc
-                "window_conv_bwd")
+                "window_conv_bwd", "trace_marks")
 HOST_SOURCES = ("hostplan", "pointops")            # *.cc, g++
 SOURCES = CUDA_SOURCES + HOST_SOURCES
 

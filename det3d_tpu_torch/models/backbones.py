@@ -18,6 +18,7 @@ out-of-bounds index that XLA drops.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
@@ -26,6 +27,7 @@ from torch import nn
 
 from det3d_tpu_torch.core.voxelize import scatter_rows
 from det3d_tpu_torch.models.registry import BACKBONES
+from det3d_tpu_torch.utils import trace
 
 
 @BACKBONES.register_module
@@ -390,8 +392,9 @@ def _plan_and_dtype(middle, coords, input_shape, plan):
         return plan, dt
     spec = middle_plan_spec(middle, input_shape, coords.shape[1],
                             host=False)
-    return (build_plan_device(coords, spec, train=middle.training),
-            middle.plain_dtype)
+    with trace.segment("plan"):
+        plan = build_plan_device(coords, spec, train=middle.training)
+    return plan, middle.plain_dtype
 
 
 def _res0_with_plan(voxel_features, coords, pre_ranked, plan):
@@ -519,29 +522,31 @@ class SpMiddleFHD(nn.Module):
         x = next(convs)(x, s0, True, dt, valid)
 
         xd = occ = co = None
-        for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
-            if i <= self.start:
-                co, down, subm, shape, inv = _plan_stage(plan, i, shape, k,
-                                                         s, p)
-                valid = _valid(co, self.training)
-                x = next(convs)(x, down, False, dt, valid, inv)
-                if i < self.start:
-                    for _ in range(n_subm):
-                        x = next(convs)(x, subm, True, dt, valid)
-                    continue
-                # transition: densify this stage
-                occ = _occupancy(co, shape)
-                xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
-            else:
-                k3, s3, p3 = sp._as3(k), sp._as3(s), sp._as3(p)
-                occ = _cover_mask(occ, k3, s3, p3)
-                xd = next(dconvs)(xd, occ, dt)
-            for _ in range(n_subm):
-                xd = next(dconvs)(xd, occ, dt)
+        with contextlib.ExitStack() as tail:
+            for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
+                if i <= self.start:
+                    co, down, subm, shape, inv = _plan_stage(plan, i, shape,
+                                                             k, s, p)
+                    valid = _valid(co, self.training)
+                    x = next(convs)(x, down, False, dt, valid, inv)
+                    if i < self.start:
+                        for _ in range(n_subm):
+                            x = next(convs)(x, subm, True, dt, valid)
+                        continue
+                    # transition: densify this stage
+                    tail.enter_context(trace.segment("dense_tail"))
+                    occ = _occupancy(co, shape)
+                    xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
+                else:
+                    k3, s3, p3 = sp._as3(k), sp._as3(s), sp._as3(p)
+                    occ = _cover_mask(occ, k3, s3, p3)
+                    xd = next(dconvs)(xd, occ, dt)
+                for _ in range(n_subm):
+                    xd = next(dconvs)(xd, occ, dt)
 
-        if xd is not None:
-            occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
-            return _fold_depth(next(dconvs)(xd, occ4, dt))
+            if xd is not None:
+                occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
+                return _fold_depth(next(dconvs)(xd, occ4, dt))
         co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
                                                 (2, 1, 1), 0)
         x = next(convs)(x, down, False, dt, _valid(co4, self.training), inv)
@@ -640,29 +645,32 @@ class SpMiddleResNetFHD(nn.Module):
             x = next(mods["SparseBasicBlock"])(x, s0, dt, valid)
 
         xd = occ = None
-        for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
-            if i <= self.start:
-                co, down, subm, shape, inv = _plan_stage(plan, i, shape, k,
-                                                         s, p)
-                valid = _valid(co, self.training)
-                x = next(scb)(x, down, False, dt, valid, inv)
-                if i < self.start:
-                    for _ in range(2):
-                        x = next(mods["SparseBasicBlock"])(x, subm, dt,
-                                                           valid)
-                    continue
-                # transition: densify this stage in the activation dtype
-                occ = _occupancy(co, shape)
-                xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
-            else:
-                occ = _cover_mask(occ, sp._as3(k), sp._as3(s), sp._as3(p))
-                xd = next(dcb)(xd, occ, dt)
-            for _ in range(2):
-                xd = next(mods["DenseBasicBlock"])(xd, occ, dt)
+        with contextlib.ExitStack() as tail:
+            for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
+                if i <= self.start:
+                    co, down, subm, shape, inv = _plan_stage(plan, i, shape,
+                                                             k, s, p)
+                    valid = _valid(co, self.training)
+                    x = next(scb)(x, down, False, dt, valid, inv)
+                    if i < self.start:
+                        for _ in range(2):
+                            x = next(mods["SparseBasicBlock"])(x, subm, dt,
+                                                               valid)
+                        continue
+                    # transition: densify this stage in the activation dtype
+                    tail.enter_context(trace.segment("dense_tail"))
+                    occ = _occupancy(co, shape)
+                    xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
+                else:
+                    occ = _cover_mask(occ, sp._as3(k), sp._as3(s),
+                                      sp._as3(p))
+                    xd = next(dcb)(xd, occ, dt)
+                for _ in range(2):
+                    xd = next(mods["DenseBasicBlock"])(xd, occ, dt)
 
-        if xd is not None:
-            occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
-            return _fold_depth(next(dcb)(xd, occ4, dt))
+            if xd is not None:
+                occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
+                return _fold_depth(next(dcb)(xd, occ4, dt))
         co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
                                                 (2, 1, 1), 0)
         x = next(scb)(x, down, False, dt, _valid(co4, self.training), inv)

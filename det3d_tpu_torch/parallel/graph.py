@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from det3d_tpu_torch.parallel.dist_utils import backend
+from det3d_tpu_torch.utils import trace
 
 
 class _Graph:
@@ -38,14 +39,16 @@ class _Graph:
         """Copy the batch into the static inputs on the current stream:
         host arrays through the pinned buffers, non-blocking; device
         tensors directly."""
-        self.copied.synchronize()       # the pinned buffers are free again
-        for k, t in tensors.items():
-            if t.is_cuda:
-                self.static[k].copy_(t)
-            else:
-                self.pinned[k].copy_(t)
-                self.static[k].copy_(self.pinned[k], non_blocking=True)
-        self.copied.record()
+        with trace.span("step.stage_wait"):
+            self.copied.synchronize()   # the pinned buffers are free again
+        with trace.span("step.stage_copy"):
+            for k, t in tensors.items():
+                if t.is_cuda:
+                    self.static[k].copy_(t)
+                else:
+                    self.pinned[k].copy_(t)
+                    self.static[k].copy_(self.pinned[k], non_blocking=True)
+            self.copied.record()
 
 
 class CapturedStep:
@@ -74,7 +77,15 @@ class CapturedStep:
     parameters, BatchNorm statistics, the optimizer's moments and count),
     a callable giving them; the warm-up leaves them as they were (copies
     taken before it are copied back after it), so that every call of the
-    step advances them once."""
+    step advances them once.
+
+    Its host spans (utils/trace.py, recorded while tracing is on):
+    ``step.stage_wait``, the wait for the previous call's copies out of the
+    pinned buffers; ``step.stage_copy``, the copies into the pinned and
+    static buffers and the H2D enqueue; ``step.launch``, the graph's
+    replay; ``step.outputs``, the outputs' clones; and, at a new
+    signature, ``step.warm_up`` and ``step.capture``. A graph captured
+    while tracing is on also carries the step's segment markers."""
 
     def __init__(self, run: Callable, device: torch.device,
                  state: Optional[Callable[[], List[torch.Tensor]]] = None):
@@ -103,22 +114,24 @@ class CapturedStep:
 
     def warm_up(self, batch):
         state = self._state() if self._state is not None else []
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
-            kept = [t.detach().clone() for t in state]
-            self.eager(batch)
-            with torch.no_grad():
-                for t, k in zip(state, kept):
-                    t.copy_(k)
-        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        with trace.span("step.warm_up"):
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(self.stream):
+                kept = [t.detach().clone() for t in state]
+                self.eager(batch)
+                with torch.no_grad():
+                    for t, k in zip(state, kept):
+                        t.copy_(k)
+            torch.cuda.current_stream(self.device).wait_stream(self.stream)
 
     def capture(self, batch) -> _Graph:
-        tensors = self.tensors(batch)
-        entry = _Graph(tensors, self.device)
-        entry.stage(tensors)
-        with torch.cuda.graph(entry.graph, stream=self.stream):
-            entry.out = self._run(entry.static)
-        self.graphs[self.signature(tensors)] = entry
+        with trace.span("step.capture"):
+            tensors = self.tensors(batch)
+            entry = _Graph(tensors, self.device)
+            entry.stage(tensors)
+            with torch.cuda.graph(entry.graph, stream=self.stream):
+                entry.out = self._run(entry.static)
+            self.graphs[self.signature(tensors)] = entry
         return entry
 
     def __call__(self, batch):
@@ -128,8 +141,10 @@ class CapturedStep:
             self.warm_up(tensors)
             entry = self.capture(tensors)
         entry.stage(tensors)
-        entry.graph.replay()
-        return {k: v.clone() for k, v in entry.out.items()}
+        with trace.span("step.launch"):
+            entry.graph.replay()
+        with trace.span("step.outputs"):
+            return {k: v.clone() for k, v in entry.out.items()}
 
 
 def stepper(run: Callable, device: torch.device,

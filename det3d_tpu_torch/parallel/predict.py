@@ -26,6 +26,7 @@ from det3d_tpu_torch.core.target import TargetAssigner
 from det3d_tpu_torch.core.voxelize import VoxelGenerator
 from det3d_tpu_torch.parallel.graph import stepper
 from det3d_tpu_torch.parallel.train import build_example
+from det3d_tpu_torch.utils import trace
 
 
 def double_flip_batch(batch):
@@ -61,9 +62,12 @@ def make_predict_step(model, voxel_generator: VoxelGenerator,
     On a CUDA model the step is a ``CapturedStep``: each batch signature is
     captured once as a CUDA graph and replayed. On a CPU model (the caller
     asked for the CPU) it runs eagerly. Either way ``predict_step.eager``
-    is the step run eagerly."""
+    is the step run eagerly. While tracing is on (utils/trace.py) the step
+    enters the segments voxelize, reader, backbone (plan and dense_tail
+    inside it), neck, bbox_head and decode+nms."""
     double_flip = bool(test_cfg.get("double_flip", False))
     device = next(model.parameters()).device
+    trace.stage_hooks(model)
 
     @torch.no_grad()
     def run(batch):
@@ -74,8 +78,9 @@ def make_predict_step(model, voxel_generator: VoxelGenerator,
         kw = {"plan": plan} if plan else {}
         preds = model(example["voxels"], example["num_points_per_voxel"],
                       example["coordinates"], **kw)
-        if double_flip:
-            return model.predict_tta(example, preds, test_cfg)
-        return model.predict(example, preds, test_cfg)
+        with trace.segment("decode+nms"):
+            if double_flip:
+                return model.predict_tta(example, preds, test_cfg)
+            return model.predict(example, preds, test_cfg)
 
     return stepper(run, device)

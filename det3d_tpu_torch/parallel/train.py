@@ -57,6 +57,7 @@ from det3d_tpu_torch.core.target import TargetAssigner
 from det3d_tpu_torch.core.voxelize import VoxelGenerator
 from det3d_tpu_torch.parallel import dist_utils
 from det3d_tpu_torch.parallel.graph import stepper
+from det3d_tpu_torch.utils import trace
 
 METRIC_KEYS = ("loc_loss_reduced", "cls_loss_reduced", "dir_loss_reduced",
                "cls_pos_loss", "cls_neg_loss", "num_pos", "num_neg")
@@ -101,8 +102,9 @@ def build_example(batch: Dict[str, Any], voxel_generator: VoxelGenerator,
                "num_points_per_voxel": batch["num_points_per_voxel"],
                "num_voxels": batch["num_voxels"]}
     else:
-        vox = voxel_generator.generate_batch(batch["points"],
-                                             batch["num_points"])
+        with trace.segment("voxelize"):
+            vox = voxel_generator.generate_batch(batch["points"],
+                                                 batch["num_points"])
     points = batch["points"]
     b = points.shape[0]
     example: Dict[str, Any] = {
@@ -121,23 +123,27 @@ def build_example(batch: Dict[str, Any], voxel_generator: VoxelGenerator,
     if use_amask:
         example["anchors_mask"] = []
 
-    for t, assigner in enumerate(assigners):
-        anchors = assigner.anchors_on(points.device)
-        example["anchors"].append(anchors[None].expand(b, *anchors.shape))
-        amask = None
-        if assigner.anchor_area_threshold >= 0:
-            amask = assigner.anchors_mask(vox["coords"],
-                                          voxel_generator.grid_size)
-        if use_amask:
-            example["anchors_mask"].append(amask)
-        if with_targets:
-            labels, targets, weights = assigner.assign(
-                batch["gt_boxes"], batch["gt_classes"], batch["gt_valid"],
-                class_ids=tuple(class_ids_per_task[t]), generator=generator,
-                anchors_mask=amask)
-            example["labels"].append(labels)
-            example["reg_targets"].append(targets)
-            example["reg_weights"].append(weights)
+    with trace.segment("targets") if with_targets or use_amask \
+            else contextlib.nullcontext():
+        for t, assigner in enumerate(assigners):
+            anchors = assigner.anchors_on(points.device)
+            example["anchors"].append(anchors[None].expand(b,
+                                                           *anchors.shape))
+            amask = None
+            if assigner.anchor_area_threshold >= 0:
+                amask = assigner.anchors_mask(vox["coords"],
+                                              voxel_generator.grid_size)
+            if use_amask:
+                example["anchors_mask"].append(amask)
+            if with_targets:
+                labels, targets, weights = assigner.assign(
+                    batch["gt_boxes"], batch["gt_classes"],
+                    batch["gt_valid"],
+                    class_ids=tuple(class_ids_per_task[t]),
+                    generator=generator, anchors_mask=amask)
+                example["labels"].append(labels)
+                example["reg_targets"].append(targets)
+                example["reg_weights"].append(weights)
     return example
 
 
@@ -159,8 +165,9 @@ def network_loss(model, example):
     kw = {"plan": example["plan"]} if "plan" in example else {}
     preds = model(example["voxels"], example["num_points_per_voxel"],
                   example["coordinates"], **kw)
-    losses = model.loss(example, preds)
-    return sum(losses["loss"]), losses
+    with trace.segment("loss"):
+        losses = model.loss(example, preds)
+        return sum(losses["loss"]), losses
 
 
 def mean_over_ranks(tensors):
@@ -209,11 +216,16 @@ def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
     its batch, in step). ``generator``: the draws of positive_fraction
     subsampling (core/target.py::create_target), where rank r's example
     i draws as the global batch's example r * B + i; no shipped config
-    subsamples, and their steps draw nothing."""
+    subsamples, and their steps draw nothing.
+
+    While tracing is on (utils/trace.py) the step enters the segments
+    voxelize, targets, the detector's stages (as the predict step), loss,
+    backward (the all-reduce of ranks included) and optimizer."""
     model, tx = state.model, state.tx
     params = list(model.parameters())
     device = params[0].device
     ranks = dist_utils.active()
+    trace.stage_hooks(model)
 
     def run(batch):
         with torch.no_grad():
@@ -222,10 +234,12 @@ def make_train_step(state: TrainState, voxel_generator: VoxelGenerator,
                                     generator=generator)
         with _mode(model, True), torch.enable_grad():
             total, losses = network_loss(model, example)
-            grads = torch.autograd.grad(total, params)
-        if ranks:
-            grads = mean_over_ranks(grads)
-        grad_norm = tx.update(grads)
+            with trace.segment("backward"):
+                grads = torch.autograd.grad(total, params)
+                if ranks:
+                    grads = mean_over_ranks(grads)
+        with trace.segment("optimizer"):
+            grad_norm = tx.update(grads)
         metrics = {"loss": total.detach(),
                    "num_voxels": example["num_voxels"].float().mean()}
         for k in METRIC_KEYS:

@@ -33,6 +33,8 @@ from typing import Callable, Dict
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from det3d_tpu_torch.utils.trace import STAGES
+
 # NVIDIA H100 SXM 80GB (HBM3), published dense peaks at its 700 W limit:
 # HBM bytes/s, fp32 FLOP/s on the CUDA cores (TF32 off), bf16 FLOP/s on
 # the tensor cores
@@ -308,10 +310,6 @@ class FlopCounter(TorchDispatchMode):
                      _nbytes(dy, x, w, *[t for t in out if t is not None]),
                      peak_of(x.dtype))
         return out
-
-
-STAGES = ("voxelize", "reader", "backbone", "neck", "bbox_head",
-          "decode+nms")
 
 
 def stage_hooks(model, counter: FlopCounter):
