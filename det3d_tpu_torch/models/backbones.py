@@ -14,11 +14,21 @@ from the first resolution of depth 64 or less. The canvas keeps the
 reference's NHWC layout, (B, ny, nx, C). Padded rows (coords -1) are
 dropped before every scatter, where the reference sends them to an
 out-of-bounds index that XLA drops.
+
+The dense tail (the stages from ``dense_from`` on) holds the weights of
+the JAX package's masked dense conv3d tail, which is a submanifold or
+strided sparse conv over the active sites with every output kept. On the
+card it runs on those sites alone (``_RowsTail``): a TPU runs a dense
+conv3d faster than rulebook gathers, but cuDNN's conv3d over the whole
+grid spends most of its products on empty sites (93% at CBGS's res2 and
+res3 on nuScenes scans), where the window-conv kernels spend none. The
+dense forwards of ``DenseConvBN`` and ``DenseBasicBlock`` are the twins
+the tests hold the JAX package's layers and the rows tail to.
 """
 
 from __future__ import annotations
 
-import contextlib
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -102,6 +112,19 @@ def middle_plan_spec(middle, input_shape, max_voxels, host: bool = True):
             "stages": tuple(stages)}
 
 
+def _conv(x, packed, weight, center_shift, dt, inverse=None):
+    """Rows ``x`` convolved over ``packed`` with z-major ``weight`` (kvol,
+    Cin, Cout), operands in ``dt``, fp32 sums and output: window_conv over
+    a packed window rulebook, flat_conv over a deep resolution's flat one
+    (its submanifold center column by rank shifts)."""
+    if isinstance(packed, sp.Flat):
+        return sp.flat_conv(x.to(dt), packed.idx, packed.mask, weight.to(dt),
+                            sp.center_column_taps(3) if center_shift
+                            else None)
+    return window_conv(x.to(dt).contiguous(), packed.contiguous(),
+                       weight.to(dt).contiguous(), center_shift, inverse)
+
+
 class SparseConvBN(nn.Module):
     """Sparse conv over a packed window rulebook, optional bias, BN and
     optional ReLU.
@@ -136,16 +159,8 @@ class SparseConvBN(nn.Module):
         """``packed``: a packed window rulebook, or a deep resolution's
         flat one (ops/sparse.py::Flat), which flat_conv runs (its
         submanifold center column by rank shifts)."""
-        dt = dtype or self.dtype
-        if isinstance(packed, sp.Flat):
-            y = sp.flat_conv(x.to(dt), packed.idx, packed.mask,
-                             self.weight.to(dt),
-                             sp.center_column_taps(3) if center_shift
-                             else None)
-        else:
-            y = window_conv(x.to(dt).contiguous(), packed.contiguous(),
-                            self.weight.to(dt).contiguous(), center_shift,
-                            inverse)
+        y = _conv(x, packed, self.weight, center_shift, dtype or self.dtype,
+                  inverse)
         if self.bias is not None:
             y = y + self.bias
         if self.norm is not None:
@@ -174,25 +189,19 @@ class SparseBasicBlock(nn.Module):
         return torch.relu(x + y)
 
 
-# cuDNN 9.22 (PyTorch 2.11) on the H100, fp32 with TF32 off, runs Lyft's
-# 3x3x3 stride-1 conv from 128 to 128 channels over (2, 5, 252, 252) at 27
-# TFLOP/s (21.0 ms), and as two convs of 64 output channels each at 40
-# (14.1 ms, their concatenation included); its strided convs to 128
-# channels run slower split (chip_smoke.py phase 30 times each both ways).
-COUT_CHUNK = 64
-
-
 class DenseConvBN(nn.Module):
-    """Dense-tail twin of SparseConvBN: conv3d, optional bias, BN (in
-    training on the statistics of the active sites), optional ReLU,
-    re-zeroed off the active sites.
+    """A dense-tail layer: conv, optional bias, BN (in training on the
+    statistics of the active sites), optional ReLU.
 
-    Tensors are NDHWC; the conv runs on NCDHW views of them. The conv is
-    PyTorch's conv3d (the JAX package leaves this one to XLA, outside any
-    Pallas kernel); an fp32 stride-1 conv to more than COUT_CHUNK channels
-    runs as convs of COUT_CHUNK output channels each, concatenated. With
-    bf16 the whole epilogue (the bias among it) stays in bf16, as the JAX
-    package serves it. A call's ``dtype`` overrides ``precision``."""
+    ``rows`` runs it on the active sites alone, the main path: the conv
+    over a window rulebook (models/backbones.py::_RowsTail builds it),
+    through ops/window_conv_cuda.py::window_conv as SparseConvBN's, the
+    weight read as z-major (kz*ky*kx, Cin, Cout) taps. ``forward`` is its
+    dense twin on NDHWC tensors (the conv3d of NCDHW views, re-zeroed off
+    the active sites), the JAX package's layer. The weight keeps conv3d's
+    (Cout, Cin, kz, ky, kx) layout in both. With bf16 the whole epilogue
+    (the bias among it) stays in bf16, as the JAX package serves it. A
+    call's ``dtype`` overrides ``precision``."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel=(3, 3, 3), stride=(1, 1, 1), padding=(1, 1, 1),
@@ -214,36 +223,42 @@ class DenseConvBN(nn.Module):
         self.norm = (build_norm(norm_cfg, out_channels, dtype=self.dtype)
                      if use_norm else None)
 
-    def conv(self, x, dtype=None):
-        """The conv3d of NCDHW ``x`` in ``dtype`` (default: the layer's)."""
-        dt = dtype or self.dtype
-        w = self.weight.to(dt)
-        kw = dict(stride=self.stride, padding=self.padding)
-        if (dt == torch.float32 and self.stride == (1, 1, 1)
-                and w.shape[0] > COUT_CHUNK):
-            return torch.cat([F.conv3d(x, w[i:i + COUT_CHUNK], **kw)
-                              for i in range(0, w.shape[0], COUT_CHUNK)],
-                             dim=1)
-        return F.conv3d(x, w, **kw)
-
-    def forward(self, x, occ_out, dtype=None):
-        dt = dtype or self.dtype
-        y = self.conv(x.to(dt).permute(0, 4, 1, 2, 3), dt).permute(
-            0, 2, 3, 4, 1)
+    def _epilogue(self, y, mask, dtype):
         if self.bias is not None:
             y = y + self.bias.to(y.dtype)
         if self.norm is not None:
-            y = self.norm(y, mask=occ_out, dtype=dtype)
-        if self.relu:
-            y = torch.relu(y)
+            y = self.norm(y, mask=mask, dtype=dtype)
+        return torch.relu(y) if self.relu else y
+
+    def rows(self, x, packed, dtype=None, valid=None, inverse=None):
+        """The layer on rows ``x`` (B, V, Cin): ``packed`` is the
+        submanifold rulebook of the rows for a stride-1 layer, else the
+        strided conv's over the input rows (a deep resolution's flat one
+        where the bitmap cannot hold it); ``valid`` the rows whose BN
+        statistics count in training; ``inverse`` the strided conv's
+        (packed inverse rulebook, kernel, stride) for its dX. Returns
+        (B, O, Cout)."""
+        dt = dtype or self.dtype
+        taps = self.weight.permute(2, 3, 4, 1, 0).flatten(0, 2)
+        y = _conv(x, packed, taps, self.stride == (1, 1, 1), dt, inverse)
+        return self._epilogue(y.to(dt), valid, dtype)
+
+    def forward(self, x, occ_out, dtype=None):
+        """The dense twin: NDHWC ``x`` zero off its active sites, the
+        output's active sites ``occ_out`` (B, D, H, W)."""
+        dt = dtype or self.dtype
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.weight.to(dt),
+                     stride=self.stride, padding=self.padding)
+        y = self._epilogue(y.permute(0, 2, 3, 4, 1), occ_out, dtype)
         return y * occ_out[..., None].to(y.dtype)
 
 
 class DenseBasicBlock(nn.Module):
-    """Dense-tail twin of SparseBasicBlock: two biased DenseConvBNs, then
-    relu(x + y) in the activation dtype (bf16 when serving bf16), re-masked
-    by the occupancy. Port of det3d_tpu/models/backbones.py::
-    DenseBasicBlock."""
+    """Dense-tail residual block: two biased DenseConvBNs, then relu(x + y)
+    in the activation dtype (bf16 when serving bf16). ``rows`` runs it on
+    one submanifold rulebook of the active rows; ``forward`` is its dense
+    twin, re-masked by the occupancy. Port of
+    det3d_tpu/models/backbones.py::DenseBasicBlock."""
 
     def __init__(self, channels: int, norm_cfg: Optional[dict] = None,
                  precision: str = "fp32"):
@@ -256,32 +271,15 @@ class DenseBasicBlock(nn.Module):
                                          precision=precision, use_bias=True,
                                          relu=False)
 
+    def rows(self, x, packed, dtype=None, valid=None):
+        y = self.DenseConvBN_0.rows(x, packed, dtype, valid)
+        y = self.DenseConvBN_1.rows(y, packed, dtype, valid)
+        return torch.relu(x + y)
+
     def forward(self, x, occ, dtype=None):
         y = self.DenseConvBN_0(x, occ, dtype)
         y = self.DenseConvBN_1(y, occ, dtype)
         return torch.relu(x + y) * occ[..., None].to(x.dtype)
-
-
-def _occupancy(coords, shape):
-    """(B, V, 3) zyx -> (B, D, H, W) bool active-site mask."""
-    d, h, w = shape
-    b = coords.shape[0]
-    n = d * h * w
-    lin = sp.linearize(coords, shape)
-    keep = lin != sp._SENTINEL
-    flat = torch.arange(b, device=lin.device)[:, None] * n + lin
-    occ = torch.zeros(b * n + 1, dtype=torch.bool, device=lin.device)
-    # index_fill_ takes the value as a kernel argument; ``occ[idx] = True``
-    # would copy it from host memory and wait
-    occ.index_fill_(0, torch.where(keep, flat, b * n).reshape(-1), True)
-    return occ[:-1].view(b, d, h, w)
-
-
-def _cover_mask(occ, kernel, stride, padding):
-    """Occupancy of a strided conv's output set: every output whose
-    footprint covers an active input, a max-pool of the occupancy."""
-    return F.max_pool3d(occ[:, None].float(), kernel, stride,
-                        padding)[:, 0] > 0
 
 
 def _fold_depth(dense):
@@ -325,12 +323,12 @@ def _stage_rulebooks(coords, shape, kernel, stride, padding, max_out,
     output bitmap. Port of backbones.py::_stage_rulebooks, its sorted
     branch.
 
-    Rows go into rank order at every stage, also at one that builds no
-    lookup (the dense tail's transition, the sparse z conv), where the
-    JAX package's evaluation keeps conv_out_coords' zyx order: the host
-    plan's order, which that stage's consumers (to_dense, the BEV scatter)
-    do not see. Returns (coords, (r0, pres) down, (r0, pres) subm or None,
-    out shape, bitmap or None, packed inverse or None)."""
+    Rows go into rank order at every stage, as the host plan emits them,
+    also at one that builds no lookup (the dense tail's transition, whose
+    lookup the tail builds from these rows; a last z conv), where the JAX
+    package's evaluation keeps conv_out_coords' zyx order. Returns
+    (coords, (r0, pres) down, (r0, pres) subm or None, out shape, bitmap or
+    None, packed inverse or None)."""
     out_co, oshape = sp.conv_out_coords(coords, shape, kernel, stride,
                                         padding, max_out)
     lookup = subm = inverse = None
@@ -427,6 +425,49 @@ def _valid(coords, training):
     return coords[..., 0] >= 0 if training else None
 
 
+class _RowsTail:
+    """The dense tail on its active rows, the rulebooks built on the
+    device as it goes, with the functions ``_stage_rulebooks`` calls.
+
+    It starts from the transition's rows (features, coords in rank order,
+    shape): their lookup and submanifold rulebook. ``down`` runs a strided
+    layer to the next resolution, whose outputs are all kept, as the
+    dense tail keeps them: a sample's rows are its whole output grid,
+    never the stage cap, the outputs first in rank order and padding after
+    (a tile of padding lists no tap). In training each strided layer takes
+    its inverse rulebook. The rows go to the BEV map at the end
+    (``bev``)."""
+
+    def __init__(self, x, co, shape, dt, training):
+        self.x, self.co, self.shape = x, co, shape
+        self.dt, self.training = dt, training
+        self.lookup = sp.rank_lookup(co, shape)
+        self.valid = _valid(co, training)
+        self.subm = _pack(sp.subm_window_rulebook_batch(co, shape, 3,
+                                                        self.lookup))
+
+    def blocks(self, layers):
+        """Submanifold layers (DenseConvBN or DenseBasicBlock), in turn."""
+        for layer in layers:
+            self.x = layer.rows(self.x, self.subm, self.dt, self.valid)
+
+    def down(self, layer, last=False):
+        """The strided ``layer``; ``last``: no layer follows at its output
+        resolution, which then needs a lookup only for the inverse."""
+        k, s, p = layer.kernel, layer.stride, layer.padding
+        cells = math.prod(sp.out_spatial_shape(self.shape, k, s, p))
+        co, down, subm, self.shape, self.lookup, inv = _stage_rulebooks(
+            self.co, self.shape, k, s, p, cells, self.lookup, not last,
+            self.training)
+        self.co, self.valid = co, _valid(co, self.training)
+        self.x = layer.rows(self.x, _pack(down), self.dt, self.valid,
+                            None if inv is None else (inv, k, s))
+        self.subm = None if subm is None else _pack(subm)
+
+    def bev(self):
+        return _bev_reshape(self.x, self.co, self.shape)
+
+
 # (channels, n_subm, kernel, stride, padding) per downsample stage
 _SPECS = ((32, 2, 3, 2, 1), (64, 3, 3, 2, 1), (64, 3, 3, 2, (0, 1, 1)))
 
@@ -439,14 +480,17 @@ class SpMiddleFHD(nn.Module):
     Input: voxel_features (B, V, C), coords (B, V, 3) int32 zyx (-1 pad),
     input_shape (nx, ny, nz), and the host plan (ops/sparse_host.py, keys
     without their ``plan_`` prefix) or None. Output: (B, ny/8, nx/8, 64 *
-    D_final). Stages before ``dense_from`` run sparse window convs; with
-    ``dense_tail`` the rest run masked dense conv3d. From a host plan the
-    middle computes in ``serve_precision`` when set, else ``precision``;
-    without one it builds the plan on the device (build_plan_device) and
-    computes in ``precision``, as the JAX package's ``plan=None`` path
-    does. In training (``module.train()``) it computes in ``precision``
-    from either plan (a training plan: host_plan_fn(train=True) or
-    build_plan_device(train=True)), densifies in fp32, and passes each
+    D_final). Stages before ``dense_from`` run sparse window convs on the
+    plan's rulebooks, under its stage caps; with ``dense_tail`` the rest
+    (the JAX package's masked dense conv3d, ``DenseConvBN``) run as window
+    convs on every active site, over rulebooks the tail builds on the
+    device (``_RowsTail``), host plan or not. From a host plan the middle
+    computes in ``serve_precision`` when set, else ``precision``; without
+    one it builds the plan on the device (build_plan_device) and computes
+    in ``precision``, as the JAX package's ``plan=None`` path does. In
+    training (``module.train()``) it computes in ``precision`` from either
+    plan (a training plan: host_plan_fn(train=True) or
+    build_plan_device(train=True)), the tail in fp32 too, and passes each
     strided conv its inverse rulebook. The ``serve_*band`` keys tune the
     TPU kernel's band and are ignored: the CUDA kernel has no band.
 
@@ -521,32 +565,25 @@ class SpMiddleFHD(nn.Module):
         x = next(convs)(x, s0, True, dt, valid)
         x = next(convs)(x, s0, True, dt, valid)
 
-        xd = occ = co = None
-        with contextlib.ExitStack() as tail:
-            for i, (ch, n_subm, k, s, p) in enumerate(_SPECS, start=1):
-                if i <= self.start:
-                    co, down, subm, shape, inv = _plan_stage(plan, i, shape,
-                                                             k, s, p)
-                    valid = _valid(co, self.training)
-                    x = next(convs)(x, down, False, dt, valid, inv)
-                    if i < self.start:
-                        for _ in range(n_subm):
-                            x = next(convs)(x, subm, True, dt, valid)
-                        continue
-                    # transition: densify this stage
-                    tail.enter_context(trace.segment("dense_tail"))
-                    occ = _occupancy(co, shape)
-                    xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
-                else:
-                    k3, s3, p3 = sp._as3(k), sp._as3(s), sp._as3(p)
-                    occ = _cover_mask(occ, k3, s3, p3)
-                    xd = next(dconvs)(xd, occ, dt)
+        for i, (ch, n_subm, k, s, p) in enumerate(_SPECS[:self.start],
+                                                  start=1):
+            co, down, subm, shape, inv = _plan_stage(plan, i, shape, k, s, p)
+            valid = _valid(co, self.training)
+            x = next(convs)(x, down, False, dt, valid, inv)
+            if i < self.start:
                 for _ in range(n_subm):
-                    xd = next(dconvs)(xd, occ, dt)
-
-            if xd is not None:
-                occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
-                return _fold_depth(next(dconvs)(xd, occ4, dt))
+                    x = next(convs)(x, subm, True, dt, valid)
+        if self.start < 4:
+            with trace.segment("dense_tail"):
+                tail = _RowsTail(x.to(dt or self.dtype), co, shape, dt,
+                                 self.training)
+                tail.blocks([next(dconvs)
+                             for _ in range(_SPECS[self.start - 1][1])])
+                for spec in _SPECS[self.start:]:
+                    tail.down(next(dconvs))
+                    tail.blocks([next(dconvs) for _ in range(spec[1])])
+                tail.down(next(dconvs), last=True)
+                return tail.bev()
         co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
                                                 (2, 1, 1), 0)
         x = next(convs)(x, down, False, dt, _valid(co4, self.training), inv)
@@ -565,10 +602,11 @@ class SpMiddleResNetFHD(nn.Module):
 
     The stem SparseConvBN and two SparseBasicBlocks at res0; per stage
     before ``dense_from`` a strided SparseConvBN and two SparseBasicBlocks;
-    at ``dense_from`` the strided conv, then ``to_dense`` in the activation
-    dtype and two DenseBasicBlocks; after it a strided DenseConvBN and two
-    DenseBasicBlocks; then the (3, 1, 1) z conv to 128 channels. Without
-    ``dense_tail`` every stage and the z conv stay sparse. Input, output
+    at ``dense_from`` the strided conv, then, in the activation dtype, the
+    dense tail: two DenseBasicBlocks; after it a strided DenseConvBN and
+    two DenseBasicBlocks; then the (3, 1, 1) z conv to 128 channels, all
+    on the active sites as SpMiddleFHD's tail. Without ``dense_tail``
+    every stage and the z conv stay sparse. Input, output
     and precision as SpMiddleFHD's (output (B, ny/8, nx/8, 128 *
     D_final)): without a plan it builds one on the device and computes in
     ``precision``, and in training computes in ``precision`` from either
@@ -644,33 +682,24 @@ class SpMiddleResNetFHD(nn.Module):
         for _ in range(2):
             x = next(mods["SparseBasicBlock"])(x, s0, dt, valid)
 
-        xd = occ = None
-        with contextlib.ExitStack() as tail:
-            for i, (ch, k, s, p) in enumerate(_RES_SPECS, start=1):
-                if i <= self.start:
-                    co, down, subm, shape, inv = _plan_stage(plan, i, shape,
-                                                             k, s, p)
-                    valid = _valid(co, self.training)
-                    x = next(scb)(x, down, False, dt, valid, inv)
-                    if i < self.start:
-                        for _ in range(2):
-                            x = next(mods["SparseBasicBlock"])(x, subm, dt,
-                                                               valid)
-                        continue
-                    # transition: densify this stage in the activation dtype
-                    tail.enter_context(trace.segment("dense_tail"))
-                    occ = _occupancy(co, shape)
-                    xd = sp.to_dense(x.to(dt or self.dtype), co, shape)
-                else:
-                    occ = _cover_mask(occ, sp._as3(k), sp._as3(s),
-                                      sp._as3(p))
-                    xd = next(dcb)(xd, occ, dt)
+        for i, (ch, k, s, p) in enumerate(_RES_SPECS[:self.start], start=1):
+            co, down, subm, shape, inv = _plan_stage(plan, i, shape, k, s, p)
+            valid = _valid(co, self.training)
+            x = next(scb)(x, down, False, dt, valid, inv)
+            if i < self.start:
                 for _ in range(2):
-                    xd = next(mods["DenseBasicBlock"])(xd, occ, dt)
-
-            if xd is not None:
-                occ4 = _cover_mask(occ, (3, 1, 1), (2, 1, 1), (0, 0, 0))
-                return _fold_depth(next(dcb)(xd, occ4, dt))
+                    x = next(mods["SparseBasicBlock"])(x, subm, dt, valid)
+        if self.start < 4:
+            with trace.segment("dense_tail"):
+                blocks = mods["DenseBasicBlock"]
+                tail = _RowsTail(x.to(dt or self.dtype), co, shape, dt,
+                                 self.training)
+                tail.blocks([next(blocks) for _ in range(2)])
+                for _ in _RES_SPECS[self.start:]:
+                    tail.down(next(dcb))
+                    tail.blocks([next(blocks) for _ in range(2)])
+                tail.down(next(dcb), last=True)
+                return tail.bev()
         co4, down, _, shape4, inv = _plan_stage(plan, 4, shape, (3, 1, 1),
                                                 (2, 1, 1), 0)
         x = next(scb)(x, down, False, dt, _valid(co4, self.training), inv)

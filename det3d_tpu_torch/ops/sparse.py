@@ -567,9 +567,15 @@ def stage_lookup_batch(coords, shape):
     apply ``order`` to every per-row array."""
     order = yxz_order(coords, shape)
     co = torch.gather(coords, 1, order[..., None].expand(-1, -1, 3))
+    return order, co, rank_lookup(co, shape)
+
+
+def rank_lookup(coords, shape):
+    """The lookup of rows already in rank order: the bitmap for depths up
+    to 64, else build_lookup_batch's table."""
     if shape[0] <= MAX_BITMAP_DEPTH:
-        return order, co, build_bitmap_batch(co, shape)
-    return order, co, build_lookup_batch(co, shape)
+        return build_bitmap_batch(coords, shape)
+    return build_lookup_batch(coords, shape)
 
 
 def pack_windows(r0, pres):

@@ -211,12 +211,13 @@ CONV_SHAPES = ("subm (4,16) s0", "subm (16,16) s0", "strided (16,32) down1",
 def test_window_conv_equals_plain(dev, second_plan, prec, name):
     """Every (Cin, Cout, center_shift) of SECOND's middle, on its plan: the
     bf16 tensor-core kernel and the fp32 CUDA-core kernel."""
-    from chip_smoke import CONV_TOL, conv_cases
+    from chip_smoke import CONV_TOL, SECOND_SPARSE, conv_cases
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
     dtype = torch.float32 if prec == "fp32" else torch.bfloat16
-    case = {c[0]: c for c in conv_cases(second_plan, dev, dtype)}[name]
+    case = {c[0]: c for c in conv_cases(second_plan, dev, dtype,
+                                        SECOND_SPARSE)}[name]
     _, x, pk, w, subm = case
     before = window_conv.launches
     out = window_conv(x, pk, w, subm)
@@ -246,13 +247,13 @@ def cbgs_plan(dev):
 def test_window_conv_cbgs_equals_plain(dev, cbgs_plan, prec, name):
     """CBGS's stem (Cin 5, zero-padded in bf16) and its transition into the
     dense tail, at V = O = 60000 rows."""
-    from chip_smoke import CBGS_LAYERS, CONV_TOL, conv_cases
+    from chip_smoke import CBGS_SPARSE, CONV_TOL, conv_cases
     from det3d_tpu_torch.ops.sparse import unpack_windows
     from det3d_tpu_torch.ops.window_conv_cuda import (window_conv,
                                                       window_conv_ref)
     dtype = torch.float32 if prec == "fp32" else torch.bfloat16
     case = {c[0]: c for c in conv_cases(cbgs_plan, dev, dtype,
-                                        CBGS_LAYERS)}[name]
+                                        CBGS_SPARSE)}[name]
     _, x, pk, w, subm = case
     assert x.shape[1] == pk.shape[1] == 60000
     out = window_conv(x, pk, w, subm)
@@ -572,11 +573,11 @@ def test_backward_kernels_equal_plain(dev, train_plan, name):
     every conv of SECOND's middle against the plain twins in fp32, within
     chip_smoke.py's BWD_TOL; dW bit-equal on a second call; each wrapper
     counts one launch."""
-    from chip_smoke import BWD_TOL, SECOND_LAYERS, bwd_cases
+    from chip_smoke import BWD_TOL, SECOND_SPARSE, bwd_cases
     from det3d_tpu_torch.ops import sparse as sp
     from det3d_tpu_torch.ops import window_conv_cuda as wc
     case = {c[0]: c for c in bwd_cases(train_plan, dev,
-                                       SECOND_LAYERS)}[name]
+                                       SECOND_SPARSE)}[name]
     _, x, pk, w, subm, inv, dy = case
     r0, pres = sp.unpack_windows(pk, 3)
     dys = dy / (pk.shape[0] * pk.shape[1]) ** 0.5
@@ -685,13 +686,14 @@ def test_backward_kernels_reject_bad_inputs(dev):
 # ---------------------------------------------------------------------------
 
 def _bwd_shapes():
-    """(plan, plan key, Cin, Cout, subm) of every conv the training paths
-    run: SECOND's, CBGS's (Cin-5 stem) and Lyft's Cin-6 stem (on CBGS's
-    plan: Lyft runs CBGS's middle), RCNN's middle, the deep grid's window
-    convs and VoxelNet's (128, 16) stem (on SECOND's plan)."""
-    from chip_smoke import CBGS_LAYERS, RCNN_LAYERS, SECOND_LAYERS, STEM_6
+    """(plan, plan key, Cin, Cout, subm) of every sparse conv the training
+    paths run on their plans (the dense tails' run in chip_smoke.py's
+    phase 58): SECOND's, CBGS's (Cin-5 stem) and Lyft's Cin-6 stem (on
+    CBGS's plan: Lyft runs CBGS's middle), RCNN's middle, the deep grid's
+    window convs and VoxelNet's (128, 16) stem (on SECOND's plan)."""
+    from chip_smoke import CBGS_SPARSE, RCNN_LAYERS, SECOND_SPARSE, STEM_6
     out = []
-    for plan, layers in (("second", SECOND_LAYERS), ("cbgs", CBGS_LAYERS),
+    for plan, layers in (("second", SECOND_SPARSE), ("cbgs", CBGS_SPARSE),
                          ("cbgs", STEM_6), ("rcnn", RCNN_LAYERS),
                          ("second", (("s0", 128, 16, True),))):
         for key, cin, cout, subm in layers:

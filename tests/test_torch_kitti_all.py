@@ -13,8 +13,8 @@ structured scans:
 - the anchors of the 3 generators and the class ids of the 3 tasks equal
   the JAX package's at the shipped (1, 200, 176) feature map;
 - the host plans and voxels equal the JAX package's, array for array;
-- the fp32 middle (10 window convs on fp32 operands) agrees with JAX's
-  within rtol = atol = 1e-4;
+- the fp32 middle (14 window convs on fp32 operands, 4 of them the dense
+  tail's) agrees with JAX's within rtol = atol = 1e-4;
 - the whole predict step agrees with JAX's ``model.apply`` + ``predict``:
   the three tasks' heads (box, class and direction) within 1e-4, the same
   valid masks and labels, boxes and scores within 1e-4, shape (B, 100, 7),
@@ -46,7 +46,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KITTI_ALL_CFG = os.path.join(REPO, "configs", "kitti_all_second.py")
 TOL = dict(rtol=1e-4, atol=1e-4)
 N_TASKS = 3
-LAUNCHES = 10               # window convs of a forward, as on the card
+LAUNCHES = 14               # window convs of a forward (10 sparse, 4 of
+                            # the tail), as on the card
 # the class convs of test_predict_*: CAND_SHARE of the 3200 anchors a task
 # and scan keeps most tasks under the shipped nms_pre_max_size of 1000
 CLS_GAIN, CAND_SHARE = 5.0, 0.1
@@ -139,7 +140,7 @@ def test_host_plan_fn_equals_jax(batch):
 # ---------------------------------------------------------------------------
 
 def test_middle_fp32_matches_jax(batch, monkeypatch):
-    """The shipped middle (fp32, dense tail from stage 3): 10 window convs,
+    """The shipped middle (fp32, dense tail from stage 3): 14 window convs,
     each on fp32 operands, and the output within 1e-4 of JAX's."""
     out, ref, calls = fp32_middle(kitti_all_config(), batch, monkeypatch)
     assert calls == [(torch.float32, torch.float32)] * LAUNCHES

@@ -16,12 +16,13 @@ fused cross-task NMS at thr 0.2), on structured scans:
 - the host plans and voxels equal the JAX package's, array for array, on
   the cut range and once at full scale: one scan of 300000 points over
   +-100.8 m, more occupied voxels than the 80000-voxel cap;
-- the fp32 middle (11 window convs on fp32 operands) agrees with JAX's
-  within rtol = atol = 1e-4;
+- the fp32 middle (21 window convs on fp32 operands, 10 of them the dense
+  tail's) agrees with JAX's within rtol = atol = 1e-4;
 - an fp32 RPN conv over a batch of maps as large as Lyft's runs one map at
-  a time (models/necks.py::stage_conv), and an fp32 dense-tail conv to
-  128 channels as two 64-channel convs (models/backbones.py::DenseConvBN),
-  each the same function as one conv;
+  a time (models/necks.py::stage_conv), the same function as one conv;
+- each kind of dense-tail layer, run on the active rows over the tail's
+  own rulebooks (models/backbones.py::DenseConvBN.rows), equals its dense
+  forward;
 - the whole predict step agrees with JAX's ``model.apply`` + ``predict``:
   the same valid masks and labels, boxes and scores within 1e-4, shape
   (B, 5 x 83, 9), every tensor carried over by ``from_jax``.
@@ -43,6 +44,7 @@ from det3d_tpu.apis.train import build_stack as jbuild_stack
 from det3d_tpu.apis.train import host_plan_fn as jhost_plan_fn
 from det3d_tpu_torch.apis.train import build_stack, host_plan_fn
 from det3d_tpu_torch.models import backbones, necks
+from det3d_tpu_torch.ops import sparse as sp
 from det3d_tpu_torch.ops import sparse_host as sph
 from det3d_tpu_torch.parallel.predict import make_predict_step
 from det3d_tpu_torch.utils.config import Config
@@ -60,7 +62,8 @@ PC = (-EXTENT, -EXTENT, -4.0, EXTENT, EXTENT, 2.0)
 FULL_PC = (-100.8, -100.8, -4.0, 100.8, 100.8, 2.0)
 TOL = dict(rtol=1e-4, atol=1e-4)
 N_TASKS, POST_MAX = 5, 83
-LAUNCHES = 11               # window convs of a forward, as on the card
+LAUNCHES = 21               # window convs of a forward (11 sparse, 10 of
+                            # the tail), as on the card
 CLS_GAIN, CAND_SHARE = 5.0, 0.2        # the class convs of test_predict_*
 # the predict tests' nms_pre_max_size (shipped: 1000, which chip_smoke runs
 # on the card): the plain NMS twin computes the IoU of every pair on the
@@ -225,7 +228,7 @@ def fp32_middle(config, batch, monkeypatch):
 
 
 def test_middle_fp32_matches_jax(batch, monkeypatch):
-    """The shipped middle (fp32, dense_from=2): 11 window convs, each on
+    """The shipped middle (fp32, dense_from=2): 21 window convs, each on
     fp32 operands, and the output within 1e-4 of JAX's."""
     out, ref, calls = fp32_middle(lyft_config(), batch, monkeypatch)
     assert calls == [(torch.float32, torch.float32)] * LAUNCHES
@@ -285,39 +288,56 @@ def test_stage_conv_per_map_equals_one_conv(cin, cout, b, stride, dtype,
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("cin,cout,stride,dtype,calls", [
-    (128, 128, 1, torch.float32, 2),        # Lyft's stage 3: 2 chunks
-    (64, 64, 1, torch.float32, 1),          # stage 2: one call
-    (64, 128, 2, torch.float32, 1),         # strided: one call
-    (128, 128, 1, torch.bfloat16, 1),       # bf16 (CBGS): one call
+@pytest.mark.parametrize("cin,cout,kernel,stride,padding,dtype", [
+    (128, 128, 3, 1, 1, torch.float32),               # Lyft's res3 subm
+    (64, 128, 3, 2, (0, 1, 1), torch.float32),        # its stage-3 conv
+    (128, 128, (3, 1, 1), (2, 1, 1), 0, torch.float32),   # the z conv
+    (128, 128, 3, 1, 1, torch.bfloat16),              # bf16 (CBGS)
 ])
-def test_dense_conv_cout_chunks_equal_one_conv(cin, cout, stride, dtype,
-                                               calls, monkeypatch):
-    """An fp32 stride-1 dense-tail conv3d to more than COUT_CHUNK channels
-    runs as COUT_CHUNK-channel output slices, concatenated: the same
-    function as one conv, within 1e-4."""
-    F = torch.nn.functional
+def test_dense_tail_layer_rows_equal_dense_forward(cin, cout, kernel, stride,
+                                                   padding, dtype):
+    """A dense-tail layer on the active rows (DenseConvBN.rows over the
+    rulebook models/backbones.py::_RowsTail builds, every strided output
+    kept) equals its dense forward at the active sites of its output and
+    matches its zeros elsewhere: fp32 within 1e-4, bf16 within 1e-2."""
+    g = torch.Generator().manual_seed(0)
     layer = backbones.DenseConvBN(
-        cin, cout, stride=stride,
-        precision="bf16" if dtype == torch.bfloat16 else "fp32")
-    x = torch.randn(2, cin, 5, 12, 10,
-                    generator=torch.Generator().manual_seed(0)).to(dtype)
-    seen, real = [], F.conv3d
-
-    def counted(x, w, *a, **k):
-        seen.append(tuple(w.shape))
-        return real(x, w, *a, **k)
-    monkeypatch.setattr(F, "conv3d", counted)
+        cin, cout, kernel=kernel, stride=stride, padding=padding,
+        norm_cfg={"type": "BN"}, use_bias=True,
+        precision="bf16" if dtype == torch.bfloat16 else "fp32").eval()
     with torch.no_grad():
-        out = layer.conv(x)
-    monkeypatch.setattr(F, "conv3d", real)
-    assert len(seen) == calls
-    assert all(s[0] == cout // calls for s in seen)
+        layer.bias.copy_(0.1 * torch.randn(cout, generator=g))
+        layer.norm.mean.copy_(0.1 * torch.randn(cout, generator=g))
+    shape = (5, 12, 10)
+    occ = torch.rand((2,) + shape, generator=g) < 0.3
+    x = (torch.relu(torch.randn((2,) + shape + (cin,), generator=g))
+         * occ[..., None]).to(dtype)
+    b, z, y, xx = torch.nonzero(occ, as_tuple=True)
+    co = torch.full((2, 200, 3), -1, dtype=torch.int32)
+    rows = torch.zeros((2, 200, cin), dtype=dtype)
+    for i in range(2):
+        n = int((b == i).sum())
+        co[i, :n] = torch.stack([z, y, xx], -1)[b == i].int()
+        rows[i, :n] = x[i][occ[i]]
+    order = sp.yxz_order(co, shape)
+    co = torch.gather(co, 1, order[..., None].expand(-1, -1, 3))
+    rows = torch.gather(rows, 1, order[..., None].expand(-1, -1, cin))
     with torch.no_grad():
-        ref = real(x, layer.weight.to(dtype), stride=stride, padding=1)
-    assert out.shape == ref.shape and out.dtype == dtype
-    torch.testing.assert_close(out.float(), ref.float(), rtol=1e-4,
-                               atol=1e-4)
+        tail = backbones._RowsTail(rows, co, shape, None, False)
+        if layer.stride == (1, 1, 1):
+            tail.blocks([layer])
+            occ_out = occ
+        else:
+            tail.down(layer, last=True)
+            occ_out = torch.nn.functional.max_pool3d(
+                occ[:, None].float(), layer.kernel, layer.stride,
+                layer.padding)[:, 0] > 0
+        ref = layer(x, occ_out)
+    got = sp.to_dense(tail.x, tail.co, tail.shape)
+    assert got.dtype == ref.dtype == dtype
+    assert int((tail.co[..., 0] >= 0).sum()) == int(occ_out.sum())
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
 
 
 def predict_pair(config, batch, cand_share, pre_max=None):

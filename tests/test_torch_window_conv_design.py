@@ -11,9 +11,10 @@ constants). Held here:
     ``chip_smoke.tap_rows`` (the plain version's rules) selects it, is run
     by the warp whose band holds row o, and every tap a warp runs is
     listed for its tile. On SECOND's and CBGS's host plans at full scale,
-    a Lyft plan cut to +-12.8 m, CBGS's middle without its dense tail (the
-    128-channel layers), an all-absent plan, one row, and O at the tile
-    and band edges.
+    a Lyft plan cut to +-12.8 m (each with its dense tail's rulebooks,
+    built as the tail builds them: ``chip_smoke.tail_plan``), CBGS's
+    middle without its dense tail (the 128-channel layers), an all-absent
+    plan, one row, and O at the tile and band edges.
 (b) The yardstick is the function: chip_smoke's im2col+matmul, which
     times the same conv as one gather and one matmul, equals the plain
     version in fp32 within rtol = atol = 1e-4 at every (Cin, Cout,
@@ -57,9 +58,12 @@ def check_schedule(packed, v, center_shift, cout):
     return sch
 
 
-def layer_plans(plan, layers):
+def layer_plans(plan, layers, cfg=None):
     """{(plan key, Cout, center_shift): (packed, V)} over a middle's
-    window convs in forward order."""
+    window convs in forward order; with ``cfg``, its dense tail's on the
+    rulebooks the tail builds on ``plan``."""
+    if cfg is not None:
+        plan = dict(plan, **cs.tail_plan(cs.detector_of(cfg), plan, "cpu"))
     out, rows = {}, plan["plan_s0"].shape[1]
     for key, _, cout, subm in layers:
         pk = plan[f"plan_{key}"]
@@ -77,11 +81,11 @@ def plans():
     batch = structured_batch(1, cs.POINTS, sec["voxel_generator"]["range"],
                              seed=cs.SEED)
     out = {"second": layer_plans(cs.plan_builder(sec)(
-        batch["points"], batch["num_points"]), cs.SECOND_LAYERS)}
+        batch["points"], batch["num_points"]), cs.SECOND_LAYERS, sec)}
     cbgs = cs.cbgs_config()
     scan = cs.cbgs_batch(1, cs.CBGS_POINTS, cbgs["voxel_generator"]["range"])
     out["cbgs"] = layer_plans(cs.plan_builder(cbgs)(
-        scan["points"], scan["num_points"]), cs.CBGS_LAYERS)
+        scan["points"], scan["num_points"]), cs.CBGS_LAYERS, cbgs)
     no_tail = cs.cbgs_variant((2, False))
     layers = cs.cbgs_variant_layers((2, False))
     out["cbgs no tail"] = {
@@ -89,8 +93,9 @@ def plans():
             scan["points"], scan["num_points"]), layers).items()
         if key[1] == 128}
     lyft = cs.LYFT.scans(1, cs.LYFT.cut[2], cut=True)
-    out["lyft cut"] = layer_plans(cs.plan_builder(cs.LYFT.config(cut=True))(
-        lyft["points"], lyft["num_points"]), cs.LYFT.layers)
+    lcfg = cs.LYFT.config(cut=True)
+    out["lyft cut"] = layer_plans(cs.plan_builder(lcfg)(
+        lyft["points"], lyft["num_points"]), cs.LYFT.layers, lcfg)
     return out
 
 
