@@ -42,13 +42,42 @@ def counter_specs(cell):
     return sorted(specs)
 
 
+def _program_module(name: str):
+    """The program's module ``name``, or None where the program has no
+    such module (an older program: a metric that reads it reads None)."""
+    try:
+        return importlib.import_module(name)
+    except ModuleNotFoundError as e:
+        # the module or a package on its path is missing, not a module
+        # that it imports
+        if e.name is None or not (name + ".").startswith(e.name + "."):
+            raise
+        return None
+
+
 def read_counters(specs) -> Dict[str, int]:
     out = {}
     for s in specs:
         mod, fn = s.split(":")
-        out[s] = int(getattr(getattr(importlib.import_module(mod), fn),
-                             "launches", 0))
+        m = _program_module(mod)
+        out[s] = int(getattr(getattr(m, fn, None), "launches", 0))
     return out
+
+
+def program_trace(on: bool):
+    """Under ``--trace 1`` (``on``), the program's tracing
+    (det3d_tpu_torch/utils/trace.py) turned on before the step is made
+    and first called, so that the graph it captures carries the segment
+    markers; returned, for the runner to turn off for the timed window
+    and on again for the profiled stretch. None under ``--trace 0``,
+    which never touches it, or where the program has no such module."""
+    if not on:
+        return None
+    from benchmark.core.harness import PROGRAM
+    mod = _program_module(f"{PROGRAM}.utils.trace")
+    if mod is not None:
+        mod.enable(True)
+    return mod
 
 
 def launches_per_call(before, after, device) -> Dict[str, float]:
@@ -99,20 +128,36 @@ def per_layer(cell, ctx) -> Dict[str, dict]:
     return out
 
 
-def traced(cell, ctx, run, device):
-    """Profile ``run()`` and put the timeline into ``ctx``; the device
-    keys of the result line and the breakdown."""
-    prof = tr.profile(run, device)
+def traced(cell, ctx, run, device, calls, ptrace=None):
+    """Profile ``run()``, ``calls`` calls of the step, with the program's
+    tracing ``ptrace`` (program_trace) on and its totals reset, and put
+    into ``ctx`` the timeline, the traced calls, each segment's device ms
+    a call (``segments``: core/trace.py::per_call) and the program's host
+    spans (``program``: {name: (calls, host seconds)}); the device keys
+    of the result line and the breakdown."""
+    if ptrace is not None:
+        ptrace.reset()
+        ptrace.enable(True)
+    try:
+        prof = tr.profile(run, device)
+    finally:
+        if ptrace is not None:
+            ptrace.enable(False)
     tl = tr.timeline(prof)
-    ctx["timeline"] = tl
     del prof
+    ctx["timeline"] = tl
+    ctx["traced_calls"] = calls
+    ctx["segments"] = tr.per_call(tl, calls)
+    ctx["program"] = ptrace.totals() if ptrace is not None else {}
     return {"busy_s": tl["busy_s"], "window_s": tl["window_s"]}, \
         tr.breakdown(tl)
 
 
 def lost_records(cell, ctx):
     """Print, for each kernel metric, the records found against those the
-    capture's counters expect."""
+    capture's counters expect; and the segments' marker records against
+    the markers the capture launched, each occurrence dropped for a lost
+    marker, and the busy time inside and outside the segments."""
     import sys
     tl = ctx.get("timeline")
     if not tl:
@@ -125,3 +170,20 @@ def lost_records(cell, ctx):
         _, found, _ = tr.kernel_time(tl, kern, exp)
         print(f"trace {name}: {found} kernel records of {exp} expected "
               f"({max(exp - found, 0)} lost)", file=sys.stderr)
+    if not any(set(tr.SEGMENT_COUNTER) <= set(getattr(m, "COUNTERS", ()))
+               for m in cell.readers.values()):
+        return
+    exp = tr.expected_records(tr.SEGMENT_COUNTER, ctx)
+    calls = max(ctx["traced_calls"], 1)
+    print(f"trace segments: {tl['markers']} marker records of {exp} "
+          f"expected ({max(exp - tl['markers'], 0)} lost), "
+          f"{tl['marker_s'] / calls * 1e6:.3f} us of markers a call",
+          file=sys.stderr)
+    for k, v in sorted(tl["segments"].items()):
+        if v["dropped"]:
+            print(f"trace segment {k}: {v['dropped']} occurrences dropped "
+                  f"(a marker lost), {v['paired']} paired", file=sys.stderr)
+    own = sum(v["self_s"] for v in tl["segments"].values())
+    print(f"trace segments: self {own / calls * 1e3:.4f} ms + outside "
+          f"{tl['unsegmented_s'] / calls * 1e3:.4f} ms a call, busy "
+          f"{tl['busy_s'] / calls * 1e3:.4f} ms a call", file=sys.stderr)

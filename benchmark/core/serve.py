@@ -6,7 +6,10 @@ next. A request's latency runs from the hand-over to the detections on
 the host. Set-up builds the stack (apis/train.py::build_stack), loads the
 seed's weights, makes the step (parallel/predict.py::make_predict_step)
 and calls it once on every pool batch, which captures its one graph;
-nothing is built or captured in the window.
+nothing is built or captured in the window. Under ``--trace 1`` the
+program's tracing is on while the step is made and captured, so that its
+graph carries the segment markers, off for the window and on again for
+the profiled stretch (core/common.py::program_trace, traced).
 
 Checked, once the window has closed and the program is freed: for each
 pool batch one of its requests, drawn from the seed among its first
@@ -56,6 +59,7 @@ def run(cell, args, device, t0):
     holder = {}
     hook = model.bbox_head.register_forward_hook(
         lambda m, a, o: holder.__setitem__("heads", o))
+    ptrace = common.program_trace(args.trace)
     step = make_predict_step(model, vg, asg, cids, test_cfg)
     specs = common.counter_specs(cell)
     before = common.read_counters(specs)
@@ -65,6 +69,8 @@ def run(cell, args, device, t0):
     for b in pool:                      # every batch once, outside the window
         _host(step(b))
     common.sync(device)
+    if ptrace is not None:
+        ptrace.enable(False)
     setup_s = time.perf_counter() - t0 - ref_s
     common.progress(cell, "set-up done")
 
@@ -108,8 +114,8 @@ def run(cell, args, device, t0):
                     out = step(batch)
                 with tr.span("readback"):
                     _host(out)
-        trace_info, breakdown = common.traced(cell, ctx, stretch, device)
-        ctx["traced_calls"] = nb
+        trace_info, breakdown = common.traced(cell, ctx, stretch, device,
+                                              nb, ptrace)
         info.update(trace_info)
     hook.remove()
     del step, model, holder, out

@@ -13,7 +13,10 @@ The window then steps on through the pool, cycled, reading the loss on
 the host every ``loss_every`` steps as a trainer's logger does, and ends
 with a synchronize. Once it has closed and the program is freed, the
 reference takes the same three steps from the same weights
-(core/judge.py).
+(core/judge.py). Under ``--trace 1`` the program's tracing is on while
+the step is made and its first call captures it, off for the window and
+on again for the profiled stretch (core/common.py::program_trace,
+traced).
 """
 
 from __future__ import annotations
@@ -78,6 +81,7 @@ def run(cell, args, device, t0):
     model, vg, asg, cids, _ = build_stack(cell.cfg, device=device)
     model.load_state_dict(params)
     state, _ = init_state(cell.cfg, model, total)
+    ptrace = common.program_trace(args.trace)
     step = make_train_step(state, vg, asg, cids)
     names = [n for n, _ in model.named_parameters()]
     common.progress(cell, "weights calibrated, stack built")
@@ -96,6 +100,8 @@ def run(cell, args, device, t0):
     prog = {"loss": losses, "grad": grad, "update": update}
     common.progress(cell, "three checked steps done")
     common.sync(device)
+    if ptrace is not None:
+        ptrace.enable(False)
     setup_s = time.perf_counter() - t0 - ref_s
 
     every = int(mix.get("loss_every", 10))
@@ -131,8 +137,8 @@ def run(cell, args, device, t0):
                     m = step(pool[i])
                 with tr.span("loss_read"):
                     float(m["loss"])
-        trace_info, breakdown = common.traced(cell, ctx, stretch, device)
-        ctx["traced_calls"] = len(traced)
+        trace_info, breakdown = common.traced(cell, ctx, stretch, device,
+                                              len(traced), ptrace)
         info.update(trace_info)
     del step, state, model, m
     common.free(device)

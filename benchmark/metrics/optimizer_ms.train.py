@@ -1,0 +1,13 @@
+"""optimizer_ms.train: the optimizer (gradient clip and Adam), in device
+ms a train step of the ``--trace 1`` stretch: the busy time between the
+segment's markers (no segment nests in it) (core/trace.py::segments),
+from the program's segment ``optimizer``
+(parallel/train.py::make_train_step)."""
+
+from benchmark.core import trace
+
+COUNTERS = trace.SEGMENT_COUNTER
+
+
+def read(ctx):
+    return trace.segment_ms(ctx, "train", "optimizer")

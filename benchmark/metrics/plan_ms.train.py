@@ -1,0 +1,13 @@
+"""plan_ms.train: the device training plan builder (rulebooks and
+inverse rulebooks), in device ms a train step of the ``--trace 1``
+stretch: the busy time between the segment's markers (no segment nests
+in it) (core/trace.py::segments), from the program's segment ``plan``
+(models/backbones.py::_plan_and_dtype)."""
+
+from benchmark.core import trace
+
+COUNTERS = trace.SEGMENT_COUNTER
+
+
+def read(ctx):
+    return trace.segment_ms(ctx, "train", "plan")

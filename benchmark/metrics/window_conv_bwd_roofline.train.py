@@ -1,6 +1,8 @@
 """window_conv_bwd_roofline.train: csrc/window_conv_bwd.cu's share of its
-bound in the traced train steps: every sparse conv's dW and every strided
-sparse conv's inverse dX, each bound by work/counts.py::bwd_work on the
+bound in the traced train steps: the dW of every conv the window-conv
+kernels run, the sparse stages' and the dense tail's on its active sites
+(kinds "sparse" and "dense"), and every strided one's inverse dX, each
+bound by work/counts.py::bwd_work on the
 reference's rows and pairs, over the device time of the four kernels'
 records (scaled where records were lost)."""
 
@@ -11,6 +13,7 @@ KERNELS = ("window_conv_dw_kernel", "window_conv_dw_sum_kernel",
            "window_conv_inv_count_kernel", "window_conv_inv_kernel")
 COUNTERS = {"det3d_tpu_torch.ops.window_conv_cuda:window_conv_dw": 2,
             "det3d_tpu_torch.ops.window_conv_cuda:window_conv_inv": 2}
+KINDS = ("sparse", "dense")     # the convs the kernels run
 
 
 def read(ctx):
@@ -24,7 +27,7 @@ def read(ctx):
     bound = 0.0
     for work in works:
         for w in work:
-            if w["kind"] != "sparse":
+            if w["kind"] not in KINDS:
                 continue
             bw = counts.bwd_work(w)
             bound += counts.bound(*bw["dw"], ctx["peak"])

@@ -1,7 +1,9 @@
 """window_conv_roofline.train: csrc/window_conv.cu's share of its bound
-in the traced train steps: the forward of every sparse conv and the
-mirrored forward that is a submanifold conv's dX (all but the first
-layer's, whose input takes no gradient), each bound by
+in the traced train steps: the forward of every conv that the kernel
+runs, the sparse stages' and the dense tail's on its active sites (kinds
+"sparse" and "dense"), and the mirrored forward that is a submanifold
+conv's dX (all but the first layer's, whose input takes no gradient),
+each bound by
 work/counts.py::conv_work / bwd_work on the reference's rows and pairs,
 over the device time of the kernel's records (scaled where records were
 lost)."""
@@ -12,6 +14,7 @@ from benchmark.work import counts
 KERNELS = ("window_conv_f32_kernel", "window_conv_bf16_kernel")
 COUNTERS = {"det3d_tpu_torch.ops.window_conv_cuda:window_conv": 1,
             "det3d_tpu_torch.ops.window_conv_cuda:window_conv_subm_dx": 1}
+KINDS = ("sparse", "dense")     # the convs the kernel runs
 
 
 def read(ctx):
@@ -25,7 +28,7 @@ def read(ctx):
     bound = 0.0
     for work in works:
         for i, w in enumerate(work):
-            if w["kind"] != "sparse":
+            if w["kind"] not in KINDS:
                 continue
             bound += counts.bound(*counts.conv_work(w), ctx["peak"])
             if w["subm"] and i > 0:

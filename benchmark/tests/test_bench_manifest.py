@@ -126,3 +126,55 @@ def test_a_cell_and_a_metric_added_as_data_are_found(tmp_path):
 def test_a_missing_cell_fails():
     with pytest.raises(harness.Failure):
         harness.Cell(ROOT, "no-such-cell", False)
+
+
+def test_a_configuration_added_as_data_runs_correct(tmp_path, capsys):
+    """A copy of cbgs-nusc under a new name, a cell over it and a segment
+    metric on that cell, added to a copy of the benchmark as files and
+    entries only: the tiny tree cuts it by the default rule and a whole
+    run on the CPU comes out correct."""
+    src = tmp_path / "src"
+    for sub in ("configs", "traffic", "metrics"):
+        shutil.copytree(tiny.BENCH / sub, src / "benchmark" / sub)
+    m = tiny.manifest()
+    cfg = json.loads((tiny.BENCH / "configs" / "cbgs-nusc.json").read_text())
+    cfg["name"] = "probe-nusc"
+    (src / "benchmark/configs/probe-nusc.json").write_text(json.dumps(cfg))
+    base = next(c for c in m["configs"] if c["name"] == "cbgs-nusc")
+    m["configs"].append(dict(base, name="probe-nusc",
+                             file="benchmark/configs/probe-nusc.json"))
+    m["workloads"].append({"name": "probe-serve-points",
+                           "config": "probe-nusc",
+                           "traffic": "serve-points-300k-sweeps", "chips": 1,
+                           "why": "the CBGS configuration under a new name"})
+    for e in m["end_to_end"]:
+        if "cbgs-serve-points" in e.get("workloads", []):
+            e["workloads"].append("probe-serve-points")
+    shutil.copy(src / "benchmark/metrics/dense_tail_ms.serve.py",
+                src / "benchmark/metrics/probe_tail_ms.serve.py")
+    m["per_layer"].append({"name": "probe_tail_ms.serve", "unit": "ms",
+                           "better": "lower", "source": "device_trace",
+                           "layer": "middle, dense tail",
+                           "moves": "serve_scans_per_s",
+                           "workloads": ["probe-serve-points"]})
+    (src / "BENCHMARK.json").write_text(json.dumps(m))
+    assert ("probe-nusc", "serve-points-300k-sweeps", "serve") in \
+        tiny.pairs(src)
+
+    root = tiny.write_tree(tmp_path / "tiny", source=src)
+    cut = json.loads((root / "benchmark/configs/tiny-probe-nusc.json")
+                     .read_text())
+    # the default rule: a range centred on the car, +-3.2 m, 500 voxels
+    assert cut == dict(tiny.tiny_config("cbgs-nusc"), name="tiny-probe-nusc")
+    assert cut["voxel_generator"]["max_voxel_num"] == 500
+    assert cut["voxel_generator"]["range"][:2] == [-3.2, -3.2]
+    cell = harness.Cell(root, "tiny-probe-serve-points", True)
+    assert list(cell.readers) == ["probe_tail_ms.serve"]
+    rc = harness.main(["--workload", "tiny-probe-serve-points", "--seed",
+                       str(2 ** 31 + 29), "--seconds", "3", "--trace", "1"],
+                      root=root, require_cuda=False)
+    assert rc == 0
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["correct"] is True, line["compared"]
+    # no device trace on the CPU: the segment metric reads nothing
+    assert line["metrics"] == {}

@@ -1,5 +1,6 @@
 """The traffic generator repeats exactly for a seed, and every seed gets
-the same set of sizes."""
+the same set of sizes: every mix of the manifest's cells, with the
+configuration of its first cell (tiny.mixes)."""
 
 import numpy as np
 import pytest
@@ -7,12 +8,8 @@ import pytest
 from benchmark.core import traffic
 from benchmark.tests import tiny
 
-MIXES = ["serve-points-16k", "serve-points-300k-sweeps",
-         "train-points-16k", "train-points-300k-sweeps"]
-CFG = {"serve-points-16k": "second-kitti-car",
-       "serve-points-300k-sweeps": "cbgs-nusc",
-       "train-points-16k": "second-kitti-car",
-       "train-points-300k-sweeps": "cbgs-nusc"}
+CFG = tiny.mixes()
+MIXES = list(CFG)
 BIG = 2 ** 31 + 11
 
 
